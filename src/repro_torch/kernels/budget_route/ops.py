@@ -1,0 +1,142 @@
+"""Public fused budget-route op: top-k threshold + CUDA select-and-compact.
+
+``budget_route(scores, tokens, alpha)`` is the device-side realization of
+scheduler.plan_batch: tau = the floor(alpha*N)-th largest score (one
+``torch.topk``, outside the kernel, as ``lax.top_k`` sits outside the
+Pallas kernel in the JAX package), clamped to the shared positive
+threshold, then the select+compact kernel (``csrc/budget_route.cu``)
+for CUDA tensors or the plain version (``ref.py``) for CPU tensors.
+
+Semantics are the exact device mirror of ``scheduler.plan_batch``:
+floor capacity (floor(alpha*N) == 0 routes nothing), tau clamped to
+``POSITIVE_TAU``, ties at tau kept in row order up to capacity. Only
+the value of the k-th largest score is taken from ``torch.topk``, so its
+unspecified tie order cannot change the selection.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.budget_route.ref import budget_route_ref
+from repro_torch.kernels.cuda_lib import I, P
+
+# keep in sync with scheduler.POSITIVE_TAU (not imported: kernels must not
+# depend on core)
+POSITIVE_TAU = 1e-12
+BLOCK_ROWS = 1024                  # rows per block (csrc kBlock)
+
+KERNEL = cuda_lib.CudaKernel(
+    "budget_route", "adaparse_budget_route",
+    [P, P, P, I, I, I, I, P, P, P, P, P])
+
+
+def capacity_floor(alpha: float, k: int) -> int:
+    """⌊α·k⌋ with an epsilon guard against float dust.
+
+    ``int(alpha * k)`` under-floors rational α whose product is an exact
+    integer (0.29 * 100 → 28.999999999999996 → 28, not 29). Snap the
+    product to the nearest integer when it is within 1e-9 *relative*
+    tolerance — tight enough that genuinely fractional products
+    (0.2899999 * 100) still truncate — then floor and clamp to [0, k].
+
+    Single source of truth for every selection path: the host mirror
+    (``scheduler.plan_batch`` / ``budget_topk``) and the device op
+    (``budget_route``) all call this, so capacity parity holds by
+    construction. Lives in the kernels layer because kernels must not
+    depend on core (core imports kernels, not the reverse).
+    """
+    v = alpha * k
+    r = round(v)
+    if abs(v - r) <= 1e-9 * max(abs(v), 1.0):
+        v = r
+    return max(min(int(v), k), 0)
+
+
+def _check(scores, tokens, tau) -> None:
+    if scores.dim() != 1 or scores.dtype != torch.float32:
+        raise ValueError(f"budget_route: scores must be (N,) float32 (got "
+                         f"{tuple(scores.shape)} {scores.dtype})")
+    if tokens.dim() != 2 or tokens.shape[0] != scores.shape[0]:
+        raise ValueError(f"budget_route: tokens must be (N, D) with N = "
+                         f"{scores.shape[0]} (got {tuple(tokens.shape)})")
+    if tokens.device != scores.device or tau.device != scores.device:
+        raise ValueError("budget_route: scores, tokens and tau must share "
+                         "one device")
+    if scores.device.type == "cuda":
+        if tokens.element_size() != 4:
+            raise ValueError(f"budget_route: the kernel moves 4-byte "
+                             f"token elements (got {tokens.dtype})")
+        if not (scores.is_contiguous() and tokens.is_contiguous()):
+            raise ValueError("budget_route: scores and tokens must be "
+                             "contiguous")
+        if tau.dtype != torch.float32 or tau.numel() != 1:
+            raise ValueError("budget_route: tau must be one float32")
+    elif scores.device.type != "cpu":
+        raise ValueError(f"budget_route: unsupported device "
+                         f"{scores.device}")
+
+
+def _launch(scores, tokens, tau, counts, out, idx, count, *,
+            capacity: int) -> None:
+    """One kernel launch (two passes on the stream) into preallocated
+    outputs; no synchronisation."""
+    n, d = tokens.shape
+    row_bytes = 4 * d
+    vec16 = int(row_bytes % 16 == 0 and tokens.data_ptr() % 16 == 0
+                and out.data_ptr() % 16 == 0)
+    KERNEL(scores.data_ptr(), tau.data_ptr(), tokens.data_ptr(),
+           n, row_bytes, capacity, vec16, counts.data_ptr(),
+           out.data_ptr(), idx.data_ptr(), count.data_ptr(),
+           cuda_lib.stream_of(scores.device))
+
+
+def route_tau(scores, capacity: int, require_positive: bool = True):
+    """The capacity-th largest score (a 1-element tensor on the scores'
+    device), clamped to ``POSITIVE_TAU`` when ``require_positive``."""
+    kth = torch.topk(scores, capacity).values[-1:]
+    if require_positive:
+        kth = torch.clamp(kth, min=POSITIVE_TAU)
+    return kth
+
+
+def budget_route_kernel(scores, tokens, tau, *, capacity: int):
+    """The CUDA kernel on CUDA tensors: (routed (capacity, D), idx
+    (capacity,) int32 source rows (-1 = empty), count () int32)."""
+    if scores.device.type != "cuda":
+        raise ValueError(f"budget_route_kernel: CUDA tensors only (got "
+                         f"{scores.device})")
+    n, d = tokens.shape
+    dev = scores.device
+    out = torch.zeros((capacity, d), dtype=tokens.dtype, device=dev)
+    idx = torch.empty((capacity,), dtype=torch.int32, device=dev)
+    count = torch.empty((1,), dtype=torch.int32, device=dev)
+    if n == 0:
+        idx.fill_(-1)
+        count.zero_()
+        return out, idx, count[0]
+    counts = torch.empty((2 * (-(-n // BLOCK_ROWS)),), dtype=torch.int32,
+                         device=dev)
+    _launch(scores, tokens, tau.reshape(1), counts, out, idx, count,
+            capacity=capacity)
+    return out, idx, count[0]
+
+
+def budget_route(scores, tokens, alpha: float, *,
+                 require_positive: bool = True):
+    """scores (N,) f32, tokens (N, D), routing fraction ``alpha`` ->
+    (routed (⌊αN⌋, D), idx (⌊αN⌋,) int32, count () int32). CPU tensors
+    run the plain version, CUDA tensors the kernel."""
+    n = scores.shape[0]
+    capacity = capacity_floor(alpha, n)
+    if capacity == 0:
+        d = tokens.shape[1]
+        return (torch.zeros((0, d), dtype=tokens.dtype,
+                            device=tokens.device),
+                torch.zeros((0,), dtype=torch.int32, device=tokens.device),
+                torch.zeros((), dtype=torch.int32, device=tokens.device))
+    tau = route_tau(scores, capacity, require_positive)
+    _check(scores, tokens, tau)
+    if scores.device.type == "cpu":
+        return budget_route_ref(scores, tokens, tau[0], capacity=capacity)
+    return budget_route_kernel(scores, tokens, tau, capacity=capacity)

@@ -1,0 +1,56 @@
+"""The PyTorch port stands alone: importing every ``repro_torch`` module
+and ``chip_smoke.py`` loads no JAX and nothing of the JAX package
+``repro`` (whose name ``repro_torch`` shares as a prefix)."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+sys.path.insert(0, sys.argv[1])
+sys.path.insert(0, sys.argv[2])
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_imports_no_jax_and_no_repro():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE, str(ROOT / "src"), str(ROOT)],
+        capture_output=True, text=True, env=env, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == [], res["bad"]
+    # every module of the slice was imported
+    for name in ("repro_torch.core.engine", "repro_torch.launch.serve",
+                 "repro_torch.models.encoder",
+                 "repro_torch.kernels.fast_features.ops",
+                 "repro_torch.kernels.budget_route.ops",
+                 "repro_torch.kernels.ngram_score.ops"):
+        assert name in res["modules"]
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """Alone in a directory (or on a host with no card) the smoke run
+    exits non-zero and prints no result line."""
+    (tmp_path / "chip_smoke.py").write_text(
+        (ROOT / "chip_smoke.py").read_text())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"],
+                         capture_output=True, text=True, env=env,
+                         timeout=120, cwd=tmp_path)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

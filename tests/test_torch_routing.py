@@ -1,0 +1,148 @@
+"""budget_route + scheduler of the PyTorch port against the JAX package,
+on the CPU (the port's plain version). The JAX side runs its jnp
+reference and its Pallas kernel in interpret mode. Selections, counts,
+source indices and routed rows are integers or copies: held exactly."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import scheduler as jsched
+from repro.kernels.budget_route.kernel import budget_route_kernel
+from repro.kernels.budget_route.ops import budget_route as j_route
+from repro_torch.core import scheduler as tsched
+from repro_torch.kernels.budget_route import ops as tops
+from repro_torch.kernels.budget_route.ref import budget_route_ref
+
+
+def _route_all(scores, tokens, alpha, kernel=True):
+    """(port, jax ref[, jax interpret kernel]) outputs as numpy."""
+    t = tops.budget_route(torch.from_numpy(scores),
+                          torch.from_numpy(tokens), alpha)
+    outs = [tuple(np.asarray(x) for x in t)]
+    for fk in (False, True)[:1 + kernel]:
+        j = j_route(jnp.asarray(scores), jnp.asarray(tokens), alpha,
+                    force_kernel=fk)
+        outs.append(tuple(np.asarray(x) for x in j))
+    return outs
+
+
+def _assert_same(outs):
+    """idx and count equal; routed rows equal up to count (the JAX
+    kernel leaves the unused rows of its output unwritten)."""
+    (rows, idx, count), *rest = outs
+    for r, i, c in rest:
+        np.testing.assert_array_equal(idx, i)
+        assert int(count) == int(c)
+        np.testing.assert_array_equal(rows[:int(count)], r[:int(c)])
+    assert not rows[int(count):].any()          # the port zero-fills
+
+
+def _set(idx) -> set:
+    idx = np.asarray(idx)
+    return set(idx[idx >= 0].tolist())
+
+
+def test_ties_never_displace_strictly_better():
+    """The tie cases of the JAX routing tests: rows above tau are always
+    kept, ties at tau fill the remaining slots in row order."""
+    scores = np.array([0.3, 0.3, 0.7], np.float32)          # capacity 2
+    tokens = np.arange(12, dtype=np.float32).reshape(3, 4)
+    outs = _route_all(scores, tokens, 2 / 3)
+    _assert_same(outs)
+    assert _set(outs[0][1]) == {0, 2} and int(outs[0][2]) == 2
+    assert set(tsched.plan_batch(scores, 2 / 3).expensive_idx) == {0, 2}
+    # many ties before the best doc, tie budget spread across rows
+    scores = np.full(80, 0.5, np.float32)
+    scores[70] = 2.0
+    tokens = np.random.RandomState(0).randn(80, 4).astype(np.float32)
+    outs = _route_all(scores, tokens, 0.1)                   # capacity 8
+    _assert_same(outs)
+    plan = tsched.plan_batch(scores, 0.1)
+    assert plan.expensive_idx.tolist() == [0, 1, 2, 3, 4, 5, 6, 70]
+    assert _set(outs[0][1]) == set(plan.expensive_idx.tolist())
+    # small JAX blocks: the tie budget carries across grid steps there
+    _, idx, _ = budget_route_kernel(jnp.asarray(scores),
+                                    jnp.asarray(tokens), 0.5, capacity=8,
+                                    block_n=16, interpret=True)
+    t_rows, t_idx, _ = budget_route_ref(torch.from_numpy(scores),
+                                        torch.from_numpy(tokens),
+                                        torch.tensor(0.5), capacity=8)
+    np.testing.assert_array_equal(t_idx.numpy(), np.asarray(idx))
+
+
+def test_capacity_clamp_at_k():
+    rng = np.random.RandomState(3)
+    scores = rng.randn(32).astype(np.float32)
+    outs = _route_all(scores, np.zeros((32, 4), np.float32), 1.0)
+    _assert_same(outs)
+    want = set(np.nonzero(scores >= tsched.POSITIVE_TAU)[0].tolist())
+    assert _set(outs[0][1]) == want and int(outs[0][2]) == len(want)
+
+
+@pytest.mark.parametrize("k,alpha,want", [
+    (100, 0.29, 29), (50, 0.58, 29), (200, 0.145, 29),
+    (10, 0.7, 7), (3, 2 / 3, 2), (300, 0.07, 21),
+    (100, 0.2899999, 28),
+])
+def test_capacity_floor_rational_alpha_parity(k, alpha, want):
+    """⌊α·k⌋ with the float-dust snap, and every selection path of both
+    packages agreeing on the selected set."""
+    from repro.kernels.budget_route.ops import capacity_floor as j_cap
+
+    assert tops.capacity_floor(alpha, k) == want == j_cap(alpha, k)
+    rng = np.random.RandomState(k)
+    scores = (np.abs(rng.randn(k)) + 1.0).astype(np.float32)
+    plan = tsched.plan_batch(scores, alpha)
+    assert plan.expensive_idx.size == want
+    mask, _ = tsched.budget_topk(torch.from_numpy(scores), alpha)
+    assert int(mask.sum()) == want
+    outs = _route_all(scores, rng.randn(k, 4).astype(np.float32), alpha,
+                      kernel=False)
+    _assert_same(outs)
+    assert int(outs[0][2]) == want
+    assert _set(outs[0][1]) == set(plan.expensive_idx.tolist())
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_plan_batch_and_budget_route_parity(seed):
+    """Random batches with ties (scores on a coarse grid, signed zeros
+    included), several alphas including one whose capacity is 0."""
+    rng = np.random.RandomState(seed)
+    k = int(rng.randint(1, 120))
+    scores = (np.round(rng.randn(k) * 3) / 3).astype(np.float32)
+    tokens = rng.randint(0, 1000, (k, 6)).astype(np.int32)
+    for alpha in (0.0, 0.05, 0.2, 0.5):
+        tp = tsched.plan_batch(scores, alpha)
+        jp = jsched.plan_batch(scores, alpha)
+        np.testing.assert_array_equal(tp.expensive_idx, jp.expensive_idx)
+        np.testing.assert_array_equal(tp.cheap_idx, jp.cheap_idx)
+        assert tp.alpha_effective == jp.alpha_effective
+        outs = _route_all(scores, tokens, alpha, kernel=alpha == 0.2)
+        _assert_same(outs)
+        assert _set(outs[0][1]) == set(tp.expensive_idx.tolist())
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_budget_topk_parity_breaks_ties_by_index(seed):
+    rng = np.random.RandomState(seed)
+    k = 40
+    scores = (np.round(rng.randn(k) * 2) / 2).astype(np.float32)
+    for alpha in (0.1, 0.3, 1.0):
+        tm, ti = tsched.budget_topk(torch.from_numpy(scores), alpha)
+        jm, ji = jsched.budget_topk(jnp.asarray(scores), alpha)
+        np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    tm, ti = tsched.budget_topk(torch.from_numpy(scores), 0.0)
+    assert not tm.any() and ti.numel() == 0
+
+
+def test_host_helpers_are_copies():
+    pools = ["cpu", "cpu", "gpu", "gpu"]
+    for node in range(4):
+        for dev in ("cpu", "gpu"):
+            assert (tsched.reissue_candidates(node, pools, dev, 4, {1})
+                    == jsched.reissue_candidates(node, pools, dev, 4, {1}))
+    clocks = [3.0, 1.0, 1.0, 2.0]
+    assert tsched.least_loaded([0, 1, 2, 3], clocks) \
+        == jsched.least_loaded([0, 1, 2, 3], clocks) == 1
