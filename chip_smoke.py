@@ -16,7 +16,12 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    on the card at the main path's shapes, with the tolerance stated:
    fast_features (n=256 real packed batches, max_len 0 and 512),
    budget_route (N=256, D=512, alpha=0.05, and route_64k: N=65536),
-   ngram_score (B=64 and 256, L=256). Times are CUDA-event medians.
+   ngram_score (B=64 and 256, L=256), flash_attention (the qwen3-1.7b
+   prefill shape B=4 S=4096 H=16 Hk=8 D=128 causal in bf16 and in f32,
+   and the h2o-danube-3-4b shape B=1 S=8192 H=32 Hk=8 D=120 window 4096
+   in bf16, each also timed against PyTorch's
+   ``scaled_dot_product_attention`` as a yardstick the port never calls).
+   Times are CUDA-event medians.
 2. ft: ``serve.main`` with ``--variant ft --device cuda`` and with
    ``--device cpu``: the metric dicts must be equal, and fast_features
    must have launched at least once per batch.
@@ -28,6 +33,20 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    the predictions must be finite in [0, 1]. A reduced f32 encoder then
    runs the same engine on cuda and on cpu, whose records must agree
    (a flip allowed only within 1e-5 of tau).
+4. lm: the full-width bf16 ``qwen3-1.7b`` (28 layers, d=2048, random
+   weights from a seeded CUDA generator) with
+   ``attention_impl="pallas"``: ``prefill`` of B=4 x S=4096 seeded tokens
+   (``prefill_32k`` is batch 32 x 32768; cut to fit one card and the
+   run's time), then 16 greedy ``decode_step``s on the cache padded to
+   S+16. flash_attention must launch once per layer; the logits must be
+   finite and within 2e-2 relative L2 of a naive-attention prefill (last
+   position) and of ``lm_logits`` over the S+1 tokens (first decode step).
+   Also reported: both bf16 prefills against one computed in float32
+   (the model's bf16 noise floor), and a torch.profiler pass over a
+   prefill and two decode steps (device busy share, top kernels).
+5. lm_small_parity: the reduced f32 qwen3-tiny and danube-tiny (window
+   32) run ``prefill`` and ``decode_step`` on cuda (the kernel) and on
+   cpu (the plain version); the logits must agree within 2e-5.
 
 The line before the last is the per-kernel JSON summary; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -46,6 +65,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 SCALAR_OPS_PER_S = 67e12         # H100 SXM non-tensor FP32 peak, used for
 #                                  the n-gram kernel's integer compares
+#                                  and for float32 attention
+BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
 ALPHA = 0.05
 SEED = 0
 
@@ -81,9 +102,10 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(bytes_moved: float, ops: float = 0.0) -> tuple[float, str]:
+def bound(bytes_moved: float, ops: float = 0.0,
+          ops_per_s: float = SCALAR_OPS_PER_S) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -243,16 +265,91 @@ def check_ngram_score(docs, pages_by_parser, dev) -> list[dict]:
     return rows
 
 
-# -------------------------------------------------------------- phases 2-3
+# (row name, B, S, H, Hk, D, window, dtype, tolerance): causal, Sq = Skv
+FLASH_ROWS = (
+    ("qwen3_prefill_bf16", 4, 4096, 16, 8, 128, None, "bfloat16", 2e-2),
+    ("danube_prefill_bf16", 1, 8192, 32, 8, 120, 4096, "bfloat16", 2e-2),
+    ("qwen3_prefill_f32", 4, 4096, 16, 8, 128, None, "float32", 2e-5),
+)
+
+
+def visible_pairs(s: int, window: int | None) -> int:
+    """(query, key) pairs a causal, optionally windowed, S x S attention
+    computes."""
+    return sum(min(q + 1, window or q + 1) for q in range(s))
+
+
+def check_flash_attention(dev) -> list[dict]:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    rows = []
+    for name, b, s, h, hk, d, window, dtype, tol in FLASH_ROWS:
+        dt = getattr(torch, dtype)
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(dt)
+                   for shape in ((b, s, h, d), (b, s, hk, d), (b, s, hk, d)))
+        kw = dict(causal=True, window=window)
+        got = ops.flash_attention(q, k, v, **kw).float()
+        want = ref.flash_attention_ref(q, k, v, **kw).float()
+        torch.cuda.synchronize()
+        # tolerance: atol = rtol = 2e-2 in bf16, 2e-5 in f32 (the JAX
+        # kernel's bar, tests/test_kernels.py)
+        diff = (got - want).abs()
+        assert bool((diff <= tol + tol * want.abs()).all()), \
+            f"flash_attention {name}: max err {diff.max().item()}"
+        err = diff.max().item()
+        # the yardstick: PyTorch's fused attention on the same tensors,
+        # in its (B, H, S, D) layout (views, no copies)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if window is None:
+            lib_kw = dict(is_causal=True)
+        else:
+            pos = torch.arange(s, device=dev)
+            dist = pos[:, None] - pos[None, :]
+            lib_kw = dict(attn_mask=(dist >= 0) & (dist < window))
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                                  **lib_kw)
+
+        lib_err = (library().transpose(1, 2).float() - want).abs().max().item()
+        del got, want, diff
+        out = torch.empty_like(q)
+        ms = time_ms(lambda: ops._launch(q, k, v, out, **kw), reps=10,
+                     warmup=2)
+        plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
+                           reps=3, warmup=1)
+        library_ms = time_ms(library, reps=10, warmup=2)
+        # 4 D operations (QK and PV multiply-adds) per visible pair and
+        # head; q, k, v read once and the output written once
+        n_ops = 4 * d * visible_pairs(s, window) * b * h
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        b_ms, b_by = bound(nbytes, n_ops, BF16_OPS_PER_S
+                           if dt == torch.bfloat16 else SCALAR_OPS_PER_S)
+        rows.append(dict(name="flash_attention", row=name, shape=dict(
+            b=b, s=s, h=h, hk=hk, d=d, window=window, dtype=dtype),
+            tolerance=tol, max_abs_err=err, library_max_abs_err=lib_err,
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+            bound_by=b_by, ops=n_ops, bytes=nbytes))
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    return rows
+
+
+# -------------------------------------------------------------- phases 2-5
 
 
 def kernels():
     from repro_torch.kernels.budget_route import ops as br
     from repro_torch.kernels.fast_features import ops as ff
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.ngram_score import ops as ng
 
     return {"fast_features": ff.KERNEL, "budget_route": br.KERNEL,
-            "ngram_score": ng.KERNEL}
+            "ngram_score": ng.KERNEL, "flash_attention": fa.KERNEL}
 
 
 def reset_counts() -> None:
@@ -416,8 +513,9 @@ def phase_llm() -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    for name, c in counts.items():
-        assert c > 0, f"{name} did not launch on the llm path: {counts}"
+    for name in ("fast_features", "budget_route", "ngram_score"):
+        assert counts[name] > 0, \
+            f"{name} did not launch on the llm path: {counts}"
     plans = batch_plans(eng, test)
     bs = eng.cfg.batch_size
     for b, (prep, out, imp, dev_set, host_set) in enumerate(plans):
@@ -470,6 +568,184 @@ def phase_llm() -> dict:
     return counts
 
 
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def device_profile(fn) -> dict:
+    """One ``fn()`` under torch.profiler: host-clock wall time, the summed
+    device time of the kernels and copies it ran, their share of the wall
+    time (the device's busy share), their count, and the five longest."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in ops) / 1e3
+    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:5]
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "busy_share": device_ms / wall_ms,
+            "device_ops": sum(e.count for e in ops),
+            "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
+                    for e in top]}
+
+
+def phase_lm() -> dict:
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import KVCache
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").model,
+                              attention_impl="pallas")   # full width, bf16
+    assert (cfg.n_layers, cfg.d_model, cfg.param_dtype) == \
+        (28, 2048, "bfloat16"), cfg
+    dev = torch.device("cuda")
+    b, s, n_dec = 4, 4096, 16
+    t0 = time.perf_counter()
+    params = T.init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                       dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in params["layers"].values()) + sum(
+        t.numel() for k, t in params.items() if k != "layers")
+    assert n_params == cfg.n_params(), (n_params, cfg.n_params())
+    toks = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                         generator=torch.Generator(device=dev)
+                         .manual_seed(SEED + 1))
+    T.prefill(params, cfg, toks[:, :256])          # warm the GEMM paths
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = T.prefill(params, cfg, toks)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    cache = KVCache(*(F.pad(t, (0, 0, 0, 0, 0, n_dec)) for t in cache))
+    nxt = logits.argmax(-1, keepdim=True)
+    first_tok, dec_logits = nxt, []
+    t0 = time.perf_counter()
+    for i in range(n_dec):
+        lg, cache = T.decode_step(params, cfg, nxt, cache, s + i)
+        dec_logits.append(lg)
+        nxt = lg.argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    assert counts["flash_attention"] == cfg.n_layers, counts
+    assert bool(torch.isfinite(logits).all()), "non-finite prefill logits"
+    assert all(bool(torch.isfinite(lg).all()) for lg in dec_logits), \
+        "non-finite decode logits"
+    # where the time goes: two more decode steps (rewriting the last two
+    # cache slots) and one prefill under the profiler
+    decode_prof = device_profile(lambda: [
+        T.decode_step(params, cfg, nxt, cache, s + n_dec - 2 + i)
+        for i in range(2)])
+    del cache
+    prefill_prof = device_profile(lambda: T.prefill(params, cfg, toks))
+    # the same prefill with naive attention: relative L2 of the last
+    # position's logits within 2e-2 (bf16 rounding of p in naive; the
+    # kernel keeps p in float32)
+    t0 = time.perf_counter()
+    logits_naive, cache_naive = T.prefill(
+        params, dataclasses.replace(cfg, attention_impl="naive"), toks)
+    torch.cuda.synchronize()
+    naive_prefill_s = time.perf_counter() - t0
+    del cache_naive
+    err_naive = rel_l2(logits, logits_naive)
+    assert err_naive <= 2e-2, f"pallas vs naive prefill: rel L2 {err_naive}"
+    # both bf16 prefills against one computed in float32 from the same
+    # bf16 weights (the kernel in f32): the bf16 noise floor of the model
+    logits_f32, _ = T.prefill(
+        params, dataclasses.replace(cfg, compute_dtype="float32"), toks)
+    err_f32 = {"pallas_bf16": rel_l2(logits, logits_f32),
+               "naive_bf16": rel_l2(logits_naive, logits_f32)}
+    # the first decode step against the full forward at position S
+    full, _ = T.lm_logits(params, cfg, torch.cat([toks, first_tok], 1))
+    err_full = rel_l2(dec_logits[0], full[:, s])
+    err_full_prefill = rel_l2(logits, full[:, s - 1])
+    del full
+    assert err_full <= 2e-2, f"decode vs full forward: rel L2 {err_full}"
+    assert err_full_prefill <= 2e-2, err_full_prefill
+    emit({"phase": "lm", "config": cfg.name, "attention_impl": "pallas",
+          "n_params": n_params, "batch": b, "seq_len": s,
+          "decode_steps": n_dec,
+          "reduced": "batch 4 x 4096 tokens, where prefill_32k is global "
+                     "batch 32 x 32768 (its KV cache alone would exceed "
+                     "one card); full width and depth; random weights",
+          "launches": counts, "init_s": init_s, "prefill_s": prefill_s,
+          "prefill_tokens_per_s": b * s / prefill_s,
+          "decode_s": decode_s, "decode_ms_per_step": decode_s / n_dec * 1e3,
+          "decode_tokens_per_s": b * n_dec / decode_s,
+          "naive_prefill_s": naive_prefill_s,
+          "max_memory_allocated_gb": peak_gb,
+          "rel_l2_vs_naive_prefill": err_naive,
+          "rel_l2_decode_vs_full_forward": err_full,
+          "rel_l2_prefill_vs_full_forward": err_full_prefill,
+          "rel_l2_vs_f32_compute_prefill": err_f32,
+          "profile": {"prefill": prefill_prof,
+                      "decode_2_steps": decode_prof}})
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_lm_small_parity() -> None:
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import KVCache
+
+    out = {}
+    for arch in ("qwen3-1.7b", "h2o-danube-3-4b"):
+        cfg = dataclasses.replace(get_config(arch).reduced().model,
+                                  attention_impl="pallas")
+        host = T.init_lm(cfg, torch.Generator().manual_seed(SEED), "cpu")
+        card = {k: ({n: t.cuda() for n, t in v.items()} if k == "layers"
+                    else v.cuda()) for k, v in host.items()}
+        toks = torch.randint(0, cfg.vocab_size, (2, 100),
+                             generator=torch.Generator().manual_seed(SEED))
+        errs = []
+        runs = {}
+        for name, p, dev in (("cuda", card, "cuda"), ("cpu", host, "cpu")):
+            lg, cache = T.prefill(p, cfg, toks.to(dev))
+            runs[name] = [lg.cpu()], KVCache(*(F.pad(t, (0, 0, 0, 0, 0, 4))
+                                               for t in cache))
+        nxt = runs["cpu"][0][0].argmax(-1, keepdim=True)
+        for i in range(4):
+            for name, p, dev in (("cuda", card, "cuda"), ("cpu", host, "cpu")):
+                lg, _ = T.decode_step(p, cfg, nxt.to(dev), runs[name][1],
+                                      100 + i)
+                runs[name][0].append(lg.cpu())
+            nxt = runs["cpu"][0][-1].argmax(-1, keepdim=True)
+        errs = [(a - b).abs().max().item()
+                for a, b in zip(runs["cuda"][0], runs["cpu"][0])]
+        # tolerance: 2e-5 on float32 logits (another summation order)
+        assert max(errs) <= 2e-5, f"{cfg.name} cuda vs cpu: {errs}"
+        out[cfg.name] = max(errs)
+    emit({"phase": "lm_small_parity", "prefill_len": 100, "decode_steps": 4,
+          "max_abs_err": out})
+
+
 # -------------------------------------------------------------- main
 
 
@@ -510,21 +786,26 @@ def main() -> int:
     exp_pages = P.run_parser_batch(P.EXPENSIVE_PARSER, docs, ccfg,
                                    np.random.RandomState(1))
     rows = (check_fast_features(ccfg, pages, dev) + check_budget_route(dev)
-            + check_ngram_score(docs, [pages, exp_pages], dev))
+            + check_ngram_score(docs, [pages, exp_pages], dev)
+            + check_flash_attention(dev))
     torch.cuda.synchronize()
     emit({"phase": "kernels", "card": card, "results": rows})
 
     ft_counts = phase_ft()
     llm_counts = phase_llm()
+    lm_counts = phase_lm()
+    phase_lm_small_parity()
 
     replaces = {
         "fast_features": "src/repro/kernels/fast_features/kernel.py:94",
         "budget_route": "src/repro/kernels/budget_route/kernel.py:76",
         "ngram_score": "src/repro/kernels/ngram_score/kernel.py:93",
+        "flash_attention": "src/repro/kernels/flash_attention/kernel.py:94",
     }
     main_shape = {"fast_features": dict(max_len=512),
                   "budget_route": dict(n=256),
-                  "ngram_score": dict(b=256)}
+                  "ngram_score": dict(b=256),
+                  "flash_attention": dict(d=128, dtype="bfloat16")}
     summary = []
     for name, src in replaces.items():
         row = next(r for r in rows if r["name"] == name and all(
@@ -533,12 +814,13 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
             "replaces": src,
-            "launches": ft_counts[name] + llm_counts[name],
+            "launches": ft_counts[name] + llm_counts[name]
+            + lm_counts[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows
                                if r["name"] == name),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": None})
+            "library_ms": row.get("library_ms")})
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,87 @@
 """Config dataclasses + arch/shape registry (the subset of
-``repro.configs.base`` the port's router needs: ``EncoderConfig``,
-``ShapeConfig``, ``ArchConfig``, ``register``/``get_config``)."""
+``repro.configs.base`` the port needs: ``MoEConfig``, ``LMConfig``,
+``EncoderConfig``, ``ShapeConfig``, ``ArchConfig``, ``LM_SHAPES``,
+``register``/``get_config``)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    router: str = "topk"            # "topk" (paper-of-arch faithful) | "budget" (AdaParse-style)
+    budget_alpha: float = 0.125      # only for router="budget": global expert budget fraction
+    aux_loss_weight: float = 0.01
+    router_dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    """Decoder-only transformer LM (dense or MoE).
+
+    ``remat``, ``scan_layers``, ``unroll_pairs``, ``q_chunk`` and
+    ``kv_chunk`` are the JAX package's lowering knobs; the port reads
+    only the two chunk sizes (``attention_impl="xla_flash"``)."""
+
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    d_head: int = 0                  # 0 -> d_model // n_heads
+    rope_theta: float = 1e4
+    qk_norm: bool = False
+    sliding_window: int | None = None  # SWA window size; None = full attention
+    attention_impl: str = "xla_flash"  # "xla_flash" | "naive" | "pallas"
+    q_chunk: int = 512
+    kv_chunk: int = 1024
+    moe: MoEConfig | None = None
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    logits_softcap: float | None = None
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    remat: bool = True
+    scan_layers: bool = True
+    unroll_pairs: bool = False   # unroll the flash block-pair scan (costing)
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or self.d_model // self.n_heads
+
+    def n_params(self) -> int:
+        """Total parameter count (embeddings included once if tied)."""
+        d, h, hk, dh, f, v, L = (self.d_model, self.n_heads, self.n_kv_heads,
+                                 self.head_dim, self.d_ff, self.vocab_size,
+                                 self.n_layers)
+        attn = d * h * dh + 2 * d * hk * dh + h * dh * d
+        if self.moe is not None:
+            ffn = d * self.moe.n_experts * 3 * self.moe.d_ff_expert \
+                + d * self.moe.n_experts
+        else:
+            ffn = 3 * d * f
+        norms = 2 * d + (2 * dh if self.qk_norm else 0)
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        return L * (attn + ffn + norms) + emb + d
+
+    def n_active_params(self) -> int:
+        """Active-per-token parameter count (MoE counts top_k experts)."""
+        if self.moe is None:
+            return self.n_params()
+        d, h, hk, dh, L = (self.d_model, self.n_heads, self.n_kv_heads,
+                           self.head_dim, self.n_layers)
+        attn = d * h * dh + 2 * d * hk * dh + h * dh * d
+        ffn = 3 * d * self.moe.d_ff_expert * self.moe.top_k \
+            + d * self.moe.n_experts
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return L * (attn + ffn + 2 * d) + emb + d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,3 +157,14 @@ def get_config(arch_id: str) -> ArchConfig:
     if arch_id not in _REGISTRY:
         raise KeyError(f"unknown arch {arch_id!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[arch_id]()
+
+
+# LM-family shared shape set -------------------------------------------------
+
+LM_SHAPES = (
+    ShapeConfig("train_4k", "train", {"seq_len": 4096, "global_batch": 256}),
+    ShapeConfig("prefill_32k", "prefill", {"seq_len": 32768, "global_batch": 32}),
+    ShapeConfig("decode_32k", "decode", {"seq_len": 32768, "global_batch": 128}),
+    ShapeConfig("long_500k", "decode", {"seq_len": 524288, "global_batch": 1},
+                note="needs sub-quadratic attention"),
+)

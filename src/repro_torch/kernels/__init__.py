@@ -4,6 +4,7 @@ TPU kernel they replace:
 - fast_features : the prepare stage's CLS-I features + LLM tokens
 - budget_route  : the alpha-budget select + compact dispatch
 - ngram_score   : the quality probe's per-document BLEU
+- flash_attention: the dense LM's prefill attention (``impl="pallas"``)
 
 Each subpackage: ``csrc/*.cu`` (the kernel, with a note on the TPU
 kernel it replaces and what bounds it), ``ref.py`` (the plain PyTorch

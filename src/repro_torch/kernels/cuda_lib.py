@@ -161,3 +161,5 @@ def stream_of(device) -> int:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
+F = ctypes.c_float

@@ -1,0 +1,88 @@
+"""Public flash-attention op (forward only): the LM's prefill attention
+for ``attention_impl="pallas"``.
+
+``flash_attention(q, k, v, causal=, window=)`` takes q (B, Sq, H, D) and
+k, v (B, Skv, Hk, D) in the JAX package's layout, float32 or bfloat16,
+and returns q's shape and dtype: the CUDA kernel
+(``csrc/flash_attention.cu``, float32 arithmetic, one block per
+(64-row query tile, head, batch)) for CUDA tensors, the plain version
+(``ref.py``) for CPU tensors. The kernel reads q, k and v through their
+strides (the head dim must be contiguous) and writes a new contiguous
+output; the wrapper makes no padded copies.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.cuda_lib import F, I, L, P
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+MAX_HEAD_DIM = 256                 # csrc kMaxHeadDim
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+KERNEL = cuda_lib.CudaKernel(
+    "flash_attention", "adaparse_flash_attention",
+    [P, P, P, P, I, I, I, I, I, I, I] + [L] * 9 + [I, I, F, P])
+
+
+def _check(q, k, v, window) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention needs q (B, Sq, H, D) and k, v "
+                         f"(B, Skv, Hk, D) (got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)})")
+    b, _, h, d = q.shape
+    bk, skv, hk, dk = k.shape
+    if (bk, dk) != (b, d):
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} differ in batch or head dim")
+    if hk == 0 or h % hk:
+        raise ValueError(f"flash_attention: H={h} is not a multiple of "
+                         f"Hk={hk}")
+    if skv == 0:
+        raise ValueError("flash_attention: no keys (Skv=0)")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window {window} < 1")
+    if len({t.device for t in (q, k, v)}) != 1:
+        raise ValueError("flash_attention: q, k and v must share one device")
+    if len({t.dtype for t in (q, k, v)}) != 1:
+        raise ValueError("flash_attention: q, k and v must share one dtype")
+    if q.device.type == "cuda":
+        if q.dtype not in _DTYPES:
+            raise ValueError(f"flash_attention: the kernel takes float32 or "
+                             f"bfloat16 (got {q.dtype})")
+        if d > MAX_HEAD_DIM:
+            raise ValueError(f"flash_attention: head dim {d} > "
+                             f"{MAX_HEAD_DIM}")
+        if any(t.stride(-1) != 1 for t in (q, k, v)):
+            raise ValueError("flash_attention: the head dim of q, k and v "
+                             "must be contiguous")
+    elif q.device.type != "cpu":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+
+def _launch(q, k, v, out, *, causal: bool, window: int | None) -> None:
+    """One kernel launch into a preallocated contiguous ``out`` of q's
+    shape and dtype; no synchronisation."""
+    b, sq, h, d = q.shape
+    _, skv, hk, _ = k.shape
+    KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+           _DTYPES[q.dtype], b, sq, skv, h, hk, d,
+           *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+           int(causal), 0 if window is None else int(window),
+           1.0 / math.sqrt(d), cuda_lib.stream_of(q.device))
+
+
+def flash_attention(q, k, v, *, causal=True, window=None):
+    """q (B, Sq, H, D); k, v (B, Skv, Hk, D); H % Hk == 0. Query head h
+    attends with KV head h // (H // Hk); causal positions start at 0 for
+    queries and keys, and the window keeps ``qpos - kpos < window``."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if out.numel():
+        _launch(q, k, v, out, causal=causal, window=window)
+    return out

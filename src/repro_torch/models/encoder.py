@@ -17,20 +17,14 @@ dtype. ``remat``/``scan_layers`` are training knobs with no effect here.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 from torch import nn
 
 from repro_torch import device as device_lib
 from repro_torch.configs.base import EncoderConfig
-from repro_torch.models.layers import embed_lookup, gelu, layer_norm
-
-NEG_INF = -1e30                 # additive mask bias (repro/models/attention)
-
-
-def _dtype(name: str) -> torch.dtype:
-    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
-            "float16": torch.float16}[name]
+from repro_torch.models.attention import NEG_INF
+from repro_torch.models.layers import (embed_lookup, from_numpy, gelu,
+                                      layer_norm, torch_dtype as _dtype)
 
 
 def _layer_shapes(cfg: EncoderConfig) -> dict:
@@ -201,13 +195,6 @@ def init_encoder(cfg: EncoderConfig, generator: torch.Generator | None = None,
     return enc
 
 
-def _to_tensor(a) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":       # ml_dtypes: no numpy-native bf16
-        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(np.array(a))     # a writable copy
-
-
 @torch.no_grad()
 def encoder_from_jax_params(raw: dict, cfg: EncoderConfig,
                             device=None) -> Encoder:
@@ -218,7 +205,7 @@ def encoder_from_jax_params(raw: dict, cfg: EncoderConfig,
     enc = Encoder(cfg, device)
     for name, i, prm in _named_params(enc):
         src = raw["layers"][name][i] if i is not None else raw[name]
-        t = _to_tensor(src)
+        t = from_numpy(src)
         if tuple(t.shape) != tuple(prm.shape):
             raise ValueError(f"encoder param {name}"
                              f"{'' if i is None else f'[{i}]'}: shape "

@@ -1,10 +1,39 @@
 """Shared neural layers of the port (the subset of ``repro.models.layers``
-the CLS-III encoder uses): layer norm computed in float32, tanh-GELU,
-and the embedding lookup."""
+the CLS-III encoder and the dense LM use): layer and RMS norms computed
+in float32, rotary embeddings, tanh-GELU, SwiGLU, the logit soft cap and
+the embedding lookup; plus the dtype-name map and the numpy-to-tensor
+copy that carry the JAX package's params across."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """A config's dtype name (``"bfloat16"``, ...) -> the torch dtype."""
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16}[name]
+
+
+def from_numpy(a) -> torch.Tensor:
+    """A writable tensor copy of a numpy leaf, bfloat16 (``ml_dtypes``,
+    which numpy has no native type for) included, bit for bit."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """RMS-normalise the last axis in float32 and scale by ``1 + scale``
+    (the LM's scales start at zero), return in x's dtype."""
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(dtype)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -18,8 +47,39 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (y * scale.float() + bias.float()).to(dtype)
 
 
+def rope_frequencies(d_head: int, theta: float,
+                     device=None) -> torch.Tensor:
+    half = d_head // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, d_head); positions: broadcastable to
+    (..., seq). Rotates the two halves of the head (not interleaved
+    pairs), with angles in float32."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)        # (half,)
+    angles = positions[..., :, None].float() * freqs              # (..., S, half)
+    angles = angles[..., :, None, :]                              # (..., S, 1, half)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return F.silu(gate) * up
+
+
+def softcap(logits: torch.Tensor, cap: float | None) -> torch.Tensor:
+    if cap is None:
+        return logits
+    return cap * torch.tanh(logits / cap)
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

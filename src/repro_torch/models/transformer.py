@@ -1,0 +1,243 @@
+"""Decoder-only dense transformer LM: GQA/SWA attention, RoPE, qk-norm,
+KV-cache decode. The serve path of ``repro/models/transformer.py``.
+
+Public surface:
+    init_lm(cfg, generator, device)         -> params
+    lm_from_jax_params(raw, cfg, device)    -> params
+    lm_logits(params, cfg, tokens)          -> (B, S, V) logits, aux
+    prefill(params, cfg, tokens)            -> last-position logits, KVCache
+    decode_step(params, cfg, tok, cache, pos) -> logits, cache
+
+Params are a plain dict in the JAX package's raw layout: ``embed (V, d)``,
+``ln_final (d,)``, ``lm_head (d, V)`` (absent when tied) and
+``layers``, whose leaves are stacked on a leading layer axis (``wq (L, d,
+h, dh)``, ``wk``/``wv (L, d, hk, dh)``, ``wo (L, h, dh, d)``, ``w_gate``/
+``w_up (L, d, f)``, ``w_down (L, f, d)``, norm scales ``(L, d)``). So
+``lm_from_jax_params`` is a checked copy and both packages compute the
+same function. ``cfg.attention_impl`` picks the prefill attention
+(``"pallas"`` is the hand-written flash kernel on the card); decode
+attends with ``decode_attention``. Configs with experts (``cfg.moe``)
+are not ported yet, and neither are ``lm_loss`` and training.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import device as device_lib
+from repro_torch.configs.base import LMConfig
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.attention import KVCache
+from repro_torch.models.layers import (apply_rope, embed_lookup, from_numpy,
+                                       rms_norm, softcap, swiglu,
+                                       torch_dtype)
+
+
+def _check_dense(cfg: LMConfig) -> None:
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: mixture-of-experts LMs are not ported yet "
+            f"(ROADMAP.md queue 1, item 13)")
+
+
+def _layer_shapes(cfg: LMConfig) -> dict:
+    """name -> (per-layer shape, init std), in the JAX package's order."""
+    d, h, hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    shapes = {
+        "ln_attn": ((d,), 0.0),
+        "ln_ffn": ((d,), 0.0),
+        "wq": ((d, h, dh), d ** -0.5),
+        "wk": ((d, hk, dh), d ** -0.5),
+        "wv": ((d, hk, dh), d ** -0.5),
+        "wo": ((h, dh, d), (h * dh) ** -0.5),
+    }
+    if cfg.qk_norm:
+        shapes["q_norm"] = ((dh,), 0.0)
+        shapes["k_norm"] = ((dh,), 0.0)
+    shapes["w_gate"] = ((d, cfg.d_ff), d ** -0.5)
+    shapes["w_up"] = ((d, cfg.d_ff), d ** -0.5)
+    shapes["w_down"] = ((cfg.d_ff, d), cfg.d_ff ** -0.5)
+    return shapes
+
+
+def _top_shapes(cfg: LMConfig) -> dict:
+    d = cfg.d_model
+    shapes = {"embed": ((cfg.vocab_size, d), 0.02), "ln_final": ((d,), 0.0)}
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = ((d, cfg.vocab_size), d ** -0.5)
+    return shapes
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def init_lm(cfg: LMConfig, generator: torch.Generator | None = None,
+            device=None) -> dict:
+    """Random params in ``cfg.param_dtype`` on ``device`` (cuda unless
+    "cpu"): normal(std) draws in float32 from ``generator``, which must
+    live on that device (default: seed 0 there), so the full width is
+    drawn on the card; the norm scales are zero (the norms scale by
+    ``1 + scale``)."""
+    _check_dense(cfg)
+    dev = device_lib.resolve(device)
+    g = generator if generator is not None else \
+        torch.Generator(device=dev).manual_seed(0)
+    if torch.device(g.device).type != dev.type:
+        raise ValueError(f"init_lm: generator on {g.device}, params on "
+                         f"{dev}; draw on the params' device")
+    dtype = torch_dtype(cfg.param_dtype)
+
+    def draw(shape, std):
+        if std == 0.0:
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+    L = cfg.n_layers
+    return {**{k: draw(s, std) for k, (s, std) in _top_shapes(cfg).items()},
+            "layers": {k: draw((L,) + s, std)
+                       for k, (s, std) in _layer_shapes(cfg).items()}}
+
+
+@torch.no_grad()
+def lm_from_jax_params(raw: dict, cfg: LMConfig, device=None) -> dict:
+    """The JAX package's raw LM params (numpy leaves, ``unwrap``-ed
+    ``init_lm``) -> the port's params with the same values, bf16 bit for
+    bit. Raises on a missing, extra or misshapen leaf."""
+    _check_dense(cfg)
+    dev = device_lib.resolve(device)
+    dtype = torch_dtype(cfg.param_dtype)
+    L = cfg.n_layers
+
+    def take(tree, shapes, lead, where):
+        if set(tree) != set(shapes):
+            raise ValueError(f"lm params{where}: keys {sorted(tree)} != "
+                             f"{sorted(shapes)}")
+        out = {}
+        for k, (s, _) in shapes.items():
+            t = from_numpy(tree[k])
+            if tuple(t.shape) != lead + s:
+                raise ValueError(f"lm param{where}[{k!r}]: shape "
+                                 f"{tuple(t.shape)} != {lead + s}")
+            out[k] = t.to(device=dev, dtype=dtype)
+        return out
+
+    top = {k: v for k, v in raw.items() if k != "layers"}
+    return {**take(top, _top_shapes(cfg), (), ""),
+            "layers": take(raw["layers"], _layer_shapes(cfg), (L,),
+                           "['layers']")}
+
+
+# ---------------------------------------------------------------------------
+# Forward blocks
+# ---------------------------------------------------------------------------
+
+
+def _layer(params: dict, i: int) -> dict:
+    return {k: v[i] for k, v in params["layers"].items()}
+
+
+def _qkv(x, lp, cfg: LMConfig, positions):
+    cdt = torch_dtype(cfg.compute_dtype)
+    h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
+    q = torch.einsum("bsd,dhk->bshk", h, lp["wq"].to(cdt))
+    k = torch.einsum("bsd,dhk->bshk", h, lp["wk"].to(cdt))
+    v = torch.einsum("bsd,dhk->bshk", h, lp["wv"].to(cdt))
+    if cfg.qk_norm:
+        q = rms_norm(q, lp["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, lp["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _attn_out(x, o, lp):
+    o = torch.einsum("bshk,hkd->bsd", o, lp["wo"].to(o.dtype))
+    return x + o.to(x.dtype)
+
+
+def _ffn_block(x, lp, cfg: LMConfig):
+    h = rms_norm(x, lp["ln_ffn"], cfg.norm_eps)
+    g = torch.einsum("bsd,df->bsf", h, lp["w_gate"].to(h.dtype))
+    u = torch.einsum("bsd,df->bsf", h, lp["w_up"].to(h.dtype))
+    y = torch.einsum("bsf,fd->bsd", swiglu(g, u), lp["w_down"].to(h.dtype))
+    return y.to(x.dtype)
+
+
+def _prefill_layer(x, lp, cfg: LMConfig, positions):
+    q, k, v = _qkv(x, lp, cfg, positions)
+    o = attn_lib.attention(q, k, v, causal=True, window=cfg.sliding_window,
+                           impl=cfg.attention_impl, q_chunk=cfg.q_chunk,
+                           kv_chunk=cfg.kv_chunk)
+    x = _attn_out(x, o, lp)
+    return x + _ffn_block(x, lp, cfg), k, v
+
+
+def _head(params: dict, cfg: LMConfig, x):
+    cdt = torch_dtype(cfg.compute_dtype)
+    x = rms_norm(x, params["ln_final"], cfg.norm_eps)
+    head = params["lm_head"] if "lm_head" in params else params["embed"].T
+    return softcap(torch.einsum("bsd,dv->bsv", x, head.to(cdt)),
+                   cfg.logits_softcap)
+
+
+def _embed(params: dict, cfg: LMConfig, tokens):
+    return embed_lookup(params["embed"].to(torch_dtype(cfg.compute_dtype)),
+                        tokens)
+
+
+# ---------------------------------------------------------------------------
+# Public API
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def lm_logits(params: dict, cfg: LMConfig, tokens: torch.Tensor):
+    """tokens (B, S) -> logits (B, S, V), and the MoE aux loss (a float32
+    zero: dense layers only)."""
+    _check_dense(cfg)
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for i in range(cfg.n_layers):
+        x, _, _ = _prefill_layer(x, _layer(params, i), cfg, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _head(params, cfg, x), aux
+
+
+@torch.no_grad()
+def prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor):
+    """Full-sequence forward that also builds the KV cache.
+
+    Returns (last-position logits (B, V), KVCache of (L, B, S, Hk, Dh))."""
+    _check_dense(cfg)
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        x, k, v = _prefill_layer(x, _layer(params, i), cfg, positions)
+        ks.append(k)
+        vs.append(v)
+    logits = _head(params, cfg, x[:, -1:])[:, 0]
+    return logits, KVCache(torch.stack(ks), torch.stack(vs))
+
+
+@torch.no_grad()
+def decode_step(params: dict, cfg: LMConfig, tokens: torch.Tensor,
+                cache: KVCache, pos: int):
+    """One-token decode. tokens (B, 1); cache (L, B, S, Hk, Dh); pos (an
+    int) is the position at which the new token sits. Returns (logits
+    (B, V), cache); the new keys and values are written into ``cache``
+    in place."""
+    _check_dense(cfg)
+    x = _embed(params, cfg, tokens)
+    positions = torch.full((tokens.shape[0], 1), int(pos), device=x.device)
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        q, k, v = _qkv(x, lp, cfg, positions)
+        ck, cv = attn_lib.cache_update(cache.k[i], cache.v[i], k, v, pos)
+        o = attn_lib.decode_attention(q, ck, cv, pos,
+                                      window=cfg.sliding_window)
+        x = _attn_out(x, o, lp)
+        x = x + _ffn_block(x, lp, cfg)
+    return _head(params, cfg, x[:, -1:])[:, 0], cache

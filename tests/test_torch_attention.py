@@ -1,0 +1,181 @@
+"""The port's attention (``repro_torch.models.attention``) and its
+flash-attention op against the JAX package on the CPU.
+
+Inputs are drawn with numpy from a seed and handed to both packages.
+Tolerances (the JAX package's own, ``tests/test_kernels.py``): 2e-5 in
+float32 and 2e-2 in bfloat16, atol and rtol; the two frameworks sum in
+another order. On CPU tensors ``ops.flash_attention`` runs the plain
+version; the CUDA kernel is held against it in
+``tests/test_torch_cuda.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.kernel import flash_attention_kernel
+from repro.kernels.flash_attention.ref import flash_attention_ref as j_ref
+from repro.models import attention as JA
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.models import attention as TA
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+# the grid of tests/test_kernels.py::test_flash_attention_sweep, plus D=120
+SHAPES = [
+    (2, 64, 64, 4, 2, 16),
+    (1, 48, 80, 4, 4, 32),      # Sq != Skv
+    (2, 96, 96, 8, 1, 8),       # MQA
+    (1, 100, 100, 2, 2, 64),    # padding path
+    (1, 72, 72, 4, 2, 120),     # danube's head dim
+]
+MASKS = [(True, None), (False, None), (True, 24)]
+
+
+def _qkv(b, sq, skv, h, hk, d, dtype, seed=0):
+    """numpy float32 inputs, rounded to ``dtype`` once, as (jax, torch)
+    triples holding the same values."""
+    rng = np.random.RandomState(seed)
+    arrs = [rng.randn(*s).astype(np.float32) for s in
+            ((b, sq, h, d), (b, skv, hk, d), (b, skv, hk, d))]
+    tt = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+    jj = [jnp.asarray(t.float().numpy()).astype(dtype) for t in tt]
+    return jj, tt
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", MASKS)
+@pytest.mark.parametrize("b,sq,skv,h,hk,d", SHAPES)
+def test_flash_ref_and_op_match_jax_ref(b, sq, skv, h, hk, d, causal,
+                                        window, dtype):
+    (jq, jk, jv), (q, k, v) = _qkv(b, sq, skv, h, hk, d, dtype)
+    want = _np(j_ref(jq, jk, jv, causal=causal, window=window))
+    got_ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+    got_op = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert got_ref.dtype == q.dtype and got_ref.shape == q.shape
+    for got in (got_ref, got_op):
+        np.testing.assert_allclose(_np(got), want, atol=TOL[dtype],
+                                   rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("b,sq,skv,h,hk,d,causal,window,dtype", [
+    (1, 100, 100, 2, 2, 64, True, None, "float32"),   # padding path
+    (2, 96, 96, 8, 1, 8, False, None, "float32"),     # MQA
+    (2, 64, 64, 4, 2, 16, True, 24, "float32"),       # window
+    (1, 48, 80, 4, 4, 32, True, None, "float32"),     # Sq != Skv
+    (1, 48, 80, 4, 4, 32, True, 24, "bfloat16"),
+])
+def test_flash_op_matches_jax_kernel(b, sq, skv, h, hk, d, causal, window,
+                                     dtype):
+    """The JAX Pallas kernel in interpret mode, small blocks."""
+    (jq, jk, jv), (q, k, v) = _qkv(b, sq, skv, h, hk, d, dtype, seed=1)
+    want = _np(flash_attention_kernel(jq, jk, jv, causal=causal,
+                                      window=window, block_q=32, block_k=32,
+                                      interpret=True))
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(_np(got), want, atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+def test_fully_masked_tile_gives_no_nan():
+    """Window 8 over 200 keys: the late query rows meet whole 64-key
+    tiles (and 32-key blocks) in which every key is masked for them."""
+    (jq, jk, jv), (q, k, v) = _qkv(1, 200, 200, 4, 2, 16, "float32", seed=2)
+    want = _np(j_ref(jq, jk, jv, causal=True, window=8))
+    for got in (ops.flash_attention(q, k, v, causal=True, window=8),
+                TA.attention_xla_flash(q, k, v, causal=True, window=8,
+                                       q_chunk=32, kv_chunk=32)):
+        assert torch.isfinite(got).all()
+        np.testing.assert_allclose(_np(got), want, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_op_refuses_what_the_kernel_does_not_take():
+    q = torch.zeros(1, 8, 3, 16)
+    k = torch.zeros(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="multiple"):
+        ops.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.flash_attention(q[:, :, :2], k, k.double())
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(q[:, :, :2], k, k, window=0)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q[:, :, :2], torch.zeros(1, 8, 2, 8),
+                            torch.zeros(1, 8, 2, 8))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 7)])
+def test_naive_and_xla_flash_match_jax(causal, window, dtype):
+    (jq, jk, jv), (q, k, v) = _qkv(2, 33, 49, 4, 2, 8, dtype, seed=3)
+    want = _np(JA.attention_naive(jq, jk, jv, causal=causal, window=window))
+    got = TA.attention_naive(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(_np(got), want, atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    want = _np(JA.attention_xla_flash(jq, jk, jv, causal=causal,
+                                      window=window, q_chunk=8, kv_chunk=16))
+    got = TA.attention_xla_flash(q, k, v, causal=causal, window=window,
+                                 q_chunk=8, kv_chunk=16)
+    np.testing.assert_allclose(_np(got), want, atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("impl", ["naive", "xla_flash", "pallas"])
+def test_dispatcher_matches_jax(impl):
+    (jq, jk, jv), (q, k, v) = _qkv(1, 40, 40, 4, 2, 16, "float32", seed=4)
+    kw = dict(causal=True, window=12, impl=impl, q_chunk=16, kv_chunk=16)
+    want = _np(JA.attention(jq, jk, jv, **kw))
+    np.testing.assert_allclose(_np(TA.attention(q, k, v, **kw)), want,
+                               atol=2e-5, rtol=2e-5)
+
+
+def test_dispatcher_short_xla_flash_is_naive_and_offset_pallas_refuses():
+    _, (q, k, v) = _qkv(1, 16, 16, 2, 2, 8, "float32", seed=5)
+    torch.testing.assert_close(
+        TA.attention(q, k, v, impl="xla_flash", q_offset=3),
+        TA.attention_naive(q, k, v, q_offset=3), atol=0, rtol=0)
+    with pytest.raises(ValueError, match="q_offset"):
+        TA.attention(q, k, v, impl="pallas", q_offset=3)
+    with pytest.raises(ValueError, match="unknown"):
+        TA.attention(q, k, v, impl="cudnn")
+
+
+@pytest.mark.parametrize("window", [None, 5, 64])
+@pytest.mark.parametrize("pos", [0, 9, 19])
+def test_decode_attention_and_cache_update_match_jax(window, pos):
+    rng = np.random.RandomState(pos)
+    ck, cv = (rng.randn(2, 20, 2, 8).astype(np.float32) for _ in range(2))
+    nk, nv = (rng.randn(2, 1, 2, 8).astype(np.float32) for _ in range(2))
+    q = rng.randn(2, 1, 4, 8).astype(np.float32)
+    jk, jv = JA.cache_update(jnp.asarray(ck), jnp.asarray(cv),
+                             jnp.asarray(nk), jnp.asarray(nv),
+                             jnp.asarray(pos))
+    tk, tv = TA.cache_update(torch.from_numpy(ck.copy()),
+                             torch.from_numpy(cv.copy()),
+                             torch.from_numpy(nk), torch.from_numpy(nv), pos)
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    want = _np(JA.decode_attention(jnp.asarray(q), jk, jv, jnp.asarray(pos),
+                                   window=window))
+    got = TA.decode_attention(torch.from_numpy(q), tk, tv, pos,
+                              window=window)
+    np.testing.assert_allclose(_np(got), want, atol=2e-5, rtol=2e-5)
+
+
+def test_cache_update_writes_in_place_and_clamps_like_jax():
+    ck = torch.zeros(1, 4, 1, 2)
+    cv = torch.zeros(1, 4, 1, 2)
+    new = torch.ones(1, 1, 1, 2)
+    out_k, _ = TA.cache_update(ck, cv, new, new, 9)
+    assert out_k is ck and ck[0, 3].eq(1).all() and ck[0, :3].eq(0).all()
+    jk, _ = JA.cache_update(jnp.zeros((1, 4, 1, 2)), jnp.zeros((1, 4, 1, 2)),
+                            jnp.ones((1, 1, 1, 2)), jnp.ones((1, 1, 1, 2)),
+                            jnp.asarray(9))
+    np.testing.assert_array_equal(ck.numpy(), np.asarray(jk))

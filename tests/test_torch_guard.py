@@ -39,7 +39,10 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.models.encoder",
                  "repro_torch.kernels.fast_features.ops",
                  "repro_torch.kernels.budget_route.ops",
-                 "repro_torch.kernels.ngram_score.ops"):
+                 "repro_torch.kernels.ngram_score.ops",
+                 "repro_torch.models.transformer",
+                 "repro_torch.models.attention",
+                 "repro_torch.kernels.flash_attention.ops"):
         assert name in res["modules"]
 
 
