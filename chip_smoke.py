@@ -20,8 +20,13 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    prefill shape B=4 S=4096 H=16 Hk=8 D=128 causal in bf16 and in f32,
    and the h2o-danube-3-4b shape B=1 S=8192 H=32 Hk=8 D=120 window 4096
    in bf16, each also timed against PyTorch's
-   ``scaled_dot_product_attention`` as a yardstick the port never calls).
-   Times are CUDA-event medians.
+   ``scaled_dot_product_attention`` as a yardstick the port never calls),
+   embedding_bag (the dlrm-mlperf ``serve_bulk`` lookup: 262,144 x 26
+   bags of one over the 48.07 GB bf16 table, bit-equal; and a 100,000 x
+   64 f32 table, B=4096, L=16, sum and mean; timed beside
+   ``torch.nn.functional.embedding_bag``), segment_mm (``ogb_products``:
+   N=2,449,029, E=61,859,140, 100 -> 128, f32; timed beside
+   ``torch.matmul`` then ``index_add_``). Times are CUDA-event medians.
 2. ft: ``serve.main`` with ``--variant ft --device cuda`` and with
    ``--device cpu``: the metric dicts must be equal, and fast_features
    must have launched at least once per batch.
@@ -47,6 +52,24 @@ Phases (one JSON line each; any failure raises and exits non-zero):
 5. lm_small_parity: the reduced f32 qwen3-tiny and danube-tiny (window
    32) run ``prefill`` and ``decode_step`` on cuda (the kernel) and on
    cpu (the plain version); the logits must agree within 2e-5.
+6. recsys: ``recsys_scores`` of the full-width bf16 ``dlrm-mlperf``
+   (the 187,767,808 x 128 table, 48.07 GB, drawn in place from a seeded
+   CUDA generator) at ``serve_p99`` (batch 512) and ``serve_bulk`` (batch
+   262,144), batches from ``launch.specs._recsys_batch`` (seed 0):
+   wall ms per forward, exactly one embedding_bag launch per forward,
+   finite scores in (0, 1) bit-equal to a forward whose lookup is a
+   plain ``index_select``, peak memory, and a torch.profiler pass over
+   one ``serve_bulk`` forward.
+7. recsys_small_parity: the reduced f32 dlrm-tiny on cuda against cpu,
+   scores within 2e-5.
+8. gnn: ``segment_matmul(x, src, dst, w, n_nodes)`` at ``ogb_products``
+   (uniform random edges from a seeded CUDA generator, d_out 128, f32):
+   wall ms of the step and of its argsort, gather and kernel, one
+   segment_mm launch, the kernel within rtol = atol = 1e-5 of the plain
+   version, two runs bit-identical, and a torch.profiler pass.
+
+The phases free the card's memory between them: the DLRM table and the
+GNN step's ~60 GB (with its plain version) do not fit together.
 
 The line before the last is the per-kernel JSON summary; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -69,6 +92,8 @@ SCALAR_OPS_PER_S = 67e12         # H100 SXM non-tensor FP32 peak, used for
 BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
 ALPHA = 0.05
 SEED = 0
+DEVICE = "cuda"
+GNN_D_OUT = 128                  # equiformer-v2's d_hidden (the repo's GNN)
 
 
 def emit(obj) -> None:
@@ -339,17 +364,211 @@ def check_flash_attention(dev) -> list[dict]:
     return rows
 
 
-# -------------------------------------------------------------- phases 2-5
+def free_cuda() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dlrm_lookup_ids(cfg, b: int, dev):
+    """The serve batch's concatenated-table ids as ``lookup_fields``
+    hands them to the kernel: (b * 26, 1) int32 bags of one."""
+    import torch
+
+    from repro_torch.launch.specs import _recsys_batch
+    from repro_torch.models.recsys import embedding as E
+
+    sparse = _recsys_batch(cfg, b, seed=SEED, device=dev)["sparse"]
+    offs = torch.from_numpy(E.table_offsets(cfg.vocab_sizes)[0]
+                            .astype("int32")).to(dev)
+    return (sparse + offs[None, :]).reshape(-1, 1)
+
+
+def check_embedding_bag(dev) -> list[dict]:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.embedding_bag import ops, ref
+    from repro_torch.models.recsys import embedding as E
+
+    rows = []
+    arch = get_config("dlrm-mlperf")
+    cfg = arch.model
+    bulk = arch.shape("serve_bulk")["batch"]
+    # (row, table rows, D, dtype, bags, bag length, combiner, tolerance)
+    shapes = (("dlrm_serve_bulk", None, cfg.embed_dim, "bfloat16",
+               bulk * cfg.n_sparse, 1, "sum", 0.0),
+              ("bench_sum", 100_000, 64, "float32", 4096, 16, "sum", 2e-5),
+              ("bench_mean", 100_000, 64, "float32", 4096, 16, "mean", 2e-5))
+    for name, r, d, dtype, b, bag, comb, tol in shapes:
+        dt = getattr(torch, dtype)
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        if r is None:       # the full 48.07 GB bf16 DLRM table
+            table, _ = E.init_table(cfg.vocab_sizes, d, dt, g, dev)
+            ids = dlrm_lookup_ids(cfg, bulk, dev)
+            weights = None
+            w_plain = torch.ones(ids.shape, dtype=torch.float32, device=dev)
+        else:
+            table = torch.randn((r, d), generator=g, device=dev).to(dt)
+            ids = torch.randint(0, r, (b, bag), generator=g, device=dev)
+            weights = w_plain = torch.rand((b, bag), generator=g, device=dev)
+        got = ops.embedding_bag(table, ids, weights, combiner=comb)
+        want = ref.embedding_bag_ref(table, ids, w_plain, combiner=comb)
+        torch.cuda.synchronize()
+        # tolerance: bit-equal for bags of one (one f32 product by 1.0,
+        # narrowed back); atol = rtol = 2e-5 in f32 for bags of 16 (the
+        # JAX kernel's bar; another summation order in the mean's sum(w))
+        if tol == 0.0:
+            assert torch.equal(got, want), f"embedding_bag {name}"
+            err = 0.0
+        else:
+            diff = (got.float() - want.float()).abs()
+            assert bool((diff <= tol + tol * want.float().abs()).all()), \
+                f"embedding_bag {name}: max err {diff.max().item()}"
+            err = diff.max().item()
+        del got, want
+        lib_ms = None
+        if weights is None:    # the path's unweighted bags of one
+            lib_ms = time_ms(lambda: F.embedding_bag(ids, table, mode="sum"),
+                             reps=10, warmup=2)
+        elif comb == "sum":    # per_sample_weights is for mode="sum" only
+            lib_w = weights.to(dt)
+            lib_ms = time_ms(lambda: F.embedding_bag(
+                ids, table, mode="sum", per_sample_weights=lib_w),
+                reps=10, warmup=2)
+            del lib_w
+        out = torch.empty((ids.shape[0], d), dtype=dt, device=dev)
+        ms = time_ms(lambda: ops._launch(table, ids, weights, out,
+                                         combiner=comb))
+        plain_ms = time_ms(lambda: ref.embedding_bag_ref(
+            table, ids, w_plain, combiner=comb), reps=5, warmup=1)
+        # each looked-up row read once, each bag written once, the ids
+        # (and the weights, where given) read once
+        nbytes = (ids.numel() * d * table.element_size()
+                  + ids.shape[0] * d * table.element_size()
+                  + ids.numel() * ids.element_size()
+                  + (weights.numel() * 4 if weights is not None else 0))
+        b_ms, b_by = bound(nbytes)
+        rows.append(dict(name="embedding_bag", row=name, shape=dict(
+            table_rows=table.shape[0], d=d, dtype=dtype, bags=ids.shape[0],
+            bag=ids.shape[1], combiner=comb), tolerance=tol,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=b_ms, bound_by=b_by, bytes=nbytes))
+        del table, ids, weights, w_plain, out
+        free_cuda()
+    return rows
+
+
+def gnn_inputs(dev):
+    """ogb_products at the GNN config's width: x (N, 100), W (100, 128)
+    scaled by 100^-0.5, uniform src and dst (int64), all float32, from a
+    seeded CUDA generator."""
+    import torch
+
+    from repro_torch.configs.base import GNN_SHAPES
+
+    shp = next(s for s in GNN_SHAPES if s.name == "ogb_products")
+    n, e, d_in = shp["n_nodes"], shp["n_edges"], shp["d_feat"]
+    d_out = GNN_D_OUT
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((n, d_in), generator=g, device=dev)
+    w = torch.randn((d_in, d_out), generator=g, device=dev) * d_in ** -0.5
+    src = torch.randint(0, n, (e,), generator=g, device=dev)
+    dst = torch.randint(0, n, (e,), generator=g, device=dev)
+    return x, src, dst, w
+
+
+def compare_segment_mm(out, xg, w, dsorted, n_nodes) -> dict:
+    """``out`` against ``ref.segment_matmul_ref`` on the card, within
+    rtol = atol = 1e-5 (the JAX kernel's bar). The plain version holds
+    all (E, D_out) float32 messages; when the card cannot hold them, it
+    runs over the first whole dst segments that fit."""
+    import torch
+
+    from repro_torch.kernels.segment_mm import ref
+
+    e, d_out = xg.shape[0], w.shape[1]
+    per_edge = 4 * d_out + 16          # a message row and its index
+    room = torch.cuda.mem_get_info()[0] - 4 * (n_nodes + 1) * d_out - (2 << 30)
+    nodes = n_nodes
+    if room < per_edge * e:
+        nodes = int(dsorted[max(room // per_edge, 1) - 1])
+    e_cut = int(torch.searchsorted(dsorted, nodes)) if nodes < n_nodes else e
+    want = ref.segment_matmul_ref(xg[:e_cut], w, dsorted[:e_cut],
+                                  n_nodes=nodes)
+    diff = (out[:nodes] - want).abs()
+    ok = bool((diff <= 1e-5 + 1e-5 * want.abs()).all())
+    err = diff.max().item()
+    del want, diff
+    free_cuda()
+    assert ok, f"segment_mm vs plain: max err {err}"
+    return {"nodes_compared": nodes, "edges_compared": e_cut,
+            "max_abs_err": err}
+
+
+def check_segment_mm(dev) -> list[dict]:
+    import torch
+
+    from repro_torch.kernels.segment_mm import ops, ref
+    from repro_torch.models.layers import embed_lookup
+
+    x, src, dst, w = gnn_inputs(dev)
+    n, d_in = x.shape
+    d_out = w.shape[1]
+    order = torch.argsort(dst, stable=True)
+    xg = embed_lookup(x, src[order])
+    dsorted = dst[order]
+    del x, src, dst, order
+    free_cuda()
+    got = ops.segment_matmul_kernel(xg, w, dsorted, n_nodes=n)
+    cmp = compare_segment_mm(got, xg, w, dsorted, n)
+    ms = time_ms(lambda: ops._launch(xg, w, dsorted, got, n_nodes=n),
+                 reps=10, warmup=2)
+    del got
+    free_cuda()
+    plain_ms = time_ms(lambda: ref.segment_matmul_ref(xg, w, dsorted,
+                                                      n_nodes=n),
+                       reps=3, warmup=1)
+
+    def library():     # two calls: the message GEMM, then the scatter-add
+        return torch.zeros((n, d_out), device=dev).index_add_(
+            0, dsorted, torch.matmul(xg, w))
+
+    library_ms = time_ms(library, reps=3, warmup=1)
+    e = xg.shape[0]
+    # the function's least work: by linearity out[d] = (sum of d's rows
+    # of xg) @ W, so E * D_in adds and one GEMV per node with edges
+    n_dst = int((dsorted[1:] != dsorted[:-1]).sum()) + 1 if e else 0
+    n_ops = e * d_in + 2 * n_dst * d_in * d_out
+    nbytes = 4 * e * d_in + 4 * d_in * d_out + 8 * e + 4 * n * d_out
+    b_ms, b_by = bound(nbytes, n_ops)
+    del xg, dsorted, w
+    free_cuda()
+    return [dict(name="segment_mm", row="ogb_products", shape=dict(
+        n_nodes=n, n_edges=e, d_in=d_in, d_out=d_out, dtype="float32"),
+        tolerance=1e-5, **cmp, ms=ms, plain_ms=plain_ms,
+        library_ms=library_ms, library="torch.matmul + index_add_ (two "
+        "calls)", bound_ms=b_ms, bound_by=b_by, ops=n_ops, bytes=nbytes)]
+
+
+# -------------------------------------------------------------- phases 2-8
 
 
 def kernels():
     from repro_torch.kernels.budget_route import ops as br
+    from repro_torch.kernels.embedding_bag import ops as eb
     from repro_torch.kernels.fast_features import ops as ff
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.ngram_score import ops as ng
+    from repro_torch.kernels.segment_mm import ops as sm
 
     return {"fast_features": ff.KERNEL, "budget_route": br.KERNEL,
-            "ngram_score": ng.KERNEL, "flash_attention": fa.KERNEL}
+            "ngram_score": ng.KERNEL, "flash_attention": fa.KERNEL,
+            "embedding_bag": eb.KERNEL, "segment_mm": sm.KERNEL}
 
 
 def reset_counts() -> None:
@@ -746,6 +965,188 @@ def phase_lm_small_parity() -> None:
           "max_abs_err": out})
 
 
+def dlrm_scores_plain_lookup(params, cfg, batch):
+    """``recsys_scores`` itself, with only ``emb.lookup_fields`` swapped
+    for a plain ``index_select`` on the same table for this one call."""
+    from repro_torch.models.recsys import embedding as E
+    from repro_torch.models.recsys import models as M
+
+    def plain_lookup(table, offsets, ids):
+        flat = (ids + offsets[None, :].to(ids.dtype)).reshape(-1)
+        return table.index_select(0, flat).view(*ids.shape, table.shape[1])
+
+    kernel_lookup = E.lookup_fields
+    E.lookup_fields = plain_lookup
+    try:
+        return M.recsys_scores(params, cfg, batch)
+    finally:
+        E.lookup_fields = kernel_lookup
+
+
+def phase_recsys() -> dict:
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import _recsys_batch
+    from repro_torch.models.recsys import embedding as E
+    from repro_torch.models.recsys import models as M
+
+    arch = get_config("dlrm-mlperf")
+    cfg = arch.model                                   # full width, bf16
+    assert (cfg.n_dense, cfg.n_sparse, cfg.embed_dim, cfg.param_dtype) == \
+        (13, 26, 128, "bfloat16"), cfg
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    params = M.init_recsys(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                           dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    table_gb = params["table"].numel() * params["table"].element_size() / 1e9
+    assert params["table"].shape == (E.table_offsets(cfg.vocab_sizes, 512)[1],
+                                     cfg.embed_dim), params["table"].shape
+    batches = {s.name: {k: v for k, v in _recsys_batch(
+        cfg, s["batch"], seed=SEED, device=dev).items() if k != "labels"}
+        for s in arch.shapes if s.name in ("serve_p99", "serve_bulk")}
+    reps = {"serve_p99": 20, "serve_bulk": 5}
+    res = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with torch.inference_mode():
+        for name, batch in batches.items():
+            M.recsys_scores(params, cfg, batch)        # warm the GEMM paths
+            walls = []
+            for _ in range(reps[name]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                scores = M.recsys_scores(params, cfg, batch)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            res[name] = {"batch": batch["dense"].shape[0],
+                         "forwards": reps[name] + 1, "scores": scores,
+                         "wall_ms": statistics.median(walls),
+                         "wall_ms_min": min(walls)}
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_fwd = sum(r["forwards"] for r in res.values())
+    # exactly one embedding_bag launch per forward, and nothing else
+    assert counts["embedding_bag"] == n_fwd, (counts, n_fwd)
+    assert all(v == 0 for k, v in counts.items() if k != "embedding_bag"), \
+        counts
+    with torch.inference_mode():
+        for name, r in res.items():
+            s = r.pop("scores")
+            assert s.shape == (r["batch"],) and s.dtype == torch.float32
+            assert bool(torch.isfinite(s).all()), f"{name}: non-finite"
+            assert bool(((s > 0) & (s < 1)).all()), f"{name}: outside (0, 1)"
+            plain = dlrm_scores_plain_lookup(params, cfg, batches[name])
+            # the kernel's lookup equals the gather bit for bit, so the
+            # scores must too
+            assert torch.equal(s, plain), f"{name}: differs from the " \
+                f"plain-lookup forward by {(s - plain).abs().max().item()}"
+            r.update(equal_to_plain_lookup=True,
+                     samples_per_s=r["batch"] / r["wall_ms"] * 1e3,
+                     score_mean=float(s.mean()), score_std=float(s.std()))
+        prof = device_profile(lambda: M.recsys_scores(
+            params, cfg, batches["serve_bulk"]))
+    emit({"phase": "recsys", "config": cfg.name,
+          "table": {"rows": params["table"].shape[0], "gb": table_gb,
+                    "dtype": cfg.param_dtype},
+          "reduced": "none: full width and the full MLPerf Criteo-1TB "
+                     "vocab; random weights", "init_s": init_s,
+          "launches": counts, "shapes": res,
+          "max_memory_allocated_gb": peak_gb,
+          "max_memory_beyond_table_gb": peak_gb - table_gb,
+          "profile_serve_bulk": prof})
+    del params, batches
+    free_cuda()
+    return counts
+
+
+def phase_recsys_small_parity() -> None:
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.launch.specs import _recsys_batch
+    from repro_torch.models.recsys import models as M
+
+    cfg = get_config("dlrm-mlperf").reduced().model     # dlrm-tiny, f32
+    host = M.init_recsys(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    card = {k: (v.to(DEVICE) if k == "table" else
+                [{n: t.to(DEVICE) for n, t in layer.items()} for layer in v])
+            for k, v in host.items()}
+    batch = {k: v for k, v in _recsys_batch(cfg, 256, seed=SEED,
+                                            device="cpu").items()
+             if k != "labels"}
+    before = eb.KERNEL.launches
+    got = M.recsys_scores(card, cfg, {k: v.to(DEVICE)
+                                      for k, v in batch.items()})
+    assert eb.KERNEL.launches == before + 1
+    want = M.recsys_scores(host, cfg, batch)
+    err = (got.cpu() - want).abs().max().item()
+    # tolerance: 2e-5 on float32 scores (another summation order)
+    assert err <= 2e-5, f"{cfg.name} cuda vs cpu: {err}"
+    emit({"phase": "recsys_small_parity", "config": cfg.name, "batch": 256,
+          "max_abs_err": err})
+
+
+def phase_gnn() -> dict:
+    import torch
+
+    from repro_torch.kernels.segment_mm import ops
+    from repro_torch.models.layers import embed_lookup
+
+    dev = torch.device(DEVICE)
+    x, src, dst, w = gnn_inputs(dev)
+    n = x.shape[0]
+    ops.segment_matmul(x[:1000], src[:5000] % 1000, dst[:5000] % 1000, w,
+                       n_nodes=1000)                   # warm the sort path
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out, wall_ms = synced(lambda: ops.segment_matmul(x, src, dst, w,
+                                                     n_nodes=n))
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert counts["segment_mm"] == 1, counts
+    assert all(v == 0 for k, v in counts.items() if k != "segment_mm"), counts
+    assert out.shape == (n, w.shape[1]) and bool(torch.isfinite(out).all())
+    # the same step in its three parts, each ended by a synchronise
+    order, argsort_ms = synced(lambda: torch.argsort(dst, stable=True))
+    (xg, dsorted), gather_ms = synced(
+        lambda: (embed_lookup(x, src[order]), dst[order]))
+    del order
+    free_cuda()
+    out2, kernel_ms = synced(lambda: ops.segment_matmul_kernel(
+        xg, w, dsorted, n_nodes=n))
+    assert torch.equal(out, out2), "segment_matmul: two runs differ"
+    del out2
+    cmp = compare_segment_mm(out, xg, w, dsorted, n)
+    prof = device_profile(lambda: ops.segment_matmul(x, src, dst, w,
+                                                     n_nodes=n))
+    emit({"phase": "gnn", "shape": "ogb_products",
+          "n_nodes": n, "n_edges": xg.shape[0], "d_in": x.shape[1],
+          "d_out": w.shape[1], "dtype": "float32",
+          "reduced": "none: the ogb_products node and edge counts and "
+                     "d_feat; d_out = equiformer-v2's d_hidden; uniform "
+                     "random edges and features",
+          "launches": counts, "wall_ms": wall_ms,
+          "split_ms": {"argsort": argsort_ms, "gather": gather_ms,
+                       "kernel_with_sorted_check": kernel_ms},
+          "two_runs_bit_identical": True, "vs_plain": cmp,
+          "max_memory_allocated_gb": peak_gb, "profile": prof})
+    del x, src, dst, w, xg, dsorted, out
+    free_cuda()
+    return counts
+
+
 # -------------------------------------------------------------- main
 
 
@@ -787,25 +1188,31 @@ def main() -> int:
                                    np.random.RandomState(1))
     rows = (check_fast_features(ccfg, pages, dev) + check_budget_route(dev)
             + check_ngram_score(docs, [pages, exp_pages], dev)
-            + check_flash_attention(dev))
+            + check_flash_attention(dev) + check_embedding_bag(dev)
+            + check_segment_mm(dev))
     torch.cuda.synchronize()
     emit({"phase": "kernels", "card": card, "results": rows})
 
-    ft_counts = phase_ft()
-    llm_counts = phase_llm()
-    lm_counts = phase_lm()
+    path_counts = [phase_ft(), phase_llm(), phase_lm()]
     phase_lm_small_parity()
+    path_counts.append(phase_recsys())
+    phase_recsys_small_parity()
+    path_counts.append(phase_gnn())
 
     replaces = {
         "fast_features": "src/repro/kernels/fast_features/kernel.py:94",
         "budget_route": "src/repro/kernels/budget_route/kernel.py:76",
         "ngram_score": "src/repro/kernels/ngram_score/kernel.py:93",
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:94",
+        "embedding_bag": "src/repro/kernels/embedding_bag/kernel.py:47",
+        "segment_mm": "src/repro/kernels/segment_mm/kernel.py:59",
     }
     main_shape = {"fast_features": dict(max_len=512),
                   "budget_route": dict(n=256),
                   "ngram_score": dict(b=256),
-                  "flash_attention": dict(d=128, dtype="bfloat16")}
+                  "flash_attention": dict(d=128, dtype="bfloat16"),
+                  "embedding_bag": dict(bag=1),
+                  "segment_mm": dict(d_out=GNN_D_OUT)}
     summary = []
     for name, src in replaces.items():
         row = next(r for r in rows if r["name"] == name and all(
@@ -814,8 +1221,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
             "replaces": src,
-            "launches": ft_counts[name] + llm_counts[name]
-            + lm_counts[name],
+            "launches": sum(c[name] for c in path_counts),
             "max_abs_err": max(r["max_abs_err"] for r in rows
                                if r["name"] == name),
             "ms": row["ms"], "plain_ms": row["plain_ms"],

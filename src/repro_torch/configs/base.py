@@ -1,6 +1,7 @@
 """Config dataclasses + arch/shape registry (the subset of
 ``repro.configs.base`` the port needs: ``MoEConfig``, ``LMConfig``,
-``EncoderConfig``, ``ShapeConfig``, ``ArchConfig``, ``LM_SHAPES``,
+``EncoderConfig``, ``RecsysConfig``, ``ShapeConfig``, ``ArchConfig``,
+``LM_SHAPES``, ``GNN_SHAPES``, ``RECSYS_SHAPES``,
 ``register``/``get_config``)."""
 from __future__ import annotations
 
@@ -111,6 +112,33 @@ class EncoderConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RecsysConfig:
+    name: str
+    kind: str                         # "dlrm" | "deepfm" | "autoint" | "dien"
+    n_dense: int
+    n_sparse: int
+    embed_dim: int
+    vocab_sizes: tuple[int, ...]      # per sparse field
+    bot_mlp: tuple[int, ...] = ()
+    top_mlp: tuple[int, ...] = ()
+    mlp: tuple[int, ...] = ()
+    interaction: str = "dot"          # dot | fm | self-attn | augru
+    # autoint
+    n_attn_layers: int = 0
+    n_attn_heads: int = 0
+    d_attn: int = 0
+    # dien
+    seq_len: int = 0
+    gru_dim: int = 0
+    unroll_gru: bool = False     # unroll GRU time scans (costing variants)
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+
+    def table_rows(self) -> int:
+        return sum(self.vocab_sizes)
+
+
+@dataclasses.dataclass(frozen=True)
 class ShapeConfig:
     """One workload cell: shape name + step kind + dims."""
 
@@ -167,4 +195,24 @@ LM_SHAPES = (
     ShapeConfig("decode_32k", "decode", {"seq_len": 32768, "global_batch": 128}),
     ShapeConfig("long_500k", "decode", {"seq_len": 524288, "global_batch": 1},
                 note="needs sub-quadratic attention"),
+)
+
+GNN_SHAPES = (
+    ShapeConfig("full_graph_sm", "train",
+                {"n_nodes": 2708, "n_edges": 10556, "d_feat": 1433}),
+    ShapeConfig("minibatch_lg", "train",
+                {"n_nodes": 232_965, "n_edges": 114_615_892,
+                 "batch_nodes": 1024, "fanout0": 15, "fanout1": 10},
+                note="sampled-training via neighbor sampler"),
+    ShapeConfig("ogb_products", "train",
+                {"n_nodes": 2_449_029, "n_edges": 61_859_140, "d_feat": 100}),
+    ShapeConfig("molecule", "train",
+                {"n_nodes": 30, "n_edges": 64, "batch": 128}),
+)
+
+RECSYS_SHAPES = (
+    ShapeConfig("train_batch", "train", {"batch": 65536}),
+    ShapeConfig("serve_p99", "serve", {"batch": 512}),
+    ShapeConfig("serve_bulk", "serve", {"batch": 262144}),
+    ShapeConfig("retrieval_cand", "serve", {"batch": 1, "n_candidates": 1_000_000}),
 )

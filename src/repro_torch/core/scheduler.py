@@ -23,6 +23,14 @@ from repro_torch.core import obs
 from repro_torch.kernels.budget_route.ops import capacity_floor
 
 
+def total_order_key(x: torch.Tensor) -> torch.Tensor:
+    """int32 keys whose order is IEEE total order on ``x`` in float32
+    (-0.0 below +0.0, a positive NaN above +inf): ``lax.top_k``'s order, for a
+    stable sort to reproduce it."""
+    bits = x.float().view(torch.int32)
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
+
+
 def budget_topk(scores: torch.Tensor, alpha: float
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Device-side per-batch rule: route the ⌊α·k⌋ highest-scoring items.
@@ -40,9 +48,8 @@ def budget_topk(scores: torch.Tensor, alpha: float
     if n_sel == 0:
         return mask, torch.zeros((0,), dtype=torch.int64,
                                  device=scores.device)
-    bits = scores.float().view(torch.int32)
-    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)   # monotone in total order
-    idx = torch.sort(key, descending=True, stable=True).indices[:n_sel]
+    idx = torch.sort(total_order_key(scores), descending=True,
+                     stable=True).indices[:n_sel]
     mask[idx] = scores[idx] > 0
     return mask, idx
 

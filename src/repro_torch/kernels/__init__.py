@@ -1,10 +1,12 @@
-"""Hand-written CUDA kernels of the port's main path, one subpackage per
-TPU kernel they replace:
+"""Hand-written CUDA kernels of the port's paths, one subpackage per TPU
+kernel they replace:
 
 - fast_features : the prepare stage's CLS-I features + LLM tokens
 - budget_route  : the alpha-budget select + compact dispatch
 - ngram_score   : the quality probe's per-document BLEU
 - flash_attention: the dense LM's prefill attention (``impl="pallas"``)
+- embedding_bag : the DLRM forward's field lookup (``lookup_fields``)
+- segment_mm    : the GNN message-passing step (``segment_matmul``)
 
 Each subpackage: ``csrc/*.cu`` (the kernel, with a note on the TPU
 kernel it replaces and what bounds it), ``ref.py`` (the plain PyTorch

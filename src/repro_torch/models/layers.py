@@ -82,15 +82,29 @@ def softcap(logits: torch.Tensor, cap: float | None) -> torch.Tensor:
     return cap * torch.tanh(logits / cap)
 
 
-def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]`` with ``jnp.take``'s semantics instead of an indexing
-    error: negative ids count from the end, and ids outside [-V, V) give
-    a NaN row. Checked on the device, so no host synchronisation."""
-    v = table.shape[0]
-    ids = ids.long()
-    ids = torch.where(ids < 0, ids + v, ids)
-    oob = (ids < 0) | (ids >= v)
-    rows = table[ids.clamp(0, v - 1)]
-    return torch.where(oob[..., None],
-                       torch.full((), float("nan"), dtype=rows.dtype,
-                                  device=rows.device), rows)
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor, *,
+                 mode: str = "fill") -> torch.Tensor:
+    """``table[ids]`` along the first axis with JAX's gather semantics
+    instead of an indexing error: negative ids count from the end, and
+    ids outside [-R, R) give a NaN row (the dtype's minimum for integer
+    tables) under ``mode="fill"`` (``jnp.take``), or the nearest row
+    under ``mode="clip"`` (``x[ids]`` on a JAX array). One
+    ``index_select``; for ``fill``, one host synchronisation asks whether
+    any id is out of range, and only then is the mask written in place,
+    so there is never a second buffer of the result's size nor, in the
+    common case, a second pass over it."""
+    if mode not in ("fill", "clip"):
+        raise ValueError(f"embed_lookup: mode must be fill or clip "
+                         f"(got {mode!r})")
+    r = table.shape[0]
+    flat = ids.reshape(-1).long()
+    flat = torch.where(flat < 0, flat + r, flat)
+    rows = table.index_select(0, flat.clamp(0, max(r - 1, 0)))
+    if mode == "fill":
+        oob = (flat < 0) | (flat >= r)
+        if bool(oob.any()):
+            fill = (float("nan") if table.is_floating_point()
+                    else torch.iinfo(table.dtype).min)
+            rows.masked_fill_(oob.view((-1,) + (1,) * (table.dim() - 1)),
+                              fill)
+    return rows.view(tuple(ids.shape) + tuple(table.shape[1:]))

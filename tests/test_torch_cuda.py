@@ -1,8 +1,9 @@
 """The port's hand-written CUDA kernels against their plain PyTorch
 versions on the card, over small shape sweeps and edge cases, plus the
-ft engine on cuda against cpu. Marked ``cuda``: every test skips on a
-host without a card (the decision is taken in the fixture, at run
-time). Run on the card with ``python -m pytest -m cuda tests``.
+ft engine on cuda against cpu, the reduced LMs and DLRM on cuda against
+cpu. Marked ``cuda``: every test skips on a host without a card (the
+decision is taken in the fixture, at run time). Run on the card with
+``python -m pytest -q tests/test_torch_cuda.py``.
 
 Tolerances: fast_features tokens/mask exact and features within 1e-6
 (the JAX kernel's bar; the float64 assembly makes them bit-equal in
@@ -10,7 +11,11 @@ practice); budget_route exact; ngram_score float32 kernel against the
 float64 plain version within atol 1e-6, rtol 1e-5; flash_attention
 within 2e-5 in float32 and 2e-2 in bfloat16, atol and rtol (the JAX
 kernel's bar, tests/test_kernels.py), and the reduced LMs on cuda
-against cpu within 2e-5.
+against cpu within 2e-5; embedding_bag within 2e-5 in float32 and 2e-2
+in bfloat16 (the JAX kernel's bar) and bit-equal for bags of one;
+segment_mm within rtol = atol = 1e-5 (the JAX kernel's bar) and
+bit-identical across runs; the reduced DLRM on cuda against cpu within
+2e-5.
 """
 import dataclasses
 
@@ -20,12 +25,16 @@ import torch
 
 from repro_torch.kernels.budget_route import ops as br
 from repro_torch.kernels.budget_route.ref import budget_route_ref
+from repro_torch.kernels.embedding_bag import ops as eb
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.fast_features import ops as ff
 from repro_torch.kernels.fast_features.ref import fast_features_ref
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.ngram_score import ops as ng
 from repro_torch.kernels.ngram_score.ref import ngram_bleu_ref
+from repro_torch.kernels.segment_mm import ops as sm
+from repro_torch.kernels.segment_mm.ref import segment_matmul_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -209,3 +218,237 @@ def test_small_lm_cuda_matches_cpu(dev, arch):
     d_c, _ = T.decode_step(gpu, cfg, nxt.to(dev), cache_c, 100)
     d_h, _ = T.decode_step(params, cfg, nxt, cache_h, 100)
     torch.testing.assert_close(d_c.cpu(), d_h, atol=2e-5, rtol=0)
+
+
+# ------------------------------------------------------------ embedding_bag
+
+EB_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _eb_check(table, ids, w, comb, exact=False):
+    before = eb.KERNEL.launches
+    got = eb.embedding_bag(table, ids, w, combiner=comb)
+    assert eb.KERNEL.launches == before + 1
+    ones = torch.ones(ids.shape, dtype=torch.float32, device=ids.device)
+    want = embedding_bag_ref(table, ids, ones if w is None else w,
+                             combiner=comb)
+    assert got.dtype == table.dtype and got.shape == want.shape
+    if exact:
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    else:
+        tol = EB_TOL[table.dtype]
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol, equal_nan=True)
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,d,b,bag,comb", [
+    (500, 16, 32, 8, "sum"), (1000, 8, 50, 5, "mean"), (64, 4, 7, 3, "sum"),
+    (100000, 64, 4096, 16, "mean"), (300, 6, 9, 4, "sum")])
+def test_embedding_bag_kernel_vs_plain(dev, r, d, b, bag, comb, dtype,
+                                       id_dtype, weighted):
+    g = torch.Generator(device=dev).manual_seed(r + bag)
+    table = torch.randn((r, d), generator=g, device=dev).to(dtype)
+    ids = torch.randint(0, r, (b, bag), generator=g, device=dev).to(id_dtype)
+    w = torch.rand((b, bag), generator=g, device=dev) if weighted else None
+    _eb_check(table, ids, w, comb)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [128, 100, 6, 3])
+def test_embedding_bag_kernel_bags_of_one_equal_the_gather(dev, d, dtype):
+    """lookup_fields' call: bit-equal to table[ids], on the 16-byte path
+    and on the scalar one."""
+    g = torch.Generator(device=dev).manual_seed(d)
+    table = torch.randn((5000, d), generator=g, device=dev).to(dtype)
+    ids = torch.randint(0, 5000, (3000, 1), generator=g, device=dev,
+                        dtype=torch.int32)
+    got = eb.embedding_bag(table, ids)
+    assert torch.equal(got, table[ids[:, 0].long()])
+    _eb_check(table, ids, None, "sum", exact=True)
+
+
+def test_embedding_bag_kernel_out_of_range_ids_follow_jnp_take(dev):
+    """A NaN bag for ids >= R or < -R, a wrap for -R <= id < 0, exactly
+    as the plain version."""
+    table = torch.randn((5, 4), device=dev)
+    ids = torch.tensor([[0, 7], [0, -1], [-6, 1], [2, 3], [-5, 4]],
+                       device=dev)
+    got = eb.embedding_bag(table, ids)
+    assert got[0].isnan().all() and got[2].isnan().all()
+    assert torch.equal(got[1], table[0] + table[4])
+    for comb in ("sum", "mean"):
+        _eb_check(table, ids, None, comb, exact=True)
+
+
+def test_embedding_bag_kernel_mean_guards_zero_weights(dev):
+    table = torch.randn((10, 8), device=dev)
+    ids = torch.tensor([[1, 2], [3, 4]], device=dev)
+    w = torch.tensor([[0.0, 0.0], [0.5, 1.5]], device=dev)
+    got = eb.embedding_bag(table, ids, w, combiner="mean")
+    assert torch.equal(got[0], torch.zeros(8, device=dev))
+    _eb_check(table, ids, w, "mean")
+
+
+def test_embedding_bag_kernel_offsets_past_2_31(dev):
+    """Rows past 2^31 elements, in a table and in a strided view of it."""
+    rows = 2 ** 31 // 128 + 2048
+    table = torch.zeros((rows, 128), dtype=torch.bfloat16, device=dev)
+    tail = torch.arange(rows - 4096, rows, device=dev)
+    table[tail] = torch.randn((4096, 128), device=dev).to(torch.bfloat16)
+    ids = tail[torch.randperm(4096, device=dev)].view(-1, 2)
+    got = eb.embedding_bag(table, ids)
+    want = (table[ids[:, 0]].float() + table[ids[:, 1]].float()) \
+        .to(torch.bfloat16)
+    assert torch.equal(got, want)
+    view = table[:, 32:96]                      # row stride 128, width 64
+    got_v = eb.embedding_bag(view, ids[:, :1].contiguous())
+    assert torch.equal(got_v, view[ids[:, 0]])
+    del table, view
+
+
+def test_embedding_bag_refuses_what_the_kernel_does_not_take(dev):
+    table = torch.randn((10, 8), device=dev)
+    ids = torch.zeros((3, 2), dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="one device"):
+        eb.embedding_bag(table, ids.cpu())
+    with pytest.raises(ValueError, match="rows must be contiguous"):
+        eb.embedding_bag(table.t(), ids)
+    with pytest.raises(ValueError, match="contiguous"):
+        eb.embedding_bag(table, ids.t().contiguous().t())
+
+
+# ------------------------------------------------------------ segment_mm
+
+
+def _sm_inputs(dev, e, n, din, dout, seed, dst_dtype=torch.int64):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n, din), generator=g, device=dev)
+    w = torch.randn((din, dout), generator=g, device=dev) * din ** -0.5
+    src = torch.randint(0, n, (e,), generator=g, device=dev)
+    dst = torch.randint(0, n, (e,), generator=g, device=dev).to(dst_dtype)
+    return x, src, dst, w
+
+
+def _sm_check(xg, w, dst, n):
+    before = sm.KERNEL.launches
+    got = sm.segment_matmul_kernel(xg, w, dst, n_nodes=n)
+    assert sm.KERNEL.launches == before + 1
+    want = segment_matmul_ref(xg, w, dst, n_nodes=n)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    return got
+
+
+@pytest.mark.parametrize("dst_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("e,n,din,dout", [
+    (100, 20, 16, 8), (256, 64, 8, 8), (73, 10, 32, 16), (5000, 300, 100, 128),
+    (3000, 50, 7, 200), (0, 5, 4, 4), (40, 1000, 3, 5)])
+def test_segment_mm_kernel_vs_plain(dev, e, n, din, dout, dst_dtype):
+    x, src, dst, w = _sm_inputs(dev, e, n, din, dout, e + n, dst_dtype)
+    order = torch.argsort(dst, stable=True)
+    if e:
+        _sm_check(x[src[order]], w, dst[order], n)
+    got = sm.segment_matmul(x, src, dst, w, n_nodes=n)
+    want = sm.segment_matmul(x.cpu(), src.cpu(), dst.cpu(), w.cpu(),
+                             n_nodes=n)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_segment_mm_kernel_drops_out_of_range_and_zeroes_empty_rows(dev):
+    xg = torch.ones((8, 1), device=dev)
+    w = torch.ones((1, 1), device=dev)
+    dst = torch.tensor([-3, -1, 0, 2, 2, 2, 5, 9], device=dev)
+    got = _sm_check(xg, w, dst, 4)
+    assert got[:, 0].tolist() == [1.0, 0.0, 3.0, 0.0]
+    # every row written, whatever the buffer held before
+    x, src, dst, w = _sm_inputs(dev, 2000, 700, 12, 33, 3)
+    dst = torch.sort(dst // 3).values           # nodes 234..699 get no edge
+    junk = torch.full((700, 33), float("nan"), device=dev)
+    sm._launch(x[src], w, dst, junk, n_nodes=700)
+    torch.testing.assert_close(
+        junk, segment_matmul_ref(x[src], w, dst, n_nodes=700), rtol=1e-5,
+        atol=1e-5)
+
+
+def test_segment_mm_kernel_refuses_unsorted_dst(dev):
+    xg, w = torch.ones((4, 3), device=dev), torch.ones((3, 2), device=dev)
+    before = sm.KERNEL.launches
+    with pytest.raises(ValueError, match="sorted ascending"):
+        sm.segment_matmul_kernel(xg, w, torch.tensor([0, 2, 1, 3],
+                                                     device=dev), n_nodes=4)
+    with pytest.raises(ValueError, match="float32"):
+        sm.segment_matmul_kernel(xg.double(), w.double(),
+                                 torch.arange(4, device=dev), n_nodes=4)
+    assert sm.KERNEL.launches == before
+
+
+def test_segment_mm_kernel_is_deterministic(dev):
+    x, src, dst, w = _sm_inputs(dev, 400_000, 9000, 100, 128, 11)
+    order = torch.argsort(dst, stable=True)
+    xg, ds = x[src[order]], dst[order]
+    a = _sm_check(xg, w, ds, 9000)
+    b = sm.segment_matmul_kernel(xg, w, ds, n_nodes=9000)
+    assert torch.equal(a, b)
+
+
+def test_segment_mm_kernel_offsets_past_2_31(dev):
+    """E * D_in > 2^31: the last 4096 edges' rows sit past 2^31
+    elements, one edge to each of nodes 1..4096; the zero rows before
+    them all go to node 0."""
+    e = 2 ** 31 // 100 + 4096
+    xg = torch.zeros((e, 100), device=dev)
+    xg[-4096:] = torch.randn((4096, 100), device=dev)
+    w = torch.randn((100, 8), device=dev) * 0.1
+    dst = torch.zeros(e, dtype=torch.int64, device=dev)
+    dst[-4096:] = torch.arange(1, 4097, device=dev)
+    got = sm.segment_matmul_kernel(xg, w, dst, n_nodes=4097)
+    assert bool((got[0] == 0).all())
+    torch.testing.assert_close(got[1:], xg[-4096:] @ w, rtol=1e-5, atol=1e-5)
+    del xg
+
+
+# ------------------------------------------------------------ dispatch
+
+
+def test_cpu_tensors_never_reach_the_kernels_nor_cuda_the_plain(dev,
+                                                                monkeypatch):
+    before = (eb.KERNEL.launches, sm.KERNEL.launches)
+    table = torch.randn((50, 8))
+    ids = torch.randint(0, 50, (6, 3))
+    eb.embedding_bag(table, ids)
+    xg, w = torch.randn((10, 4)), torch.randn((4, 3))
+    sm.segment_matmul_kernel(xg, w, torch.arange(10) // 2, n_nodes=5)
+    assert (eb.KERNEL.launches, sm.KERNEL.launches) == before
+
+    def boom(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(eb, "embedding_bag_ref", boom)
+    monkeypatch.setattr(sm, "segment_matmul_ref", boom)
+    eb.embedding_bag(table.to(dev), ids.to(dev))
+    sm.segment_matmul_kernel(xg.to(dev), w.to(dev),
+                             (torch.arange(10) // 2).to(dev), n_nodes=5)
+    assert (eb.KERNEL.launches, sm.KERNEL.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+
+
+def test_small_dlrm_cuda_matches_cpu(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import _recsys_batch
+    from repro_torch.models.recsys import models as M
+
+    cfg = get_config("dlrm-mlperf").reduced().model
+    host = M.init_recsys(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = {k: (v.to(dev) if k == "table" else
+                [{n: t.to(dev) for n, t in layer.items()} for layer in v])
+            for k, v in host.items()}
+    batch = _recsys_batch(cfg, 300, 1, device="cpu")
+    before = eb.KERNEL.launches
+    got = M.recsys_scores(card, cfg, {k: v.to(dev) for k, v in batch.items()})
+    assert eb.KERNEL.launches == before + 1
+    want = M.recsys_scores(host, cfg, batch)
+    torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=0)

@@ -42,7 +42,15 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.kernels.ngram_score.ops",
                  "repro_torch.models.transformer",
                  "repro_torch.models.attention",
-                 "repro_torch.kernels.flash_attention.ops"):
+                 "repro_torch.kernels.flash_attention.ops",
+                 "repro_torch.kernels.embedding_bag.ops",
+                 "repro_torch.kernels.segment_mm.ops",
+                 "repro_torch.models.recsys.models",
+                 "repro_torch.models.recsys.embedding",
+                 "repro_torch.models.recsys.interactions",
+                 "repro_torch.models.gnn.segment",
+                 "repro_torch.launch.specs",
+                 "repro_torch.configs.dlrm_mlperf"):
         assert name in res["modules"]
 
 
