@@ -7,6 +7,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #define ADAPARSE_EXPORT extern "C" __attribute__((visibility("default")))
 
@@ -69,6 +70,38 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* scratch, int* to
   __syncthreads();
   *total = scratch[kWarp];
   return scratch[warp] + incl - v;
+}
+
+// ------------------------------------------------ asynchronous copies
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// N-byte asynchronous copy (N = 4, 8 or 16) from global memory to the
+// shared address `dst`; bytes past `src_bytes` (0..N) are zeroed. Both
+// addresses are N-byte aligned. 16-byte copies bypass L1 (.cg).
+template <int N>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         int src_bytes = N) {
+  static_assert(N == 4 || N == 8 || N == 16, "cp.async copies 4, 8 or 16 B");
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+                 "l"(src), "n"(N), "r"(src_bytes)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most `Pending` of this thread's committed groups are
+// still in flight.
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
 }
 
 }  // namespace adaparse

@@ -4,8 +4,8 @@ for ``attention_impl="pallas"``.
 ``flash_attention(q, k, v, causal=, window=)`` takes q (B, Sq, H, D) and
 k, v (B, Skv, Hk, D) in the JAX package's layout, float32 or bfloat16,
 and returns q's shape and dtype: the CUDA kernel
-(``csrc/flash_attention.cu``, float32 arithmetic, one block per
-(64-row query tile, head, batch)) for CUDA tensors, the plain version
+(``csrc/flash_attention.cu``: bfloat16 on the tensor cores with p kept
+at float32 precision, float32 on the CUDA cores) for CUDA tensors, the plain version
 (``ref.py``) for CPU tensors. The kernel reads q, k and v through their
 strides (the head dim must be contiguous) and writes a new contiguous
 output; the wrapper makes no padded copies.
@@ -26,6 +26,15 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL = cuda_lib.CudaKernel(
     "flash_attention", "adaparse_flash_attention",
     [P, P, P, P, I, I, I, I, I, I, I] + [L] * 9 + [I, I, F, P])
+
+
+def launch_smem_bytes(dtype: torch.dtype, d: int) -> int:
+    """Dynamic shared memory, in bytes, that a launch for ``dtype`` at
+    head dim ``d`` asks for, as the library computes it (builds it on
+    first use)."""
+    fn = cuda_lib.library().adaparse_flash_attention_smem
+    fn.argtypes, fn.restype = [I, I], L
+    return fn(_DTYPES[dtype], d)
 
 
 def _check(q, k, v, window) -> None:

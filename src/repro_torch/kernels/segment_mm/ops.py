@@ -6,9 +6,9 @@
 gather of ``x[src]`` in that order (``jnp.take``'s semantics: negative
 ids wrap, ids out of range give NaN rows), then
 ``segment_matmul_kernel`` on the sorted edges. That runs the CUDA kernel
-(``csrc/segment_mm.cu``: one block per range of output nodes, W in
-shared memory, float32 FMAs, runs of equal ``dst`` summed in registers,
-no atomics) for CUDA tensors, the plain version (``ref.py``) for CPU
+(``csrc/segment_mm.cu``: one block per range of output nodes, which
+sums each node's rows of ``x[src]`` in edge order, then multiplies the
+sums by W with float32 FMAs; no atomics) for CUDA tensors, the plain version (``ref.py``) for CPU
 tensors. Both drop edges whose ``dst`` lies outside ``[0, n_nodes)``
 (the TPU kernel clamps them onto the last node; its oracle drops them).
 The wrapper refuses a ``dst`` that is not sorted ascending.
@@ -22,26 +22,36 @@ from repro_torch.kernels.cuda_lib import I, L, P
 from repro_torch.kernels.segment_mm.ref import segment_matmul_ref
 from repro_torch.models.layers import embed_lookup
 
-TILE_E = 16                        # csrc kTileE: edges staged per step
-MAX_COLS = 128                     # csrc kThreads: one column per thread
-SMEM_BYTES = 232448                # shared memory one block may use (H100)
+MAX_NODES = 64                     # csrc kMaxNodes: nodes and ring rows
+MAX_COLS = 64                      # columns of W a phase-2 pass stages
+SMEM_BYTES = 232448 - 1024         # shared memory a block may use (H100),
+#                                    less the kernel's static arrays
 _ID_DTYPES = (torch.int32, torch.int64)
 
 KERNEL = cuda_lib.CudaKernel(
     "segment_mm", "adaparse_segment_mm",
-    [P, P, P, I, L, I, I, L, I, P, P])
+    [P, P, P, I, L, I, I, L, I, I, P, P])
 
 
-def column_chunk(d_in: int, d_out: int) -> int:
-    """Output columns one block computes: W's (d_in, chunk) slice and a
-    tile of TILE_E edges must fit in shared memory (csrc layout)."""
+def smem_bytes(d_in: int, nodes: int) -> int:
+    """Shared memory of one block that owns ``nodes`` nodes (csrc
+    smem_bytes): the (nodes x D_in) node-sum tile, a two-stage ring of
+    ``nodes`` rows and its dst ids."""
     d_in4 = -(-d_in // 4) * 4
-    room = (SMEM_BYTES - 8 * TILE_E) // (4 * d_in4) - TILE_E
-    cw = min(MAX_COLS, d_out, room)
-    if cw < 1:
-        raise ValueError(f"segment_matmul: D_in={d_in} leaves no room in "
-                         f"shared memory for a column of W")
-    return cw
+    return 4 * (-(-nodes // 4) * 4 + 2 * nodes) * d_in4 + 16 * nodes
+
+
+def block_plan(d_in: int, d_out: int) -> tuple[int, int]:
+    """(nodes a block owns, also the rows a ring stage holds; columns of
+    W a phase-2 pass stages in the ring's space): the most nodes, up to
+    MAX_NODES, that fit in shared memory. Raises when not even a ring of
+    two rows fits beside two nodes' sums."""
+    for n in range(MAX_NODES, 1, -1):
+        if smem_bytes(d_in, n) <= SMEM_BYTES:
+            cols = min(MAX_COLS, 2 * n, -(-d_out // 4) * 4)
+            return n, cols // 4 * 4
+    raise ValueError(f"segment_matmul: D_in={d_in} leaves no room in "
+                     f"shared memory for a node's row and a ring of two")
 
 
 def _check(xg, w, dst, n_nodes) -> None:
@@ -69,7 +79,7 @@ def _check(xg, w, dst, n_nodes) -> None:
                 and dst.is_contiguous()):
             raise ValueError("segment_matmul: x, w and dst must be "
                              "contiguous")
-        column_chunk(w.shape[0], w.shape[1])
+        block_plan(w.shape[0], w.shape[1])
     elif xg.device.type != "cpu":
         raise ValueError(f"segment_matmul: unsupported device {xg.device}")
     if dst.shape[0] > 1 and not bool((dst[1:] >= dst[:-1]).all()):
@@ -83,7 +93,7 @@ def _launch(xg, w, dst, out, *, n_nodes: int) -> None:
     d_out = w.shape[1]
     KERNEL(xg.data_ptr(), w.data_ptr(), dst.data_ptr(),
            int(dst.dtype == torch.int64), e, d_in, d_out, n_nodes,
-           column_chunk(d_in, d_out), out.data_ptr(),
+           *block_plan(d_in, d_out), out.data_ptr(),
            cuda_lib.stream_of(xg.device))
 
 

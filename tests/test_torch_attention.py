@@ -8,6 +8,8 @@ another order. On CPU tensors ``ops.flash_attention`` runs the plain
 version; the CUDA kernel is held against it in
 ``tests/test_torch_cuda.py``.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -82,6 +84,73 @@ def test_flash_op_matches_jax_kernel(b, sq, skv, h, hk, d, causal, window,
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
     np.testing.assert_allclose(_np(got), want, atol=TOL[dtype],
                                rtol=TOL[dtype])
+
+
+def _tensor_core_order(q, k, v, *, causal, window, tile=64):
+    """The bf16 CUDA body's order of operations in plain PyTorch: float32
+    sums of bf16 q.k products, an online softmax over 64-key tiles in
+    the log2 domain (the row maximum of the raw scores, then scaled), p
+    split into bf16 hi and lo halves for two bf16 P V products summed in
+    float32, one rounding of the output to bf16."""
+    b, sq, h, d = q.shape
+    _, skv, hk, _ = k.shape
+    kk = k.float().repeat_interleave(h // hk, dim=2)
+    vv = v.float().repeat_interleave(h // hk, dim=2)
+    qf = q.float()
+    scale2 = (1.0 / math.sqrt(d)) * math.log2(math.e)
+    m = torch.full((b, h, sq, 1), -1e30)
+    l = torch.zeros((b, h, sq, 1))
+    o = torch.zeros((b, h, sq, d))
+    qpos = torch.arange(sq)[:, None]
+    for k0 in range(0, skv, tile):
+        kpos = torch.arange(k0, min(k0 + tile, skv))[None, :]
+        ok = torch.ones((sq, kpos.shape[1]), dtype=torch.bool)
+        if causal:
+            ok &= qpos >= kpos
+        if window is not None:
+            ok &= (qpos - kpos) < window
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kk[:, k0:k0 + tile])
+        s = torch.where(ok, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * scale2)
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(ok, torch.exp2(s * scale2 - m_new), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.to(torch.bfloat16).float()
+        lo = (p - hi).to(torch.bfloat16).float()
+        vt = vv[:, k0:k0 + tile].permute(0, 2, 1, 3)
+        o = o * alpha + hi @ vt + lo @ vt
+        m = m_new
+    out = o / l.clamp_min(1e-30)
+    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,sq,skv,h,hk,d,causal,window", [
+    (1, 100, 100, 2, 2, 64, True, None),
+    (2, 96, 96, 8, 1, 8, False, None),
+    (1, 48, 80, 4, 4, 32, True, 24),
+    (1, 130, 130, 4, 2, 120, True, 40),
+])
+def test_tensor_core_order_matches_jax_kernel(b, sq, skv, h, hk, d, causal,
+                                              window):
+    """The bf16 body's arithmetic against the JAX Pallas kernel in
+    interpret mode, at the bf16 bar."""
+    (jq, jk, jv), (q, k, v) = _qkv(b, sq, skv, h, hk, d, "bfloat16", seed=6)
+    want = _np(flash_attention_kernel(jq, jk, jv, causal=causal,
+                                      window=window, block_q=32, block_k=32,
+                                      interpret=True))
+    got = _tensor_core_order(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(_np(got), want, atol=TOL["bfloat16"],
+                               rtol=TOL["bfloat16"])
+
+
+def test_tensor_core_order_keeps_p_at_float32_precision():
+    """Split p stays within the bf16 output's own rounding of the
+    float32-p result (max abs error <= 4e-3); p rounded once to bf16
+    would not."""
+    _, (q, k, v) = _qkv(1, 512, 512, 4, 2, 128, "bfloat16", seed=7)
+    want = flash_attention_ref(q, k, v, causal=True).float()
+    got = _tensor_core_order(q, k, v, causal=True, window=None).float()
+    assert (got - want).abs().max().item() <= 4e-3
 
 
 def test_fully_masked_tile_gives_no_nan():

@@ -167,6 +167,42 @@ def test_flash_kernel_lm_head_dims(dev, d, window, dtype):
               True, window)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [96, 192, 256])
+def test_flash_kernel_padded_head_dims(dev, d, dtype):
+    """Head dims that the tensor-core body pads to 128, 192 and 256."""
+    _fa_check(*_fa_inputs(dev, 1, 300, 300, 4, 2, d, dtype, seed=d), True,
+              None)
+
+
+def test_flash_kernel_ragged_key_tile_bf16(dev):
+    """S = 200 is not a multiple of the 64-key tile: the last tile's keys
+    past Skv are zero-filled and masked."""
+    _fa_check(*_fa_inputs(dev, 2, 200, 200, 4, 1, 128, torch.bfloat16,
+                          seed=7), True, None)
+    _fa_check(*_fa_inputs(dev, 1, 136, 200, 4, 4, 64, torch.bfloat16,
+                          seed=8), False, None)
+
+
+def test_flash_kernel_bf16_keeps_p_at_float32_precision(dev):
+    """p split into bf16 hi and lo halves for P V keeps the output within
+    its own bf16 rounding: max abs error <= 4e-3, where rounding p once
+    to bf16 gives ~8e-3."""
+    q, k, v = _fa_inputs(dev, 2, 1024, 1024, 8, 2, 128, torch.bfloat16,
+                         seed=3)
+    got = fa.flash_attention(q, k, v, causal=True).float()
+    want = flash_attention_ref(q, k, v, causal=True).float()
+    assert (got - want).abs().max().item() <= 4e-3
+
+
+def test_flash_kernel_reads_unaligned_views(dev):
+    """Rows that are not 16-byte aligned (head stride 36 bf16) take the
+    element-by-element load path."""
+    qkv = _fa_inputs(dev, 2, 70, 70, 12, 12, 36, torch.bfloat16, seed=9)[0]
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    _fa_check(q, k, v, True, 40)
+
+
 def test_flash_kernel_fully_masked_tile(dev):
     """Window 8 over 200 keys: late query rows meet 64-key tiles in
     which every key is masked for them."""
@@ -384,6 +420,58 @@ def test_segment_mm_kernel_refuses_unsorted_dst(dev):
         sm.segment_matmul_kernel(xg.double(), w.double(),
                                  torch.arange(4, device=dev), n_nodes=4)
     assert sm.KERNEL.launches == before
+
+
+def test_segment_mm_kernel_hub_node(dev):
+    """One node with 50,000 edges among 20,000 uniform ones: its block
+    streams the hub's whole slab. The hub's rows are drawn with standard
+    deviation 50,000^-0.5, so its sum is of the size of the other nodes'
+    (unscaled N(0, 1) rows sum to ~3e3 there, and the cancelling output
+    elements then need more digits than float32 holds at rtol = atol =
+    1e-5, whatever the order of the sum; the float32 plain version, which
+    adds the 50,000 messages one by one, was ~3.5e-2 off the float64
+    result on them, and this kernel ~1e-3). The yardstick for the hub is
+    the function in float64; the plain version for the other rows."""
+    x, src, dst, w = _sm_inputs(dev, 20_000, 3000, 100, 128, 13)
+    g = torch.Generator(device=dev).manual_seed(14)
+    xg = torch.cat([x[src], torch.randn((50_000, 100), generator=g,
+                                        device=dev) * 50_000 ** -0.5])
+    dst = torch.cat([dst, torch.full((50_000,), 1234, device=dev)])
+    order = torch.argsort(dst, stable=True)
+    xg, ds = xg[order], dst[order]
+    got = sm.segment_matmul_kernel(xg, w, ds, n_nodes=3000)
+    exact = torch.zeros((3000, 128), dtype=torch.float64,
+                        device=dev).index_add_(0, ds, xg.double() @ w.double())
+    torch.testing.assert_close(got.double(), exact, rtol=1e-5, atol=1e-5)
+    rest = torch.arange(3000, device=dev) != 1234
+    torch.testing.assert_close(got[rest], segment_matmul_ref(
+        xg, w, ds, n_nodes=3000)[rest], rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, sm.segment_matmul_kernel(xg, w, ds, n_nodes=3000))
+
+
+def test_segment_mm_kernel_unscaled_hub_is_nearer_float64_than_plain(dev):
+    """A hub of 50,000 unscaled N(0, 1) rows (sums ~3e3): against the
+    function in float64, the kernel's two-level sum stays within 4e-3
+    (about 1e-3 on the card, where the float32 plain version, which adds
+    the messages one by one, is ~3.5e-2 off) and is nearer than the
+    plain version."""
+    x, src, dst, w = _sm_inputs(dev, 20_000, 3000, 100, 128, 13)
+    g = torch.Generator(device=dev).manual_seed(14)
+    src = torch.cat([src, torch.randint(0, 3000, (50_000,), generator=g,
+                                        device=dev)])
+    dst = torch.cat([dst, torch.full((50_000,), 1234, device=dev)])
+    order = torch.argsort(dst, stable=True)
+    xg, ds = x[src[order]], dst[order]
+    exact = torch.zeros((3000, 128), dtype=torch.float64,
+                        device=dev).index_add_(0, ds, xg.double() @ w.double())
+    err_kernel = (sm.segment_matmul_kernel(xg, w, ds, n_nodes=3000).double()
+                  - exact)[1234].abs().max().item()
+    err_plain = (segment_matmul_ref(xg, w, ds, n_nodes=3000).double()
+                 - exact)[1234].abs().max().item()
+    print(f"unscaled hub, max abs error against float64: kernel "
+          f"{err_kernel}, plain {err_plain}")
+    assert err_kernel <= 4e-3, (err_kernel, err_plain)
+    assert err_kernel <= err_plain, (err_kernel, err_plain)
 
 
 def test_segment_mm_kernel_is_deterministic(dev):

@@ -148,6 +148,59 @@ def test_segment_matmul_matches_jax_kernel(e, n, din, dout):
     np.testing.assert_allclose(got_k.numpy(), want_k, rtol=1e-5, atol=1e-5)
 
 
+def _sum_then_gemm_order(xg, w, dst, n_nodes, nodes=64, tile_e=64):
+    """The CUDA kernel's order of operations in plain PyTorch: a block
+    owns ``nodes`` output nodes and walks its slab of edges ``tile_e``
+    rows at a time; each node's rows of a tile are summed in edge order,
+    each tile's partial is added to the node's running sum, and the
+    sums are multiplied by W once per node."""
+    xg, dst = torch.from_numpy(xg), torch.from_numpy(dst).long()
+    keep = (dst >= 0) & (dst < n_nodes)
+    e_idx = torch.arange(dst.shape[0])
+    block_start = torch.searchsorted(dst, torch.arange(0, n_nodes, nodes))
+    blk = (dst.clamp(0, n_nodes - 1) // nodes)
+    tile = (e_idx - block_start[blk]) // tile_e
+    key = torch.stack([tile, dst], 1)[keep]
+    new_run = torch.ones(key.shape[0], dtype=torch.bool)
+    new_run[1:] = (key[1:] != key[:-1]).any(1)
+    run_id = torch.cumsum(new_run.long(), 0) - 1
+    part = torch.zeros((int(new_run.sum()), xg.shape[1])).index_add_(
+        0, run_id, xg[keep])
+    sums = torch.zeros((n_nodes, xg.shape[1])).index_add_(
+        0, key[new_run, 1], part)
+    return (sums @ torch.from_numpy(w)).numpy()
+
+
+def _skewed_graph(e, n, hub_edges, seed):
+    """Uniform edges plus one hub node that receives ``hub_edges`` more,
+    sorted by dst."""
+    rng = np.random.RandomState(seed)
+    dst = np.concatenate([rng.randint(0, n, e), np.full(hub_edges, n // 3)])
+    src = rng.randint(0, n, dst.shape[0])
+    order = np.argsort(dst, kind="stable")
+    return src[order].astype(np.int32), dst[order].astype(np.int32)
+
+
+@pytest.mark.parametrize("e,n,din,dout,hub", [
+    (100, 20, 16, 8, 0), (256, 64, 8, 8, 0), (73, 10, 32, 16, 0),
+    (500, 150, 12, 8, 1500),          # degree-skewed: one hub of 1500
+])
+def test_sum_then_gemm_order_matches_jax_kernel(e, n, din, dout, hub):
+    """Node sums before the GEMV, as the CUDA kernel takes them, against
+    the JAX Pallas kernel (one GEMV per edge) in interpret mode, at the
+    kernel's bar."""
+    rng = np.random.RandomState(e + hub)
+    x = rng.randn(n, din).astype(np.float32)
+    w = rng.randn(din, dout).astype(np.float32)
+    src, dst = _skewed_graph(e, n, hub, e)
+    xg = x[src]
+    want = np.asarray(j_kernel(jnp.asarray(xg), jnp.asarray(w),
+                               jnp.asarray(dst), n_nodes=n, block_e=64,
+                               interpret=True))
+    got = _sum_then_gemm_order(xg, w, dst, n)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
 def test_segment_matmul_drops_out_of_range_dst_like_the_oracle():
     """segment_sum drops dst >= n_nodes (and < 0); the JAX kernel clamps
     such edges onto the last node instead: for dst [2, 2, 2, 3, 3, 3]
@@ -206,11 +259,17 @@ def test_segment_matmul_refuses_what_it_does_not_take():
 
 
 def test_column_chunk_fits_shared_memory():
-    assert ops.column_chunk(100, 128) == 128
-    assert ops.column_chunk(16, 8) == 8
-    cw = ops.column_chunk(1433, 256)          # full_graph_sm's d_feat
-    assert 1 <= cw < 128
-    d_in4 = 1436
-    assert 4 * d_in4 * (cw + ops.TILE_E) + 8 * ops.TILE_E <= ops.SMEM_BYTES
+    """The block plan: nodes a block owns (also the ring's rows), and the
+    column chunk of W that phase 2 stages in the ring's space."""
+    assert ops.block_plan(100, 128) == (64, 64)
+    assert ops.block_plan(16, 8) == (64, 8)
+    assert ops.block_plan(3, 5) == (64, 8)
+    nodes, cw = ops.block_plan(1433, 256)            # full_graph_sm's d_feat
+    assert 2 <= nodes < 64
+    assert 4 <= cw <= 2 * nodes and cw % 4 == 0
+    assert ops.smem_bytes(1433, nodes) <= ops.SMEM_BYTES
+    assert ops.smem_bytes(1433, nodes + 1) > ops.SMEM_BYTES
+    # the W chunk fits in the ring: d_in x cw floats in 2 x nodes rows
+    assert 1433 * cw <= 2 * nodes * 1436
     with pytest.raises(ValueError, match="shared memory"):
-        ops.column_chunk(60000, 8)
+        ops.block_plan(60000, 8)
