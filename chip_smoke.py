@@ -29,10 +29,24 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    64 f32 table, B=4096, L=16, sum and mean; timed beside
    ``torch.nn.functional.embedding_bag``), segment_mm (``ogb_products``:
    N=2,449,029, E=61,859,140, 100 -> 128, f32; timed beside
-   ``torch.matmul`` then ``index_add_``). Times are CUDA-event medians;
-   each row also gives ``tflops`` (the function's operations over the
-   kernel's time, where they are counted) and ``x_bound`` (time over
-   bound).
+   ``torch.matmul`` then ``index_add_``). ``ms`` is the CUDA-event median
+   of one launch (host time included for a small kernel: the first event
+   fires before the host has submitted it); ``ms_device`` is the device
+   time per launch over 100 back-to-back launches queued behind a sleep
+   kernel (``launch.kernel_timing.device_ms``). Rows 1-3 also give the
+   torch.profiler durations of the kernels themselves (``profiler_ms``)
+   and ``empty_launch_ms`` / ``empty_profiler_ms``: a do-nothing kernel
+   at the same grid, the floor under them (not a bound). Each row also
+   gives ``tflops`` (the function's operations over ``ms``, where they
+   are counted), ``x_bound`` and ``x_bound_device`` (``ms`` and
+   ``ms_device`` over the bound). Then the adversarial cases of the
+   redesigned ngram_score (every token equal, an L that is not a
+   multiple of 32, lengths 0, 1 and L, max_n 1 to 8, L at the wrapper's
+   limit) and fast_features (one repeated token, ids 0 and vocab - 1,
+   widths 128 and 4096, n_tok 0, one document) against their plain
+   versions, and the routing-parity probes: a negative NaN and
+   subnormal scores through the CUDA budget_route and budget_topk,
+   asserted against the JAX package's answers written in as constants.
 2. ft: ``serve.main`` with ``--variant ft --device cuda`` and with
    ``--device cpu``: the metric dicts must be equal, and fast_features
    must have launched at least once per batch.
@@ -135,6 +149,17 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def small_kernel_times(launch, grids, dev) -> dict:
+    """Rows 1-3: the back-to-back device time, the profiler's kernel time
+    and the empty-kernel floor at the same grids."""
+    from repro_torch.launch.kernel_timing import (device_ms, empty_ms,
+                                                  profiled_ms)
+
+    prof = profiled_ms(launch)
+    return {"ms_device": device_ms(launch), "profiler_ms": prof["ms"],
+            "profiler_kernels": prof["kernels"], **empty_ms(grids, dev)}
+
+
 def bound(bytes_moved: float, ops: float = 0.0,
           ops_per_s: float = SCALAR_OPS_PER_S) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
@@ -205,8 +230,11 @@ def check_fast_features(ccfg, pages, dev) -> list[dict]:
             mask = torch.empty((n, max_len), dtype=torch.float32,
                                device=dev)
         flag = torch.zeros(1, dtype=torch.int32, device=dev)
-        ms = time_ms(lambda: ops._launch(*ins, fast, toks, mask, flag,
-                                         bos=1, **kw))
+        def launch():
+            ops._launch(*ins, fast, toks, mask, flag, bos=1, **kw)
+
+        ms = time_ms(launch)
+        times = small_kernel_times(launch, ops.launch_grid(n), dev)
         plain_ms = time_ms(lambda: ref.fast_features_ref(*ins, **kw))
         # data-dependent bytes: each valid token read once, 4 per-doc
         # scalars, the features and the token/mask pair written once
@@ -215,7 +243,7 @@ def check_fast_features(ccfg, pages, dev) -> list[dict]:
         b_ms, b_by = bound(nbytes)
         rows.append(dict(name="fast_features", shape=dict(
             n=n, width=packed.width, max_len=max_len), max_abs_err=err,
-            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+            ms=ms, **times, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
     return rows
 
 
@@ -246,15 +274,19 @@ def check_budget_route(dev) -> list[dict]:
         count = torch.empty(1, dtype=torch.int32, device=dev)
         counts = torch.empty(2 * (-(-n // ops.BLOCK_ROWS)),
                              dtype=torch.int32, device=dev)
-        ms = time_ms(lambda: ops._launch(scores, tokens, tau, counts, out,
-                                         idx, count, capacity=cap))
+        def launch():
+            ops._launch(scores, tokens, tau, counts, out, idx, count,
+                        capacity=cap)
+
+        ms = time_ms(launch)
+        times = small_kernel_times(launch, ops.launch_grid(n), dev)
         plain_ms = time_ms(lambda: ref.budget_route_ref(
             scores, tokens, tau[0], capacity=cap))
         kept = int(want[2])
         nbytes = 4 * n + 4 + 2 * 4 * d * kept + 4 * cap + 4
         b_ms, b_by = bound(nbytes)
         rows.append(dict(name="budget_route", shape=dict(
-            n=n, d=d, capacity=cap), max_abs_err=0.0, ms=ms,
+            n=n, d=d, capacity=cap), max_abs_err=0.0, ms=ms, **times,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
     return rows
 
@@ -286,17 +318,185 @@ def check_ngram_score(docs, pages_by_parser, dev) -> list[dict]:
         assert bool((diff <= 1e-6 + 1e-5 * want.abs()).all()), \
             f"ngram_score B={b}: max err {diff.max().item()}"
         out = torch.empty(b, dtype=torch.float32, device=dev)
-        ms = time_ms(lambda: ops._launch(*ins, out, max_n=4))
+        def launch():
+            ops._launch(*ins, out, max_n=4)
+
+        ms = time_ms(launch)
+        times = small_kernel_times(launch, ops.launch_grid(b, L), dev)
         plain_ms = time_ms(lambda: ref.ngram_bleu_ref(*ins))
         lr = rl.astype(np.int64)
         lh = hl.astype(np.int64)
         pairs = float((lh * lr + lh * (lh - 1) // 2).sum())
         b_ms, b_by = bound(2 * 4 * b * L + 8 * b + 4 * b, ops=pairs)
         rows.append(dict(name="ngram_score", shape=dict(b=b, L=L),
-                         max_abs_err=diff.max().item(), ms=ms,
+                         max_abs_err=diff.max().item(), ms=ms, **times,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          ops=pairs))
     return rows
+
+
+def ngram_edge_cases():
+    """(name, B, L, vocab, max_n, ref lengths, hyp lengths): every token
+    equal (the longest matches, the most clipping), an L that is not a
+    multiple of 32 with lengths 0, 1 and L, every order from 1 to 8, and
+    an L at the wrapper's limit (the shared-memory attribute path)."""
+    from repro_torch.kernels.ngram_score.ops import MAX_LEN
+
+    return ([("all_equal", 3, 256, 1, n, [256, 255, 100], [256, 100, 255])
+             for n in (4, 8)]
+            + [("ragged_L", 6, 300, 5, 4, [0, 1, 300, 299, 31, 33],
+                [300, 0, 1, 300, 33, 31])]
+            + [("max_n", 4, 100, 4, n, [100, 99, 7, 64], [100, 64, 99, 8])
+               for n in range(1, 9)]
+            + [("near_limit", 2, MAX_LEN, 50, 4, [MAX_LEN, MAX_LEN - 7],
+                [MAX_LEN - 3, MAX_LEN])])
+
+
+def ngram_edge_inputs(case, dev):
+    """Seeded (ref, hyp, ref_len, hyp_len) of one edge case on ``dev``,
+    padded with -1 past each length."""
+    import numpy as np
+    import torch
+
+    _, b, L, vocab, _, lr, lh = case
+    rng = np.random.RandomState(L + vocab)
+    ref = rng.randint(0, vocab, (b, L)).astype(np.int32) + 7
+    hyp = rng.randint(0, vocab, (b, L)).astype(np.int32) + 7
+    lr, lh = np.array(lr, np.int32), np.array(lh, np.int32)
+    pos = np.arange(L)
+    ref[pos[None] >= lr[:, None]] = -1
+    hyp[pos[None] >= lh[:, None]] = -1
+    return [torch.from_numpy(x).to(dev) for x in (ref, hyp, lr, lh)]
+
+
+def ff_edge_cases():
+    """(name, n, width, max_len, token choice, n_tok): one repeated
+    token in every slot (every lane of a warp on one bitmap word), only
+    ids 0 and vocab - 1, widths 128 and 4096, n_tok 0, one document."""
+    return [("one_token", 4, 4096, 512, "ws", [4096, 4095, 1, 0]),
+            ("extreme_ids", 3, 4096, 512, "ends", [4096, 3000, 17]),
+            ("width_128", 5, 128, 0, "any", [0, 1, 127, 128, 64]),
+            ("width_128_first_page", 3, 128, 128, "any", [128, 5, 0]),
+            ("one_doc", 1, 4096, 512, "any", [3333])]
+
+
+def ff_edge_inputs(case, vocab: int, ws: int, dev):
+    """Seeded (tok, n_tok, first_len, n_pages, n_empty) of one edge case
+    on ``dev``; slots past n_tok hold -1, which must never count."""
+    import numpy as np
+    import torch
+
+    _, n, width, _, choice, nt = case
+    rng = np.random.RandomState(width + n)
+    if choice == "ws":
+        tok = np.full((n, width), ws, np.int32)
+    elif choice == "ends":
+        tok = rng.choice([0, vocab - 1], (n, width)).astype(np.int32)
+    else:
+        tok = rng.randint(0, vocab, (n, width)).astype(np.int32)
+    nt = np.array(nt, np.int32)
+    tok[np.arange(width)[None] >= nt[:, None]] = -1
+    first = np.array([rng.randint(0, t + 1) for t in nt], np.int32)
+    pages = rng.randint(0, 9, n).astype(np.int32)
+    empty = np.array([rng.randint(0, p + 1) for p in pages], np.int32)
+    return [torch.from_numpy(x).to(dev) for x in (tok, nt, first, pages,
+                                                  empty)]
+
+
+def phase_kernel_edge_cases(dev) -> None:
+    """The redesigned ngram_score and fast_features kernels against their
+    plain versions on the adversarial cases, with the main rows'
+    tolerances."""
+    import torch
+
+    from repro_torch.data.synthetic import MANGLED, SCRAMBLE, WS
+    from repro_torch.kernels.fast_features import ops as ff
+    from repro_torch.kernels.fast_features.ref import fast_features_ref
+    from repro_torch.kernels.ngram_score import ops as ng
+    from repro_torch.kernels.ngram_score.ref import ngram_bleu_ref
+
+    out = {}
+    for case in ngram_edge_cases():
+        ins = ngram_edge_inputs(case, dev)
+        got = ng.ngram_bleu(*ins, max_n=case[4]).double()
+        want = ngram_bleu_ref(*ins, max_n=case[4])
+        diff = (got - want).abs()
+        name = f"ngram_score/{case[0]}/L{case[2]}/max_n{case[4]}"
+        assert bool((diff <= 1e-6 + 1e-5 * want.abs()).all()), \
+            f"{name}: max err {diff.max().item()}"
+        assert bool((got[ins[3] == 0] == 0).all()), f"{name}: empty hyp"
+        out[name] = diff.max().item()
+        del ins, got, want, diff
+        free_cuda()
+    vocab = 10000
+    for case in ff_edge_cases():
+        ins = ff_edge_inputs(case, vocab, WS, dev)
+        kw = dict(max_len=case[3], ws=WS, scramble=SCRAMBLE, mangled=MANGLED,
+                  latex_lo=8010, ident_lo=8510, vocab_size=vocab)
+        got = ff.fast_features(*ins, **kw)
+        want = fast_features_ref(*ins, **kw)
+        name = f"fast_features/{case[0]}/w{case[2]}/max_len{case[3]}"
+        err = (got[0] - want[0]).abs().max().item()
+        assert err <= 1e-6, f"{name}: {err}"
+        if case[3]:
+            assert torch.equal(got[1], want[1]), f"{name}: toks"
+            assert torch.equal(got[2], want[2]), f"{name}: mask"
+        out[name] = err
+    emit({"phase": "kernel_edge_cases", "max_abs_err": out})
+
+
+def f32_scores(vals, dev):
+    """float32 scores on ``dev``; the string "-nan" is the negative quiet
+    NaN 0xFFC00000."""
+    import numpy as np
+    import torch
+
+    a = np.array([0.0 if v == "-nan" else v for v in vals], np.float32)
+    a.view(np.uint32)[[v == "-nan" for v in vals]] = 0xFFC00000
+    return torch.from_numpy(a).to(dev)
+
+
+# The JAX package's answers on the CPU (jax 0.9.0), written in because
+# the card has no JAX: (scores, alpha, require_positive, idx, count).
+# lax.top_k ranks a negative NaN below -inf; XLA flushes subnormals to
+# zero when it compares, so 0.0 and 1e-38 tie at a tau of 1e-38.
+ROUTE_PROBES = (
+    (("-nan", 1.0, 0.5, 0.2), 0.5, True, [1, 2], 2),
+    ((0.0, 1e-38, -1.0, -2.0), 0.25, False, [0], 1),
+    ((-0.0, 0.0, 1e-39, -1.0), 0.25, False, [0], 1),
+)
+
+
+def phase_routing_parity(dev) -> None:
+    """The NaN-order and subnormal probes through the CUDA budget_route
+    and budget_topk on the card, against the JAX package's answers."""
+    import torch
+
+    from repro_torch.core import scheduler
+    from repro_torch.kernels.budget_route import ops
+
+    out = []
+    for vals, alpha, positive, want_idx, want_count in ROUTE_PROBES:
+        scores = f32_scores(vals, dev)
+        tokens = torch.arange(4 * len(vals), dtype=torch.int32,
+                              device=dev).reshape(-1, 4)
+        before = ops.KERNEL.launches
+        rows, idx, count = ops.budget_route(scores, tokens, alpha,
+                                            require_positive=positive)
+        assert ops.KERNEL.launches == before + 1
+        got = (idx.tolist(), int(count))
+        assert got == (want_idx, want_count), (vals, alpha, got)
+        assert rows[:want_count].equal(tokens[[i for i in want_idx
+                                               if i >= 0]])
+        out.append({"scores": [str(v) for v in vals], "alpha": alpha,
+                    "require_positive": positive, "idx": got[0],
+                    "count": got[1]})
+    mask, idx = scheduler.budget_topk(f32_scores((1e-38, -1.0, -2.0, -3.0),
+                                                 dev), 0.5)
+    assert not bool(mask.any()) and idx.tolist() == [0, 1], (mask, idx)
+    emit({"phase": "routing_parity", "budget_route": out,
+          "budget_topk_subnormal_mask": mask.tolist(),
+          "equal_to_jax": True})
 
 
 # (row name, B, S, H, Hk, D, window, dtype, tolerance, max abs error
@@ -352,6 +552,7 @@ def check_flash_attention(dev) -> list[dict]:
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.launch.kernel_timing import device_ms
 
     rows = []
     for name, b, s, h, hk, d, window, dtype, tol, max_err in FLASH_ROWS:
@@ -395,6 +596,7 @@ def check_flash_attention(dev) -> list[dict]:
         out = torch.empty_like(q)
         ms = time_ms(lambda: ops._launch(q, k, v, out, **kw), reps=10,
                      warmup=2)
+        ms_device = device_ms(lambda: ops._launch(q, k, v, out, **kw))
         plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
                            reps=3, warmup=1)
         library_ms = time_ms(library, reps=10, warmup=2)
@@ -408,8 +610,9 @@ def check_flash_attention(dev) -> list[dict]:
             b=b, s=s, h=h, hk=hk, d=d, window=window, dtype=dtype),
             tolerance=tol, max_abs_err=err, max_abs_err_limit=max_err,
             bf16_p_control_max_abs_err=ctl_err, library_max_abs_err=lib_err,
-            ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-            bound_by=b_by, ops=n_ops, bytes=nbytes))
+            ms=ms, ms_device=ms_device, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=b_ms, bound_by=b_by, ops=n_ops,
+            bytes=nbytes))
         del q, k, v, out
         torch.cuda.empty_cache()
     return rows
@@ -444,6 +647,7 @@ def check_embedding_bag(dev) -> list[dict]:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.embedding_bag import ops, ref
+    from repro_torch.launch.kernel_timing import device_ms
     from repro_torch.models.recsys import embedding as E
 
     rows = []
@@ -493,8 +697,11 @@ def check_embedding_bag(dev) -> list[dict]:
                 reps=10, warmup=2)
             del lib_w
         out = torch.empty((ids.shape[0], d), dtype=dt, device=dev)
-        ms = time_ms(lambda: ops._launch(table, ids, weights, out,
-                                         combiner=comb))
+        def launch():
+            ops._launch(table, ids, weights, out, combiner=comb)
+
+        ms = time_ms(launch)
+        ms_device = device_ms(launch)
         plain_ms = time_ms(lambda: ref.embedding_bag_ref(
             table, ids, w_plain, combiner=comb), reps=5, warmup=1)
         # each looked-up row read once, each bag written once, the ids
@@ -507,7 +714,8 @@ def check_embedding_bag(dev) -> list[dict]:
         rows.append(dict(name="embedding_bag", row=name, shape=dict(
             table_rows=table.shape[0], d=d, dtype=dtype, bags=ids.shape[0],
             bag=ids.shape[1], combiner=comb), tolerance=tol,
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            max_abs_err=err, ms=ms, ms_device=ms_device, plain_ms=plain_ms,
+            library_ms=lib_ms,
             bound_ms=b_ms, bound_by=b_by, bytes=nbytes))
         del table, ids, weights, w_plain, out
         free_cuda()
@@ -565,6 +773,7 @@ def check_segment_mm(dev) -> list[dict]:
     import torch
 
     from repro_torch.kernels.segment_mm import ops, ref
+    from repro_torch.launch.kernel_timing import device_ms
     from repro_torch.models.layers import embed_lookup
 
     x, src, dst, w = gnn_inputs(dev)
@@ -579,6 +788,8 @@ def check_segment_mm(dev) -> list[dict]:
     cmp = compare_segment_mm(got, xg, w, dsorted, n)
     ms = time_ms(lambda: ops._launch(xg, w, dsorted, got, n_nodes=n),
                  reps=10, warmup=2)
+    ms_device = device_ms(lambda: ops._launch(xg, w, dsorted, got,
+                                              n_nodes=n))
     del got
     free_cuda()
     plain_ms = time_ms(lambda: ref.segment_matmul_ref(xg, w, dsorted,
@@ -601,7 +812,7 @@ def check_segment_mm(dev) -> list[dict]:
     free_cuda()
     return [dict(name="segment_mm", row="ogb_products", shape=dict(
         n_nodes=n, n_edges=e, d_in=d_in, d_out=d_out, dtype="float32"),
-        tolerance=1e-5, **cmp, ms=ms, plain_ms=plain_ms,
+        tolerance=1e-5, **cmp, ms=ms, ms_device=ms_device, plain_ms=plain_ms,
         library_ms=library_ms, library="torch.matmul + index_add_ (two "
         "calls)", bound_ms=b_ms, bound_by=b_by, ops=n_ops, bytes=nbytes)]
 
@@ -1291,7 +1502,10 @@ def main() -> int:
         # function is data movement only count none), and time / bound
         r["tflops"] = r["ops"] / r["ms"] / 1e9 if "ops" in r else None
         r["x_bound"] = r["ms"] / r["bound_ms"]
+        r["x_bound_device"] = r["ms_device"] / r["bound_ms"]
     emit({"phase": "kernels", "card": card, "results": rows})
+    phase_kernel_edge_cases(dev)
+    phase_routing_parity(dev)
 
     path_counts = [phase_ft(), phase_llm(), phase_lm()]
     phase_lm_small_parity()
@@ -1324,7 +1538,10 @@ def main() -> int:
             "launches": sum(c[name] for c in path_counts),
             "max_abs_err": max(r["max_abs_err"] for r in rows
                                if r["name"] == name),
-            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "ms": row["ms"], "ms_device": row["ms_device"],
+            **{k: row[k] for k in ("profiler_ms", "empty_launch_ms")
+               if k in row},
+            "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row.get("library_ms")})
     emit({"kernels": summary})

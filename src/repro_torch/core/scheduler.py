@@ -21,14 +21,7 @@ import torch
 
 from repro_torch.core import obs
 from repro_torch.kernels.budget_route.ops import capacity_floor
-
-
-def total_order_key(x: torch.Tensor) -> torch.Tensor:
-    """int32 keys whose order is IEEE total order on ``x`` in float32
-    (-0.0 below +0.0, a positive NaN above +inf): ``lax.top_k``'s order, for a
-    stable sort to reproduce it."""
-    bits = x.float().view(torch.int32)
-    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
+from repro_torch.kernels.order import flush_subnormal, total_order_key
 
 
 def budget_topk(scores: torch.Tensor, alpha: float
@@ -40,7 +33,8 @@ def budget_topk(scores: torch.Tensor, alpha: float
     Only items with positive predicted improvement are routed. The order
     is ``lax.top_k``'s: IEEE total order (-0.0 below +0.0), exact ties
     by lower index — a stable descending sort of the total-order keys,
-    since ``torch.topk`` promises no tie order.
+    since ``torch.topk`` promises no tie order. The sign test flushes
+    subnormals to zero first, as XLA's compare does.
     """
     k = scores.shape[0]
     n_sel = capacity_floor(alpha, k)
@@ -50,7 +44,7 @@ def budget_topk(scores: torch.Tensor, alpha: float
                                  device=scores.device)
     idx = torch.sort(total_order_key(scores), descending=True,
                      stable=True).indices[:n_sel]
-    mask[idx] = scores[idx] > 0
+    mask[idx] = flush_subnormal(scores[idx]) > 0
     return mask, idx
 
 

@@ -23,7 +23,9 @@
 //      copies each kept row. Block 0 writes count and the -1 tail of idx.
 // Selection rule (shared with ref.py and scheduler.plan_batch): a row is
 // kept iff score > tau, or score == tau and its tie rank < tie_cap, and
-// its output position < capacity.
+// its output position < capacity. Both compares take score and tau with
+// subnormals flushed to zero, as XLA's compare does (the JAX package's
+// route keeps both rows of [0.0, 1e-38] as ties at a tau of 1e-38).
 #include <stdint.h>
 
 #include "../../csrc/common.cuh"
@@ -36,9 +38,9 @@ __global__ void __launch_bounds__(kBlock)
 route_count(const float* __restrict__ scores, const float* __restrict__ tau_p,
             int n, int* __restrict__ counts) {
   __shared__ int scratch[adaparse::kWarp + 1];
-  const float tau = *tau_p;
+  const float tau = adaparse::flush_subnormal(*tau_p);
   const int r = blockIdx.x * kBlock + threadIdx.x;
-  const float s = r < n ? scores[r] : 0.0f;
+  const float s = r < n ? adaparse::flush_subnormal(scores[r]) : 0.0f;
   const int gt = adaparse::block_sum(r < n && s > tau, scratch);
   const int eq = adaparse::block_sum(r < n && s == tau, scratch);
   if (threadIdx.x == 0) {
@@ -56,7 +58,7 @@ route_compact(const float* __restrict__ scores, const float* __restrict__ tau_p,
   __shared__ int scratch[adaparse::kWarp + 1];
   __shared__ int kept_rows[kBlock];
   __shared__ int kept_pos[kBlock];
-  const float tau = *tau_p;
+  const float tau = adaparse::flush_subnormal(*tau_p);
   const int b = blockIdx.x;
 
   // totals over all blocks and over the blocks before this one
@@ -80,7 +82,7 @@ route_compact(const float* __restrict__ scores, const float* __restrict__ tau_p,
   const int kept_before = gt_before + ties_kept_before;
 
   const int r = b * kBlock + threadIdx.x;
-  const float s = r < n ? scores[r] : 0.0f;
+  const float s = r < n ? adaparse::flush_subnormal(scores[r]) : 0.0f;
   const int gt = r < n && s > tau;
   const int eq = r < n && s == tau;
   int eq_total;

@@ -1,17 +1,21 @@
 """Public fused budget-route op: top-k threshold + CUDA select-and-compact.
 
 ``budget_route(scores, tokens, alpha)`` is the device-side realization of
-scheduler.plan_batch: tau = the floor(alpha*N)-th largest score (one
-``torch.topk``, outside the kernel, as ``lax.top_k`` sits outside the
-Pallas kernel in the JAX package), clamped to the shared positive
-threshold, then the select+compact kernel (``csrc/budget_route.cu``)
-for CUDA tensors or the plain version (``ref.py``) for CPU tensors.
+scheduler.plan_batch: tau = the floor(alpha*N)-th largest score in
+IEEE total order (one ``torch.topk`` of the total-order keys, outside the
+kernel, as ``lax.top_k`` sits outside the Pallas kernel in the JAX
+package), clamped to the shared positive threshold, then the
+select+compact kernel (``csrc/budget_route.cu``) for CUDA tensors or the
+plain version (``ref.py``) for CPU tensors. Both compare scores with tau
+after flushing subnormals to zero, as XLA's compare does.
 
 Semantics are the exact device mirror of ``scheduler.plan_batch``:
 floor capacity (floor(alpha*N) == 0 routes nothing), tau clamped to
 ``POSITIVE_TAU``, ties at tau kept in row order up to capacity. Only
 the value of the k-th largest score is taken from ``torch.topk``, so its
-unspecified tie order cannot change the selection.
+unspecified tie order cannot change the selection. The device plan may
+differ from ``plan_batch`` at NaN or subnormal scores, as the JAX
+package's device op differs from its host mirror there.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.budget_route.ref import budget_route_ref
 from repro_torch.kernels.cuda_lib import I, P
+from repro_torch.kernels.order import total_order_key
 
 # keep in sync with scheduler.POSITIVE_TAU (not imported: kernels must not
 # depend on core)
@@ -77,6 +82,11 @@ def _check(scores, tokens, tau) -> None:
                          f"{scores.device}")
 
 
+def launch_grid(n: int) -> list[tuple[int, int]]:
+    """(blocks, threads) of the two kernels one launch runs."""
+    return [(-(-n // BLOCK_ROWS), BLOCK_ROWS)] * 2
+
+
 def _launch(scores, tokens, tau, counts, out, idx, count, *,
             capacity: int) -> None:
     """One kernel launch (two passes on the stream) into preallocated
@@ -92,9 +102,11 @@ def _launch(scores, tokens, tau, counts, out, idx, count, *,
 
 
 def route_tau(scores, capacity: int, require_positive: bool = True):
-    """The capacity-th largest score (a 1-element tensor on the scores'
-    device), clamped to ``POSITIVE_TAU`` when ``require_positive``."""
-    kth = torch.topk(scores, capacity).values[-1:]
+    """The capacity-th largest score in IEEE total order (a 1-element
+    tensor on the scores' device), clamped to ``POSITIVE_TAU`` when
+    ``require_positive``. ``lax.top_k``'s order: a negative NaN ranks
+    below -inf, where ``torch.topk`` on the floats would rank it first."""
+    kth = scores[torch.topk(total_order_key(scores), capacity).indices[-1:]]
     if require_positive:
         kth = torch.clamp(kth, min=POSITIVE_TAU)
     return kth

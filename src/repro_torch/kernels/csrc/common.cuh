@@ -72,6 +72,15 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* scratch, int* to
   return scratch[warp] + incl - v;
 }
 
+// A float32 subnormal (|x| < 2^-126) as a zero of its sign; every other
+// value unchanged. Comparing flushed values compares as XLA does (it
+// flushes subnormals in float compares). Explicit, so the library needs
+// no -ftz flag, which would change every kernel's arithmetic.
+__device__ __forceinline__ float flush_subnormal(float x) {
+  const unsigned bits = __float_as_uint(x);
+  return (bits & 0x7f800000u) ? x : __uint_as_float(bits & 0x80000000u);
+}
+
 // ------------------------------------------------ asynchronous copies
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

@@ -33,17 +33,17 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 
-def sources() -> list[Path]:
+def sources(kernels_dir: Path = KERNELS_DIR) -> list[Path]:
     """Every CUDA source of the port, in a stable order."""
-    return sorted(list(KERNELS_DIR.glob("csrc/*.cu"))
-                  + list(KERNELS_DIR.glob("*/csrc/*.cu")))
+    return sorted(list(kernels_dir.glob("csrc/*.cu"))
+                  + list(kernels_dir.glob("*/csrc/*.cu")))
 
 
-def _fingerprint() -> str:
+def _fingerprint(kernels_dir: Path) -> str:
     h = hashlib.sha256(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
-    for p in sorted(list(KERNELS_DIR.glob("csrc/*"))
-                    + list(KERNELS_DIR.glob("*/csrc/*"))):
-        h.update(str(p.relative_to(KERNELS_DIR)).encode() + b"\0")
+    for p in sorted(list(kernels_dir.glob("csrc/*"))
+                    + list(kernels_dir.glob("*/csrc/*"))):
+        h.update(str(p.relative_to(kernels_dir)).encode() + b"\0")
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
@@ -60,23 +60,25 @@ def _nvcc() -> str:
                        "first launch")
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libadaparse_kernels_{_fingerprint()}.so"
+def library_path(kernels_dir: Path = KERNELS_DIR) -> Path:
+    return BUILD_DIR / f"libadaparse_kernels_{_fingerprint(kernels_dir)}.so"
 
 
-def build() -> Path:
+def build(kernels_dir: Path = KERNELS_DIR) -> Path:
     """Compile every source in parallel and link them into the keyed
     library (no-op when it already exists). Compiler output, including
     ``-Xptxas -v``'s register and shared-memory report, is kept in
-    ``<library>.log``. Raises with that output when a step fails."""
-    lib = library_path()
+    ``<library>.log``. Raises with that output when a step fails.
+    ``kernels_dir``: the ``kernels/`` directory of another checkout, to
+    build its library beside this one's (``launch.kernel_timing``)."""
+    lib = library_path(kernels_dir)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{os.getpid()}_{threading.get_ident()}"
     objs, procs = [], []
-    for src in sources():
+    for src in sources(kernels_dir):
         obj = BUILD_DIR / f"{src.stem}_{tag}.o"
         objs.append(obj)
         procs.append((src, subprocess.Popen(
@@ -86,7 +88,7 @@ def build() -> Path:
     failed = []
     for src, p in procs:
         out, _ = p.communicate()
-        log.append(f"== {src.relative_to(KERNELS_DIR)} (rc {p.returncode})\n"
+        log.append(f"== {src.relative_to(kernels_dir)} (rc {p.returncode})\n"
                    f"{out}")
         if p.returncode:
             failed.append(src.name)
@@ -163,3 +165,8 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 L = ctypes.c_longlong
 F = ctypes.c_float
+
+# A kernel that does nothing (blocks, threads, stream): the floor under
+# a small kernel's device time at its grid. Measurement only; no path
+# launches it.
+EMPTY = CudaKernel("empty", "adaparse_empty", [I, I, P])

@@ -26,9 +26,11 @@ from repro_torch.kernels.fast_features.ref import (N_FAST_FEATURES,
                                                    fast_features_ref)
 
 MIN_WIDTH = 128
-# dynamic shared memory a block may use on Hopper (227 KB): the
-# presence bitmap holds ceil(vocab_size / 32) words
-MAX_VOCAB = 227 * 1024 * 8
+THREADS = 256                      # threads per block (csrc kThreads)
+# shared memory a block may use on Hopper (227 KB), less 256 bytes for
+# the kernel's static shared memory: the presence bitmap holds
+# ceil(vocab_size / 32) words
+MAX_VOCAB = (227 * 1024 - 256) * 8
 
 KERNEL = cuda_lib.CudaKernel(
     "fast_features", "adaparse_fast_features",
@@ -112,6 +114,11 @@ def _check(tok, scalars, max_len: int, vocab_size: int) -> None:
     if not 1 <= vocab_size <= MAX_VOCAB:
         raise ValueError(f"fast_features: vocab_size {vocab_size} outside "
                          f"[1, {MAX_VOCAB}] (shared-memory bitmap)")
+
+
+def launch_grid(n: int) -> list[tuple[int, int]]:
+    """(blocks, threads) of the kernel one launch runs."""
+    return [(n, THREADS)]
 
 
 def _launch(tok, n_tok, first_len, n_pages, n_empty, fast, toks, mask,

@@ -2,7 +2,8 @@
 
 ``ngram_bleu(ref, hyp, ref_len, hyp_len)`` scores a padded (B, max_len)
 batch of (reference, hypothesis) token streams per document: the CUDA
-kernel (``csrc/ngram_score.cu``, float32, one block per document) for
+kernel (``csrc/ngram_score.cu``, float32, one block of 24 warps per
+document; a warp scans 32 starts at once for four hypothesis starts) for
 CUDA tensors, the plain float64 version (``ref.py``) for CPU tensors.
 """
 from __future__ import annotations
@@ -14,8 +15,10 @@ from repro_torch.kernels.cuda_lib import I, P
 from repro_torch.kernels.ngram_score.ref import ngram_bleu_ref
 
 MAX_N = 8                          # csrc kMaxN
-# two int32 rows of shared memory per block (227 KB on Hopper)
-MAX_LEN = 227 * 1024 // 8
+THREADS = 768                      # threads per block (csrc kThreads)
+# two int32 rows (and 40 ints of padding) of dynamic shared memory per
+# block, beside the kernel's static shared memory, within Hopper's 227 KB
+MAX_LEN = (227 * 1024 - 256) // 8
 
 KERNEL = cuda_lib.CudaKernel(
     "ngram_score", "adaparse_ngram_bleu", [P, P, P, P, I, I, I, P, P])
@@ -43,6 +46,11 @@ def _check(ref, hyp, ref_len, hyp_len, max_n: int) -> None:
                              f"{MAX_LEN} (shared memory)")
     elif ref.device.type != "cpu":
         raise ValueError(f"ngram_bleu: unsupported device {ref.device}")
+
+
+def launch_grid(b: int, max_len: int) -> list[tuple[int, int]]:
+    """(blocks, threads) of the kernel one launch runs."""
+    return [(b, THREADS)]
 
 
 def _launch(ref, hyp, ref_len, hyp_len, out, *, max_n: int) -> None:

@@ -16,8 +16,8 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
-from repro_torch.core.scheduler import total_order_key
 from repro_torch.kernels.embedding_bag import ops as bag_ops
+from repro_torch.kernels.order import total_order_key
 from repro_torch.models.gnn.segment import scatter_sum
 from repro_torch.models.layers import embed_lookup
 

@@ -7,7 +7,7 @@ decision is taken in the fixture, at run time). Run on the card with
 
 Tolerances: fast_features tokens/mask exact and features within 1e-6
 (the JAX kernel's bar; the float64 assembly makes them bit-equal in
-practice); budget_route exact; ngram_score float32 kernel against the
+practice, which the edge cases hold); budget_route exact; ngram_score float32 kernel against the
 float64 plain version within atol 1e-6, rtol 1e-5; flash_attention
 within 2e-5 in float32 and 2e-2 in bfloat16, atol and rtol (the JAX
 kernel's bar, tests/test_kernels.py), and the reduced LMs on cuda
@@ -115,6 +115,102 @@ def test_ngram_kernel_vs_plain(dev, b, max_len, vocab):
     want = ngram_bleu_ref(*ins)
     assert got[0].item() == 0.0
     torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
+
+
+# (B, L, vocab, max_n, ref lengths, hyp lengths): every token equal (the
+# longest matches and the most clipping), an L that is not a multiple of
+# 32 with lengths 0, 1 and L, every order from 1 to 8, and an L at the
+# wrapper's limit (the shared-memory attribute path)
+NGRAM_EDGES = (
+    [(3, 256, 1, n, [256, 255, 100], [256, 100, 255]) for n in (4, 8)]
+    + [(6, 300, 5, 4, [0, 1, 300, 299, 31, 33], [300, 0, 1, 300, 33, 31])]
+    + [(4, 100, 4, n, [100, 99, 7, 64], [100, 64, 99, 8])
+       for n in range(1, 9)]
+    + [(2, ng.MAX_LEN, 50, 4, [ng.MAX_LEN, ng.MAX_LEN - 7],
+        [ng.MAX_LEN - 3, ng.MAX_LEN])])
+
+
+@pytest.mark.parametrize("b,max_len,vocab,max_n,lr,lh", NGRAM_EDGES)
+def test_ngram_kernel_edge_cases(dev, b, max_len, vocab, max_n, lr, lh):
+    """Padding past each length is -1 and must never count."""
+    rng = np.random.RandomState(max_len + vocab + max_n)
+    ref = rng.randint(0, vocab, (b, max_len)).astype(np.int32) + 7
+    hyp = rng.randint(0, vocab, (b, max_len)).astype(np.int32) + 7
+    lr, lh = np.array(lr, np.int32), np.array(lh, np.int32)
+    pos = np.arange(max_len)
+    ref[pos[None] >= lr[:, None]] = -1
+    hyp[pos[None] >= lh[:, None]] = -1
+    ins = [torch.from_numpy(x).to(dev) for x in (ref, hyp, lr, lh)]
+    before = ng.KERNEL.launches
+    got = ng.ngram_bleu(*ins, max_n=max_n).double()
+    assert ng.KERNEL.launches == before + 1
+    want = ngram_bleu_ref(*ins, max_n=max_n)
+    assert bool((got[ins[3] == 0] == 0).all())
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
+
+
+def test_ngram_kernel_refuses_past_its_shared_memory(dev):
+    z = torch.zeros((1, ng.MAX_LEN + 1), dtype=torch.int32, device=dev)
+    n = torch.ones(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        ng.ngram_bleu(z, z, n, n)
+
+
+# (n, width, max_len, tokens, n_tok): one repeated token in every slot
+# (every lane of a warp on one bitmap word), only ids 0 and vocab - 1,
+# widths 128 and 4096, n_tok 0, one document
+FF_EDGES = [(4, 4096, 512, "ws", [4096, 4095, 1, 0]),
+            (3, 4096, 512, "ends", [4096, 3000, 17]),
+            (5, 128, 0, "any", [0, 1, 127, 128, 64]),
+            (3, 128, 128, "any", [128, 5, 0]),
+            (1, 4096, 512, "any", [3333])]
+
+
+@pytest.mark.parametrize("n,width,max_len,choice,nt", FF_EDGES)
+def test_fast_features_kernel_edge_cases(dev, n, width, max_len, choice,
+                                         nt):
+    """Slots past n_tok hold -1, which must never count."""
+    vocab = 10000
+    rng = np.random.RandomState(width + n)
+    if choice == "ws":
+        tok = np.full((n, width), 2, np.int32)
+    elif choice == "ends":
+        tok = rng.choice([0, vocab - 1], (n, width)).astype(np.int32)
+    else:
+        tok = rng.randint(0, vocab, (n, width)).astype(np.int32)
+    nt = np.array(nt, np.int32)
+    tok[np.arange(width)[None] >= nt[:, None]] = -1
+    first = np.array([rng.randint(0, t + 1) for t in nt], np.int32)
+    pages = rng.randint(0, 9, n).astype(np.int32)
+    empty = np.array([rng.randint(0, p + 1) for p in pages], np.int32)
+    ins = [torch.from_numpy(x).to(dev) for x in (tok, nt, first, pages,
+                                                 empty)]
+    kw = dict(max_len=max_len, ws=2, scramble=3, mangled=4, latex_lo=8010,
+              ident_lo=8510, vocab_size=vocab)
+    got = ff.fast_features(*ins, **kw)
+    want = fast_features_ref(*ins, **kw)
+    assert (got[0] - want[0]).abs().max().item() <= 1e-6
+    if max_len:
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("vocab", [ff.MAX_VOCAB, 33])
+def test_fast_features_kernel_vocab_range(dev, vocab):
+    """The largest bitmap the wrapper accepts launches; ids at both ends
+    of a vocabulary count, one past it raises."""
+    rng = np.random.RandomState(vocab % 1000)
+    tok = rng.choice([0, vocab - 1, vocab // 2], (2, 256)).astype(np.int32)
+    ins = [torch.from_numpy(x).to(dev) for x in (
+        tok, np.array([256, 200], np.int32), np.array([3, 0], np.int32),
+        np.array([2, 1], np.int32), np.array([1, 0], np.int32))]
+    kw = dict(max_len=0, ws=2, scramble=3, mangled=4, latex_lo=8010,
+              ident_lo=8510, vocab_size=vocab)
+    got = ff.fast_features(*ins, **kw)[0]
+    assert (got - fast_features_ref(*ins, **kw)[0]).abs().max() <= 1e-6
+    assert got[0, 5].item() == pytest.approx(3 / 256)
+    ins[0][1, 7] = vocab
+    with pytest.raises(ValueError, match="vocab"):
+        ff.fast_features(*ins, **kw)
 
 
 def test_ft_engine_cuda_equals_cpu(dev):

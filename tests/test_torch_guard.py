@@ -50,6 +50,8 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.models.recsys.interactions",
                  "repro_torch.models.gnn.segment",
                  "repro_torch.launch.specs",
+                 "repro_torch.launch.kernel_timing",
+                 "repro_torch.kernels.order",
                  "repro_torch.configs.dlrm_mlperf"):
         assert name in res["modules"]
 

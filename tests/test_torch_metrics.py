@@ -191,3 +191,18 @@ def test_quality_probe_and_policy_match_jax(metric):
         j = JQ.propose_alpha(a, jm, "pymupdf", "nougat", bounds=(0.05, 0.5),
                              step=0.05, quality_target=0.45)
         assert t[1] == j[1] and abs(t[0] - j[0]) <= 1e-9
+
+
+def test_kernel_timing_inputs_plain_bleu_matches_jax_oracle():
+    """The probe batch the card's A/B timing scores (256 documents of
+    the seeded corpus at L = 256, references against the cheap parser's
+    output): the port's plain version equals the JAX oracle there."""
+    from repro_torch.launch.kernel_timing import probe_inputs
+
+    ngram, ff, kw = probe_inputs("cpu")
+    ref, hyp, lr, lh = (t.numpy() for t in ngram)
+    assert ref.shape == hyp.shape == (256, 256)
+    assert ff[0].shape[0] == 256 and kw["max_len"] == 512
+    np.testing.assert_allclose(_port(ref, hyp, lr, lh),
+                               j_bleu_ref(ref, hyp, lr, lh),
+                               atol=1e-12, rtol=0)

@@ -146,3 +146,81 @@ def test_host_helpers_are_copies():
     clocks = [3.0, 1.0, 1.0, 2.0]
     assert tsched.least_loaded([0, 1, 2, 3], clocks) \
         == jsched.least_loaded([0, 1, 2, 3], clocks) == 1
+
+
+def _f32(*vals) -> np.ndarray:
+    """float32 scores; the string "-nan" is the negative quiet NaN
+    0xFFC00000, "nan" the positive one."""
+    bits = {"-nan": 0xFFC00000, "nan": 0x7FC00000}
+    return np.array([np.array([bits[v]], np.uint32).view(np.float32)[0]
+                     if isinstance(v, str) else v for v in vals], np.float32)
+
+
+# (scores, alpha, require_positive, the JAX package's idx and count):
+# a negative NaN ranks below -inf in lax.top_k's total order; a positive
+# one above +inf, where torch.topk ranks both; XLA flushes subnormals to
+# zero when it compares, so 0.0 and 1e-38 tie at a tau of 1e-38
+ROUTE_PROBES = [
+    (_f32("-nan", 1.0, 0.5, 0.2), 0.5, True, [1, 2], 2),
+    (_f32("nan", 1.0, 0.5, 0.2), 0.5, True, [1, -1], 1),
+    (_f32("nan", 1.0, 0.5, 0.2), 0.25, True, [-1], 0),
+    (_f32(0.0, 1e-38, -1.0, -2.0), 0.25, False, [0], 1),
+    (_f32(-0.0, 0.0, 1e-39, -1.0), 0.25, False, [0], 1),
+]
+
+
+@pytest.mark.parametrize("scores,alpha,positive,want_idx,want_count",
+                         ROUTE_PROBES, ids=["neg_nan", "pos_nan_half",
+                                            "pos_nan_quarter", "subnormal",
+                                            "signed_zero_subnormal"])
+def test_budget_route_nan_and_subnormal_parity(scores, alpha, positive,
+                                               want_idx, want_count):
+    """The port routes what the JAX op (its oracle and its interpret
+    kernel) routes at NaN and subnormal scores."""
+    tokens = np.arange(4 * len(scores), dtype=np.int32).reshape(-1, 4)
+    t = tops.budget_route(torch.from_numpy(scores),
+                          torch.from_numpy(tokens), alpha,
+                          require_positive=positive)
+    assert t[1].tolist() == want_idx and int(t[2]) == want_count
+    for fk in (False, True):
+        j = j_route(jnp.asarray(scores), jnp.asarray(tokens), alpha,
+                    force_kernel=fk, require_positive=positive)
+        _assert_same([tuple(np.asarray(x) for x in t),
+                      tuple(np.asarray(x) for x in j)])
+
+
+@pytest.mark.parametrize("scores,alpha", [
+    (_f32(1e-38, -1.0, -2.0, -3.0), 0.5),
+    (_f32(-1e-39, 1e-39, 0.0, 2.0), 0.75),
+    (_f32("-nan", 1.0, 0.5, 0.2), 0.5),
+    (_f32("nan", 1e-38, 0.5, 0.2), 0.5),
+], ids=["subnormal", "signed_subnormals", "neg_nan", "pos_nan"])
+def test_budget_topk_flushes_subnormals_like_xla(scores, alpha):
+    tm, ti = tsched.budget_topk(torch.from_numpy(scores), alpha)
+    jm, ji = jsched.budget_topk(jnp.asarray(scores), alpha)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    if scores[0] == np.float32(1e-38):
+        assert not tm.any()         # 1e-38 flushes to 0, not > 0
+
+
+def test_order_helpers():
+    """total_order_key sorts as lax.top_k does; flush_subnormal zeroes
+    exactly the subnormals, keeping their sign."""
+    import jax
+
+    from repro_torch.kernels.order import flush_subnormal, total_order_key
+
+    x = _f32("-nan", "nan", -np.inf, np.inf, -0.0, 0.0, 1e-39, -1e-39,
+             1.1754944e-38, -1.1754942e-38, 3.0, -3.0, 1e-45)
+    order = torch.sort(total_order_key(torch.from_numpy(x)),
+                       descending=True, stable=True).indices
+    _, jidx = jax.lax.top_k(jnp.asarray(x), len(x))
+    np.testing.assert_array_equal(order.numpy(), np.asarray(jidx))
+    f = flush_subnormal(torch.from_numpy(x)).numpy()
+    sub = (np.abs(x) < np.float32(2.0 ** -126)) & np.isfinite(x)
+    assert (f[sub] == 0).all()
+    np.testing.assert_array_equal(np.signbit(f), np.signbit(x))
+    keep = ~sub
+    np.testing.assert_array_equal(f[keep].view(np.uint32),
+                                  x[keep].view(np.uint32))
