@@ -16,7 +16,10 @@ Phases (one JSON line each; any failure raises and exits non-zero):
 1. kernels: each hand-written kernel against its plain PyTorch version
    on the card at the main path's shapes, with the tolerance stated:
    fast_features (n=256 real packed batches, max_len 0 and 512),
-   budget_route (N=256, D=512, alpha=0.05, and route_64k: N=65536),
+   budget_route (N=256, D=512, alpha=0.05, and route_64k: N=65536; one
+   launch into outputs filled with garbage, its empty-kernel floor at the
+   same grid and launch kind, and a torch.profiler pass of the whole
+   ``budget_route()`` op at N=256: device launches and time a call),
    ngram_score (B=64 and 256, L=256), flash_attention (the qwen3-1.7b
    prefill shape B=4 S=4096 H=16 Hk=8 D=128 causal in bf16 and in f32,
    and the h2o-danube-3-4b shape B=1 S=8192 H=32 Hk=8 D=120 window 4096
@@ -42,9 +45,12 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    ``ms_device`` over the bound). Then the adversarial cases of the
    redesigned ngram_score (every token equal, an L that is not a
    multiple of 32, lengths 0, 1 and L, max_n 1 to 8, L at the wrapper's
-   limit) and fast_features (one repeated token, ids 0 and vocab - 1,
-   widths 128 and 4096, n_tok 0, one document) against their plain
-   versions, and the routing-parity probes: a negative NaN and
+   limit), fast_features (one repeated token, ids 0 and vocab - 1,
+   widths 128 and 4096, n_tok 0, one document) and budget_route (one
+   row, both sides of the single-block limits, a grid of several chunks,
+   count below capacity into garbage, misaligned views, all ties, NaN
+   and infinite scores) against their plain versions, and the
+   routing-parity probes: a negative NaN and
    subnormal scores through the CUDA budget_route and budget_topk,
    asserted against the JAX package's answers written in as constants.
 2. ft: ``serve.main`` with ``--variant ft --device cuda`` and with
@@ -251,6 +257,7 @@ def check_budget_route(dev) -> list[dict]:
     import torch
 
     from repro_torch.kernels.budget_route import ops, ref
+    from repro_torch.launch.kernel_timing import profiled_ms
 
     rows = []
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -269,25 +276,40 @@ def check_budget_route(dev) -> list[dict]:
         assert torch.equal(got[1], want[1]), f"budget_route idx n={n}"
         assert int(got[2]) == int(want[2]), f"budget_route count n={n}"
         assert torch.equal(got[0], want[0]), f"budget_route rows n={n}"
-        out = torch.zeros((cap, d), dtype=torch.int32, device=dev)
-        idx = torch.empty(cap, dtype=torch.int32, device=dev)
-        count = torch.empty(1, dtype=torch.int32, device=dev)
-        counts = torch.empty(2 * (-(-n // ops.BLOCK_ROWS)),
-                             dtype=torch.int32, device=dev)
-        def launch():
-            ops._launch(scores, tokens, tau, counts, out, idx, count,
-                        capacity=cap)
+        # the preallocated path: one launch writes every element
+        out = torch.full((cap, d), 0x5A5A5A5A, dtype=torch.int32,
+                         device=dev)
+        idx = torch.full((cap,), 0x5A5A5A5A, dtype=torch.int32, device=dev)
+        count = torch.full((1,), -1, dtype=torch.int32, device=dev)
+        scratch = torch.empty(ops.scratch_ints(ops.launch_grid(n, dev)[0][0]),
+                              dtype=torch.int32, device=dev)
 
+        def launch():
+            ops._launch(scores, tokens, tau, out, idx, count, capacity=cap,
+                        scratch=scratch)
+
+        launch()
+        torch.cuda.synchronize()
+        assert torch.equal(idx, want[1]) and torch.equal(out, want[0]) \
+            and int(count) == int(want[2]), f"budget_route prealloc n={n}"
         ms = time_ms(launch)
-        times = small_kernel_times(launch, ops.launch_grid(n), dev)
+        times = small_kernel_times(launch, ops.launch_grid(n, dev), dev)
         plain_ms = time_ms(lambda: ref.budget_route_ref(
             scores, tokens, tau[0], capacity=cap))
         kept = int(want[2])
         nbytes = 4 * n + 4 + 2 * 4 * d * kept + 4 * cap + 4
         b_ms, b_by = bound(nbytes)
-        rows.append(dict(name="budget_route", shape=dict(
-            n=n, d=d, capacity=cap), max_abs_err=0.0, ms=ms, **times,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+        row = dict(name="budget_route", shape=dict(n=n, d=d, capacity=cap),
+                   grid=ops.launch_grid(n, dev), max_abs_err=0.0, ms=ms, **times,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        if n == 256:
+            # the whole op (route_tau, allocations, kernel): device
+            # launches and device time a call
+            op = profiled_ms(lambda: ops.budget_route(scores, tokens, ALPHA))
+            row["op_profile"] = {"launches": op["launches"],
+                                 "device_ms": op["ms"],
+                                 "kernels": op["kernels"]}
+        rows.append(row)
     return rows
 
 
@@ -403,11 +425,57 @@ def ff_edge_inputs(case, vocab: int, ws: int, dev):
                                                   empty)]
 
 
-def phase_kernel_edge_cases(dev) -> None:
-    """The redesigned ngram_score and fast_features kernels against their
-    plain versions on the adversarial cases, with the main rows'
-    tolerances."""
+# (N, D, alpha, case) of budget_route's edge cases: one row; both sides
+# of 1024 and 4096 rows (one block); a grid of several chunks a block on
+# a 132-SM card; "few_positive": three positive scores, so count <
+# capacity; "misaligned": views whose base pointers are not 16-byte
+# aligned; "ties": all equal but one; "nonfinite": NaNs of both signs
+# and infinities (at alpha 0.1 tau is a NaN and keeps nothing).
+ROUTE_EDGES = (
+    (1, 4, 1.0, "grid"), (1024, 8, 0.3, "grid"), (1025, 8, 0.05, "grid"),
+    (4096, 12, 0.5, "grid"), (4097, 8, 0.05, "grid"),
+    (1 << 20, 4, 0.05, "grid"), (256, 512, 0.05, "few_positive"),
+    (65536, 8, 0.05, "few_positive"), (1025, 7, 0.1, "misaligned"),
+    (5000, 8, 0.1, "misaligned"), (70000, 4, 0.05, "ties"),
+    (4097, 8, 0.1, "nonfinite"), (65536, 8, 0.05, "nonfinite"))
+
+
+def route_edge_inputs(n, d, case, dev):
     import torch
+
+    g = torch.Generator(device=dev).manual_seed(n)
+    scores = torch.round(torch.randn(n + 1, generator=g, device=dev) * 3) / 3
+    scores = scores[1:] if case == "misaligned" else scores[:n]
+    if case == "ties":
+        scores = torch.full((n,), 0.5, device=dev)
+        scores[n // 2] = 1.0
+    elif case == "nonfinite":
+        scores[::7] = float("nan")
+        scores[3::11] = float("-inf")
+        scores[5::13] = float("inf")
+        scores.view(torch.int32)[1::17] = -4194304         # 0xFFC00000
+    elif case == "few_positive":
+        scores = -scores.abs() - 1
+        scores[::n // 3 + 1] = 2.0
+    tokens = torch.randint(0, 1 << 30, (n + 1, d), generator=g,
+                           dtype=torch.int32, device=dev)
+    if case != "misaligned":
+        tokens = tokens[:n]
+    elif d % 4:
+        tokens = tokens[1:]
+    else:
+        tokens = tokens.flatten()[1:n * d + 1].view(n, d)
+    return scores, tokens
+
+
+def phase_kernel_edge_cases(dev) -> None:
+    """The redesigned ngram_score, fast_features and budget_route kernels
+    against their plain versions on the adversarial cases, with the main
+    rows' tolerances (budget_route exact, launched into garbage)."""
+    import torch
+
+    from repro_torch.kernels.budget_route import ops as br
+    from repro_torch.kernels.budget_route.ref import budget_route_ref
 
     from repro_torch.data.synthetic import MANGLED, SCRAMBLE, WS
     from repro_torch.kernels.fast_features import ops as ff
@@ -442,6 +510,23 @@ def phase_kernel_edge_cases(dev) -> None:
             assert torch.equal(got[1], want[1]), f"{name}: toks"
             assert torch.equal(got[2], want[2]), f"{name}: mask"
         out[name] = err
+    for n, d, alpha, case in ROUTE_EDGES:
+        scores, tokens = route_edge_inputs(n, d, case, dev)
+        cap = br.capacity_floor(alpha, n)
+        tau = br.route_tau(scores, cap)
+        want = budget_route_ref(scores, tokens, tau[0], capacity=cap)
+        got = [torch.full((cap, d), 0x5A5A5A5A, dtype=torch.int32,
+                          device=dev),
+               torch.full((cap,), 0x5A5A5A5A, dtype=torch.int32, device=dev),
+               torch.full((1,), -1, dtype=torch.int32, device=dev)]
+        br._launch(scores, tokens, tau, *got, capacity=cap)
+        name = f"budget_route/{case}/n{n}/d{d}"
+        assert torch.equal(got[1], want[1]) and int(got[2]) == int(
+            want[2]) and torch.equal(got[0], want[0]), name
+        if case == "few_positive":
+            assert 0 < int(want[2]) < cap, name
+        out[name] = 0.0
+        del scores, tokens, want, got
     emit({"phase": "kernel_edge_cases", "max_abs_err": out})
 
 
@@ -1425,8 +1510,9 @@ def phase_gnn() -> dict:
 
 def body_resources(ptxas: list[str]) -> dict:
     """Registers and static shared memory that ptxas reports for the
-    bf16 tensor-core flash body (per padded head dim) and the segment_mm
-    kernel (per id type), with the dynamic shared memory each launch
+    bf16 tensor-core flash body (per padded head dim), the segment_mm
+    kernel (per id type) and the budget_route kernel (per rows a thread
+    and block size bound), with the dynamic shared memory each launch
     asks for, as the library and the wrapper compute it (segment_mm's at
     ``ogb_products``, D_in = 100)."""
     import re
@@ -1444,11 +1530,14 @@ def body_resources(ptxas: list[str]) -> dict:
             name = m.group(1)
             tc = re.search(r"flash_fwd_tc_kernelILi(\d+)E", name)
             seg = re.search(r"segmm_kernelI([a-z])E", name)
+            route = re.search(r"route_kernelILi(\d+)ELi(\d+)E", name)
             entry = (f"flash_attention bf16 DP={tc.group(1)}" if tc else
                      f"segment_mm dst {'int64' if seg.group(1) == 'x' else 'int32'}"
-                     if seg else None)
+                     if seg else
+                     f"budget_route R={route.group(1)} threads<={route.group(2)}"
+                     if route else None)
             dyn = (fa.launch_smem_bytes(torch.bfloat16, int(tc.group(1)))
-                   if tc else seg_dyn)
+                   if tc else 0 if route else seg_dyn)
         elif entry and "registers" in ln:
             out[entry] = f"{ln.split(': ', 1)[-1]}, {dyn} bytes dynamic smem"
             entry = None
@@ -1484,7 +1573,7 @@ def main() -> int:
           "build_s": time.perf_counter() - t0, "library": lib.name,
           "sources": [str(p.relative_to(ROOT))
                       for p in cuda_lib.sources()], "ptxas": ptxas,
-          "ptxas_tensor_core_and_segment_bodies": body_resources(ptxas)})
+          "ptxas_kernel_bodies": body_resources(ptxas)})
     dev = torch.device("cuda")
 
     ccfg, docs, pages = corpus_batch(256)

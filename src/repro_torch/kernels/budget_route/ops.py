@@ -29,11 +29,14 @@ from repro_torch.kernels.order import total_order_key
 # keep in sync with scheduler.POSITIVE_TAU (not imported: kernels must not
 # depend on core)
 POSITIVE_TAU = 1e-12
-BLOCK_ROWS = 1024                  # rows per block (csrc kBlock)
+MAX_THREADS = 1024                 # threads of one block (csrc kMaxThreads)
+SINGLE_BLOCK_ROWS = 4 * MAX_THREADS  # the largest N one block routes
+GRID_THREADS = 128                 # threads a block of a grid
+GRID_ROWS = 4                      # rows a thread of a grid
 
 KERNEL = cuda_lib.CudaKernel(
     "budget_route", "adaparse_budget_route",
-    [P, P, P, I, I, I, I, P, P, P, P, P])
+    [P, P, P, I, I, I, I, P, P, P, P, I, I, I, I, P])
 
 
 def capacity_floor(alpha: float, k: int) -> int:
@@ -82,22 +85,58 @@ def _check(scores, tokens, tau) -> None:
                          f"{scores.device}")
 
 
-def launch_grid(n: int) -> list[tuple[int, int]]:
-    """(blocks, threads) of the two kernels one launch runs."""
-    return [(-(-n // BLOCK_ROWS), BLOCK_ROWS)] * 2
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _launch(scores, tokens, tau, counts, out, idx, count, *,
-            capacity: int) -> None:
-    """One kernel launch (two passes on the stream) into preallocated
-    outputs; no synchronisation."""
+def launch_plan(n: int, sms: int) -> tuple[int, int, int, int]:
+    """(blocks, threads, rows a thread, chunks a block) of the one launch
+    that routes N rows on a card of ``sms`` SMs: one block of the fewest
+    whole warps, a row a thread up to 1024 rows, four up to 4096; beyond,
+    a cooperative grid of at most one block an SM, ``GRID_THREADS``
+    threads of ``GRID_ROWS`` rows (each block taking several such chunks
+    when N needs them)."""
+    if n <= MAX_THREADS:
+        return 1, max(32, -(-n // 32) * 32), 1, 1
+    if n <= SINGLE_BLOCK_ROWS:
+        return 1, -(-n // (32 * 4)) * 32, 4, 1
+    chunk = GRID_THREADS * GRID_ROWS
+    chunks = -(-n // (chunk * sms))
+    return -(-n // (chunk * chunks)), GRID_THREADS, GRID_ROWS, chunks
+
+
+def launch_grid(n: int, device) -> list[tuple[int, int, int]]:
+    """(blocks, threads, cooperative) of the one kernel a launch runs."""
+    blocks, threads, _, _ = launch_plan(n, sm_count(device))
+    return [(blocks, threads, int(blocks > 1))]
+
+
+def scratch_ints(blocks: int) -> int:
+    """int32 scratch of a launch of ``blocks`` blocks: a (gt, eq) pair a
+    block of a grid; one block needs none."""
+    return 2 * blocks if blocks > 1 else 0
+
+
+def _launch(scores, tokens, tau, out, idx, count, *, capacity: int,
+            scratch=None) -> None:
+    """One kernel launch into preallocated outputs, every element of
+    which it writes; no synchronisation. A grid needs ``scratch`` of two
+    int32 a block (allocated here when not given)."""
     n, d = tokens.shape
+    plan = launch_plan(n, sm_count(scores.device))
+    need = scratch_ints(plan[0])
+    if scratch is None:
+        scratch = torch.empty(need, dtype=torch.int32, device=scores.device)
+    elif scratch.numel() < need:
+        raise ValueError(f"budget_route: scratch holds {scratch.numel()} "
+                         f"ints; the launch needs {need}")
     row_bytes = 4 * d
     vec16 = int(row_bytes % 16 == 0 and tokens.data_ptr() % 16 == 0
                 and out.data_ptr() % 16 == 0)
     KERNEL(scores.data_ptr(), tau.data_ptr(), tokens.data_ptr(),
-           n, row_bytes, capacity, vec16, counts.data_ptr(),
-           out.data_ptr(), idx.data_ptr(), count.data_ptr(),
+           n, row_bytes, capacity, vec16, out.data_ptr(), idx.data_ptr(),
+           count.data_ptr(), scratch.data_ptr(), *plan,
            cuda_lib.stream_of(scores.device))
 
 
@@ -118,20 +157,17 @@ def budget_route_kernel(scores, tokens, tau, *, capacity: int):
     if scores.device.type != "cuda":
         raise ValueError(f"budget_route_kernel: CUDA tensors only (got "
                          f"{scores.device})")
-    n, d = tokens.shape
     dev = scores.device
-    out = torch.zeros((capacity, d), dtype=tokens.dtype, device=dev)
-    idx = torch.empty((capacity,), dtype=torch.int32, device=dev)
-    count = torch.empty((1,), dtype=torch.int32, device=dev)
-    if n == 0:
-        idx.fill_(-1)
-        count.zero_()
-        return out, idx, count[0]
-    counts = torch.empty((2 * (-(-n // BLOCK_ROWS)),), dtype=torch.int32,
-                         device=dev)
-    _launch(scores, tokens, tau.reshape(1), counts, out, idx, count,
-            capacity=capacity)
-    return out, idx, count[0]
+    n, d = tokens.shape
+    blocks = launch_plan(n, sm_count(dev))[0]
+    out = torch.empty((capacity, d), dtype=tokens.dtype, device=dev)
+    # idx, count and the grid's scratch in one allocation
+    ints = torch.empty((capacity + 1 + scratch_ints(blocks),),
+                       dtype=torch.int32, device=dev)
+    _launch(scores, tokens, tau.reshape(1), out, ints[:capacity],
+            ints[capacity:capacity + 1], capacity=capacity,
+            scratch=ints[capacity + 1:])
+    return out, ints[:capacity], ints[capacity]
 
 
 def budget_route(scores, tokens, alpha: float, *,

@@ -166,7 +166,7 @@ I = ctypes.c_int
 L = ctypes.c_longlong
 F = ctypes.c_float
 
-# A kernel that does nothing (blocks, threads, stream): the floor under
-# a small kernel's device time at its grid. Measurement only; no path
-# launches it.
-EMPTY = CudaKernel("empty", "adaparse_empty", [I, I, P])
+# A kernel that does nothing (blocks, threads, cooperative, stream): the
+# floor under a small kernel's device time at its grid and launch kind.
+# Measurement only; no path launches it.
+EMPTY = CudaKernel("empty", "adaparse_empty", [I, I, I, P])

@@ -82,23 +82,92 @@ def test_fast_features_kernel_vs_plain(dev, seed, max_len):
         ff.fast_features(bad, *ins[1:], **kw)
 
 
-@pytest.mark.parametrize("n,d,alpha", [
-    (3, 4, 2 / 3), (80, 4, 0.1), (256, 512, 0.05), (1500, 7, 0.2),
-    (5000, 16, 0.5), (65536, 8, 0.05)])
-def test_budget_route_kernel_vs_plain(dev, n, d, alpha):
+def _route_case(dev, n, d, case):
+    """Scores and tokens of one budget_route case: scores on a 1/3 grid
+    (many ties at tau); "ties" all equal but one; "nonfinite" NaNs of
+    both signs and infinities; "few_positive" three positive scores, so
+    the positive clamp leaves count below capacity; "misaligned" views
+    whose base pointers are not 16-byte aligned (tokens offset by a row
+    when D is odd, by one element otherwise; scores by one element)."""
     g = torch.Generator(device=dev).manual_seed(n)
-    scores = torch.round(torch.randn(n, generator=g, device=dev) * 3) / 3
-    tokens = torch.randint(0, 1 << 30, (n, d), generator=g,
+    scores = torch.round(torch.randn(n + 1, generator=g, device=dev) * 3) / 3
+    scores = scores[1:] if case == "misaligned" else scores[:n]
+    if case == "ties" and n:
+        scores = torch.full((n,), 0.5, device=dev)
+        scores[n // 2] = 1.0
+    elif case == "nonfinite":
+        scores[::7] = float("nan")
+        scores[3::11] = float("-inf")
+        scores[5::13] = float("inf")
+        scores.view(torch.int32)[1::17] = -4194304         # 0xFFC00000
+    elif case == "few_positive":
+        scores = -scores.abs() - 1
+        scores[::n // 3 + 1] = 2.0
+    tokens = torch.randint(0, 1 << 30, (n + 1, d), generator=g,
                            dtype=torch.int32, device=dev)
-    cap = br.capacity_floor(alpha, n)
-    tau = br.route_tau(scores, cap)
-    got = br.budget_route_kernel(scores, tokens, tau, capacity=cap)
+    if case != "misaligned":
+        tokens = tokens[:n]
+    elif d % 4:
+        tokens = tokens[1:]
+    else:
+        tokens = tokens.flatten()[1:n * d + 1].view(n, d)
+    return scores, tokens
+
+
+# (N, D, alpha, case): the main path's shape and route_64k's rows; one
+# row; both sides of one block of 1024 threads and of the single-block
+# limit (4096 rows); an N that gives each block of the grid several
+# chunks on an H100 (more than 132 SMs x 512 rows); the cases
+# of _route_case. N = 0 routes into a capacity of 3 with tau 0.5.
+ROUTE_CASES = [
+    (3, 4, 2 / 3, "grid"), (80, 4, 0.1, "grid"), (256, 512, 0.05, "grid"),
+    (1500, 7, 0.2, "grid"), (5000, 16, 0.5, "grid"), (65536, 8, 0.05, "grid"),
+    (1, 4, 1.0, "grid"), (1023, 8, 0.05, "grid"), (1024, 8, 0.3, "grid"),
+    (1025, 8, 0.05, "grid"), (br.SINGLE_BLOCK_ROWS, 12, 0.5, "grid"),
+    (br.SINGLE_BLOCK_ROWS + 1, 8, 0.05, "grid"), (1 << 20, 4, 0.05, "grid"),
+    (256, 512, 0.05, "few_positive"), (4097, 12, 0.5, "few_positive"),
+    (65536, 8, 0.05, "few_positive"),
+    (300, 7, 0.1, "misaligned"), (1025, 8, 0.1, "misaligned"),
+    (5000, 7, 0.1, "misaligned"),
+    (1024, 8, 0.1, "ties"), (70000, 4, 0.05, "ties"),
+    (256, 8, 0.3, "nonfinite"), (4097, 8, 0.1, "nonfinite"),
+    (65536, 8, 0.05, "nonfinite"), (0, 4, 0.0, "grid"),
+]
+
+
+@pytest.mark.parametrize("n,d,alpha,case", ROUTE_CASES)
+def test_budget_route_kernel_vs_plain(dev, n, d, alpha, case):
+    """Bit-exact against the plain version, through the wrapper and
+    through one launch into outputs filled with garbage (the kernel
+    writes every element, the zero rows and the -1 tail included)."""
+    scores, tokens = _route_case(dev, n, d, case)
+    if n:
+        cap = br.capacity_floor(alpha, n)
+        tau = br.route_tau(scores, cap)
+    else:
+        cap, tau = 3, torch.tensor([0.5], device=dev)
     want = budget_route_ref(scores, tokens, tau[0], capacity=cap)
+    got = br.budget_route_kernel(scores, tokens, tau, capacity=cap)
     assert torch.equal(got[1], want[1])
     assert int(got[2]) == int(want[2])
     assert torch.equal(got[0], want[0])
-    full = br.budget_route(scores, tokens, alpha)
-    assert torch.equal(full[1], want[1])
+    out = torch.full((cap, d), 0x5A5A5A5A, dtype=torch.int32, device=dev)
+    idx = torch.full((cap,), 0x5A5A5A5A, dtype=torch.int32, device=dev)
+    count = torch.full((1,), -7, dtype=torch.int32, device=dev)
+    plan = br.launch_plan(n, br.sm_count(dev))
+    scratch = torch.full((br.scratch_ints(plan[0]),), 0x5A5A5A5A,
+                         dtype=torch.int32, device=dev)
+    before = br.KERNEL.launches
+    br._launch(scores, tokens, tau, out, idx, count, capacity=cap,
+               scratch=scratch)
+    assert br.KERNEL.launches == before + 1
+    assert torch.equal(idx, want[1]) and int(count) == int(want[2])
+    assert torch.equal(out, want[0])
+    if case == "few_positive":
+        assert 0 < int(want[2]) < cap
+    if n:
+        full = br.budget_route(scores, tokens, alpha)
+        assert torch.equal(full[1], want[1])
 
 
 @pytest.mark.parametrize("b,max_len,vocab", [

@@ -189,6 +189,73 @@ def test_budget_route_nan_and_subnormal_parity(scores, alpha, positive,
                       tuple(np.asarray(x) for x in j)])
 
 
+# count < capacity: the positive clamp lifts tau above the capacity-th
+# score (the first two), or tau is a NaN (positive NaNs rank first in
+# lax.top_k's order) and keeps nothing
+UNUSED_ROW_PROBES = [
+    (_f32(0.5, -1.0, 0.2, 0.0), 1.0, [0, 2, -1, -1], 2),
+    (_f32(-0.5, -1.0, -0.2, 3.0, -2.0, 0.0, 1e-38, 0.0), 0.5,
+     [3, -1, -1, -1], 1),
+    (_f32("nan", "nan", 1.0, 0.5), 0.5, [-1, -1], 0),
+]
+
+
+@pytest.mark.parametrize("scores,alpha,want_idx,want_count",
+                         UNUSED_ROW_PROBES, ids=["two_positive",
+                                                 "one_positive", "nan_tau"])
+def test_budget_route_unused_rows_equal_the_oracle(scores, alpha, want_idx,
+                                                    want_count):
+    """Where count < capacity, the port's rows past the count are zero and
+    its idx slots -1, exactly the JAX oracle's (``budget_route_ref``).
+    The JAX Pallas kernel (``budget_route_kernel``) never writes those
+    rows, so there they are undefined: in interpret mode they hold
+    INT_MIN (-2147483648) for int32 tokens. Its idx, count and kept rows
+    agree. The port's CUDA kernel writes those rows itself."""
+    tokens = np.arange(1, 4 * len(scores) + 1,
+                       dtype=np.int32).reshape(-1, 4)
+    t = [np.asarray(x) for x in tops.budget_route(
+        torch.from_numpy(scores), torch.from_numpy(tokens), alpha)]
+    oracle = [np.asarray(x) for x in j_route(
+        jnp.asarray(scores), jnp.asarray(tokens), alpha)]
+    assert t[1].tolist() == want_idx and int(t[2]) == want_count
+    for mine, theirs in zip(t, oracle):
+        assert mine.dtype == theirs.dtype
+        np.testing.assert_array_equal(mine, theirs)
+    assert not t[0][want_count:].any()
+    kern = [np.asarray(x) for x in j_route(
+        jnp.asarray(scores), jnp.asarray(tokens), alpha, force_kernel=True)]
+    np.testing.assert_array_equal(t[1], kern[1])
+    assert int(t[2]) == int(kern[2])
+    np.testing.assert_array_equal(t[0][:want_count], kern[0][:want_count])
+
+
+@pytest.mark.parametrize("n,sms", [
+    (0, 132), (1, 132), (31, 132), (256, 132), (1023, 132), (1024, 132),
+    (1025, 132), (4096, 132), (4097, 132), (65536, 132), (67585, 132),
+    (1 << 20, 132), (65536, 8)])
+def test_budget_route_launch_plan_covers_every_row(n, sms):
+    """The one launch's plan: one block of the fewest whole warps up to
+    SINGLE_BLOCK_ROWS rows (a row a thread up to 1024), then a grid of at
+    most one block an SM, GRID_THREADS threads of GRID_ROWS rows, with
+    the fewest chunks a block; every row has a thread, and no block is
+    without rows."""
+    blocks, threads, rows, chunks = tops.launch_plan(n, sms)
+    assert threads % 32 == 0 and 32 <= threads <= tops.MAX_THREADS
+    assert rows in (1, 4) and blocks * threads * rows * chunks >= n
+    if n <= tops.SINGLE_BLOCK_ROWS:
+        assert blocks == chunks == 1
+        assert rows == (1 if n <= tops.MAX_THREADS else 4)
+        assert threads == max(32, -(-n // (32 * rows)) * 32)   # fewest warps
+        assert tops.scratch_ints(blocks) == 0
+    else:
+        assert threads == tops.GRID_THREADS and rows == tops.GRID_ROWS
+        assert 1 < blocks <= sms
+        chunk = threads * rows
+        assert (blocks - 1) * chunk * chunks < n                # no idle block
+        assert chunks == 1 or sms * chunk * (chunks - 1) < n    # fewest chunks
+        assert tops.scratch_ints(blocks) == 2 * blocks
+
+
 @pytest.mark.parametrize("scores,alpha", [
     (_f32(1e-38, -1.0, -2.0, -3.0), 0.5),
     (_f32(-1e-39, 1e-39, 0.0, 2.0), 0.75),
