@@ -56,15 +56,41 @@ Phases (one JSON line each; any failure raises and exits non-zero):
 2. ft: ``serve.main`` with ``--variant ft --device cuda`` and with
    ``--device cpu``: the metric dicts must be equal, and fast_features
    must have launched at least once per batch.
-3. llm: the full-width bf16 ``adaparse-router`` encoder (random weights
-   from a seeded generator) behind a fitted CLS-I stage, run by
+3. train: the router's three stages (``core/dpo.py``) at full width,
+   ``adaparse-router`` as registered (12 layers, d=768, S=512, bf16,
+   remat; random init from a seeded generator), on inputs drawn from the
+   corpus through the fast_features kernel: SFT and refit at batch 256
+   (``sft_4k`` is 4096), DPO at 64 pairs (``dpo_2k`` is 2048), one
+   warm-up and 3 timed steps a stage: ms a step, samples/s, peak GB, the
+   losses and model TFLOP/s (3x the forward's matmul and attention
+   FLOPs, DPO's frozen reference 1x) against 989 TFLOP/s bf16; a
+   torch.profiler pass over one SFT step. Holds: finite losses; SFT,
+   from the init, changes every parameter its loss reaches but the norm
+   scales still at 1.0, which bf16 cannot move by a step below 2^-9; DPO
+   and the refit change the head they train (the reached parameters
+   that did not move, and the share of elements that did, are
+   reported); DPO leaves the regression head as it was. Also the
+   embedding gradient of one SFT batch, taken twice through
+   ``index_select`` and through ``embed_lookup`` (the latter must give
+   the same bits).
+4. train_small_parity: the reduced f32 ``router-tiny`` from one exported
+   init, 20 steps a stage on cuda and on cpu: losses within rtol 1e-5,
+   params within 1e-4; then ``serve.build_llm_router`` twice on cuda:
+   the two routers must have the same bits.
+5. serve_llm: ``serve.main`` with ``--variant llm`` (SFT+DPO training of
+   the reduced router included) at the ft phase's sizes on cuda and on
+   cpu: fast_features and budget_route must have launched, each cuda
+   batch's device plan must equal ``plan_batch`` on its scores, and
+   ``frac_expensive`` <= alpha in both runs.
+6. llm: the full-width bf16 ``adaparse-router`` encoder that phase
+   ``train`` trained behind a fitted CLS-I stage, run by
    ``AdaParseEngine(..., device="cuda", probe=QualityProbe(rate 1.0))``
    and evaluated: every kernel must have launched, every batch's device
    plan must equal ``plan_batch`` on the same improvement scores, and
    the predictions must be finite in [0, 1]. A reduced f32 encoder then
    runs the same engine on cuda and on cpu, whose records must agree
    (a flip allowed only within 1e-5 of tau).
-4. lm: the full-width bf16 ``qwen3-1.7b`` (28 layers, d=2048, random
+7. lm: the full-width bf16 ``qwen3-1.7b`` (28 layers, d=2048, random
    weights from a seeded CUDA generator) with
    ``attention_impl="pallas"``: ``prefill`` of B=4 x S=4096 seeded tokens
    (``prefill_32k`` is batch 32 x 32768; cut to fit one card and the
@@ -75,10 +101,10 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    Also reported: both bf16 prefills against one computed in float32
    (the model's bf16 noise floor), and a torch.profiler pass over a
    prefill and two decode steps (device busy share, top kernels).
-5. lm_small_parity: the reduced f32 qwen3-tiny and danube-tiny (window
+8. lm_small_parity: the reduced f32 qwen3-tiny and danube-tiny (window
    32) run ``prefill`` and ``decode_step`` on cuda (the kernel) and on
    cpu (the plain version); the logits must agree within 2e-5.
-6. recsys: ``recsys_scores`` of the full-width bf16 ``dlrm-mlperf``
+9. recsys: ``recsys_scores`` of the full-width bf16 ``dlrm-mlperf``
    (the 187,767,808 x 128 table, 48.07 GB, drawn in place from a seeded
    CUDA generator) at ``serve_p99`` (batch 512) and ``serve_bulk`` (batch
    262,144), batches from ``launch.specs._recsys_batch`` (seed 0):
@@ -86,9 +112,9 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    finite scores in (0, 1) bit-equal to a forward whose lookup is a
    plain ``index_select``, peak memory, and a torch.profiler pass over
    one ``serve_bulk`` forward.
-7. recsys_small_parity: the reduced f32 dlrm-tiny on cuda against cpu,
+10. recsys_small_parity: the reduced f32 dlrm-tiny on cuda against cpu,
    scores within 2e-5.
-8. gnn: ``segment_matmul(x, src, dst, w, n_nodes)`` at ``ogb_products``
+11. gnn: ``segment_matmul(x, src, dst, w, n_nodes)`` at ``ogb_products``
    (uniform random edges from a seeded CUDA generator, d_out 128, f32):
    a torch.profiler pass over the first (cold, uncounted) step at full
    size, then wall ms of a warm step and of its argsort, gather and
@@ -153,6 +179,18 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def synced(fn):
+    """(``fn()``, host-clock seconds of the call), synchronised with the
+    card before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
 
 
 def small_kernel_times(launch, grids, dev) -> dict:
@@ -902,7 +940,7 @@ def check_segment_mm(dev) -> list[dict]:
         "calls)", bound_ms=b_ms, bound_by=b_by, ops=n_ops, bytes=nbytes)]
 
 
-# -------------------------------------------------------------- phases 2-8
+# -------------------------------------------------------------- phases 2-11
 
 
 def kernels():
@@ -953,9 +991,10 @@ def phase_ft() -> dict:
 
 
 def route_outputs(enc, device) -> tuple[int, int]:
-    """(cheap_idx, expensive_idx) for a router with random weights.
+    """(cheap_idx, expensive_idx) for a router with random weights, or
+    trained a few steps.
 
-    Random weights rank the six outputs alike for every document, so
+    Such weights rank the six outputs alike for every document, so
     with the default pair (0, 2) the improvement may have one sign
     throughout and the budget route nothing. Take the pair whose
     improvement is positive for the share of 16 random-token documents
@@ -974,7 +1013,10 @@ def route_outputs(enc, device) -> tuple[int, int]:
 
 
 def build_llm_engine(cfg, n_docs, device, probe_rate, prefetch_depth=0,
-                     outputs=None):
+                     outputs=None, encoder=None):
+    """An llm-variant engine over the test split of an ``n_docs``
+    corpus: a fitted CLS-I stage and ``encoder`` (default: random
+    weights from a seeded generator) on ``device``."""
     import numpy as np
     import torch
 
@@ -991,8 +1033,8 @@ def build_llm_engine(cfg, n_docs, device, probe_rate, prefetch_depth=0,
     _, _, cls1, _, _ = fit_cls1_stage(train, ccfg,
                                       np.random.RandomState(SEED + 1),
                                       max_len=cfg.max_len, device=device)
-    enc = init_encoder(cfg, torch.Generator().manual_seed(SEED),
-                       device=device)
+    enc = encoder if encoder is not None else init_encoder(
+        cfg, torch.Generator().manual_seed(SEED), device=device)
     cheap_idx, expensive_idx = outputs or route_outputs(enc, device)
     router = AdaParseRouter("llm", cls1, None, enc_cfg=cfg, encoder=enc,
                             cheap_idx=cheap_idx,
@@ -1038,27 +1080,23 @@ def batch_stage_times(eng, docs) -> dict:
     encoder forward and the probe are also timed alone."""
     import torch
 
-    def t(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
     for _ in range(2):
-        prep, prepare_s = t(lambda: eng.prepare_batch(docs, batch_key=0))
-        plan, route_s = t(lambda: eng.route_batch(prep))
-        recs, complete_s = t(lambda: eng.complete_batch(prep, plan))
+        prep, prepare_s = synced(lambda: eng.prepare_batch(docs,
+                                                           batch_key=0))
+        plan, route_s = synced(lambda: eng.route_batch(prep))
+        recs, complete_s = synced(lambda: eng.complete_batch(prep, plan))
         with torch.inference_mode():
-            _, encoder_s = t(lambda: eng.router.encoder.predict_accuracies(
-                prep.route_host["tokens"], prep.route_host["mask"]))
-        _, probe_s = t(lambda: eng.probe.score_records(docs, recs))
+            _, encoder_s = synced(
+                lambda: eng.router.encoder.predict_accuracies(
+                    prep.route_host["tokens"], prep.route_host["mask"]))
+        _, probe_s = synced(lambda: eng.probe.score_records(docs, recs))
     return {"docs": len(docs), "prepare_s": prepare_s, "route_s": route_s,
             "encoder_forward_s": encoder_s,
             "complete_with_probe_s": complete_s, "probe_s": probe_s}
 
 
-def phase_llm() -> dict:
+def phase_llm(trained) -> dict:
+    """``trained``: the full-width encoder that phase ``train`` trained."""
     import numpy as np
     import torch
 
@@ -1067,10 +1105,9 @@ def phase_llm() -> dict:
                                                       capacity_floor)
 
     cfg = get_config("adaparse-router").model          # full width, bf16
-    assert (cfg.n_layers, cfg.d_model, cfg.param_dtype) == \
-        (12, 768, "bfloat16"), cfg
+    assert trained.cfg == cfg, trained.cfg
     eng, test = build_llm_engine(cfg, 600, "cuda", probe_rate=1.0,
-                                 prefetch_depth=2)
+                                 prefetch_depth=2, encoder=trained)
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1097,7 +1134,7 @@ def phase_llm() -> dict:
     assert all(np.isfinite(v[0]) and 0 <= v[0] <= 1
                for q in qual for v in q.values()), qual
     stages = batch_stage_times(eng, test[:bs])
-    emit({"phase": "llm", "config": cfg.name,
+    emit({"phase": "llm", "config": cfg.name, "weights": "phase train",
           "outputs": [eng.router.cheap_idx, eng.router.expensive_idx],
           "docs": len(test),
           "batches": len(plans), "launches": counts, "wall_s": wall,
@@ -1131,6 +1168,294 @@ def phase_llm() -> dict:
           "docs": len(t), "routed": [len(p[3]) for p in pc],
           "records_same_parser": same,
           "flips_within_1e-5_of_tau": len(tau_gap)})
+    return counts
+
+
+# -------------------------------------------------------------- train
+
+TRAIN_DOCS = 800        # 266 training docs: one SFT minibatch of 256
+TRAIN_STEPS = 3         # timed steps a stage, after one warm-up step
+SFT_BATCH = 256         # cut from sft_4k's 4096 (a TPU pod's global batch)
+DPO_BATCH = 64          # pairs; cut from dpo_2k's 2048; the pairs of the
+#                         first 64 training docs, as build_llm_router makes
+SMALL_STEPS = 20        # train_small_parity: steps a stage
+
+
+def encoder_forward_flops(cfg, b: int) -> float:
+    """Matmul and attention FLOPs of one encoder forward over ``b``
+    sequences of ``cfg.max_len`` tokens: Q, K, V, O and the two FFN
+    matmuls, QK^T and PV over every key (the mask is a bias, so all S^2
+    products are computed), and the pooler; the heads are negligible."""
+    d, f, s = cfg.d_model, cfg.d_ff, cfg.max_len
+    per_layer = 2 * b * s * (4 * d * d + 2 * d * f) + 4 * b * s * s * d
+    return cfg.n_layers * per_layer + 2 * b * d * d
+
+
+def embedding_grad_repeats(table, ids) -> dict:
+    """The table's gradient of one lookup of ``ids``, taken twice from
+    the same output grad, through ``index_select`` (whose backward is
+    ``index_add_``) and through ``embed_lookup``: the largest difference
+    between the two passes. Then one more pass of each under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` (off
+    again after it): the warnings it raised."""
+    import warnings
+
+    import torch
+
+    from repro_torch.models.layers import embed_lookup
+
+    flat = ids.reshape(-1).long()
+    g = torch.randn((flat.numel(), table.shape[1]), device=table.device,
+                    generator=torch.Generator(table.device).manual_seed(
+                        SEED)).to(table.dtype)
+    lookups = {"index_select": lambda t: t.index_select(0, flat),
+               "embed_lookup": lambda t: embed_lookup(t, flat)}
+
+    def grad(fn):
+        t = table.detach().clone().requires_grad_(True)
+        return torch.autograd.grad(fn(t), t, g)[0]
+
+    out = {}
+    for name, fn in lookups.items():
+        a, b = grad(fn), grad(fn)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                grad(fn)
+            finally:
+                torch.use_deterministic_algorithms(False)
+        out[name] = {
+            "max_abs_diff": float((a.float() - b.float()).abs().max()),
+            "deterministic_mode_warnings": sorted(
+                {str(w.message)[:90] for w in caught})}
+    assert out["embed_lookup"]["max_abs_diff"] == 0.0, out
+    return out
+
+
+def phase_train():
+    """The router's three stages at full width through ``core/dpo.py``.
+    Returns (launch counts, the trained encoder)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import dpo
+    from repro_torch.data.synthetic import CorpusConfig, generate_corpus
+    from repro_torch.launch.serve import llm_training_data
+    from repro_torch.models.encoder import init_encoder
+
+    cfg = get_config("adaparse-router").model
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff,
+            cfg.vocab_size, cfg.max_len, cfg.param_dtype, cfg.remat) == \
+        (12, 768, 12, 3072, 31090, 512, "bfloat16", True), cfg
+    ccfg = CorpusConfig(n_docs=TRAIN_DOCS, seed=SEED)
+    train = generate_corpus(ccfg)[:TRAIN_DOCS // 3]
+    reset_counts()
+    t0 = time.perf_counter()
+    _, reg, pref = llm_training_data(train, ccfg,
+                                     np.random.RandomState(SEED + 1),
+                                     cfg.max_len, "cuda")
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    counts = read_counts()
+    assert counts["fast_features"] > 0, counts
+    assert reg["tokens"].shape == (len(train), cfg.max_len)
+    assert pref["tok_pos"].shape == (DPO_BATCH, cfg.max_len)
+    enc = init_encoder(cfg, torch.Generator().manual_seed(SEED), "cuda")
+    n_params = sum(p.numel() for p in enc.parameters())
+
+    # (stage, trainer, data, lr, batch, prefix of the head the stage's
+    # loss does not reach, model FLOPs a step: 3x the forward for the
+    # trained pass, 1x for DPO's frozen reference)
+    f_sft = 3 * encoder_forward_flops(cfg, SFT_BATCH)
+    f_dpo = 4 * encoder_forward_flops(cfg, 2 * DPO_BATCH)
+    stages = (("sft", dpo.fit_regression, reg, 1e-3, SFT_BATCH, "p.pref_",
+               f_sft),
+              ("dpo", dpo.fit_dpo, pref, 5e-4, DPO_BATCH, "p.head_", f_dpo),
+              ("refit", dpo.fit_regression, reg, 1e-4, SFT_BATCH, "p.pref_",
+               f_sft))
+    out = {}
+    for name, fit, data, lr, bs, unreached, flops in stages:
+        _, first_s = synced(lambda: fit(enc, data, steps=1, lr=lr, bs=bs))
+        before = {n: p.detach().clone() for n, p in enc.named_parameters()}
+        torch.cuda.reset_peak_memory_stats()
+        res, wall = synced(lambda: fit(enc, data, steps=TRAIN_STEPS, lr=lr,
+                                       bs=bs))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        assert all(math.isfinite(x) for x in res.losses), res.losses
+        moved = {n: int((p != before[n]).sum())
+                 for n, p in enc.named_parameters()}
+        changed = {n for n, k in moved.items() if k}
+        reached = {n for n in before if not n.startswith(unreached)}
+        still = sorted(reached - changed)
+        if name == "sft":
+            # from the init every parameter the loss reaches moves, but
+            # for the norm scales: bf16 has no value between 1 - 2^-8
+            # and 1 + 2^-7, so a scale of ones stays put under steps
+            # below 2^-9 (AdamW's steps are about lr)
+            assert lr < 2 ** -9 and all(
+                bool((before[n] == 1).all()) for n in still), still
+        else:
+            # later stages: grads that have shrunk below AdamW's eps move
+            # some bf16 weights not at all (reported); the head the stage
+            # trains moves
+            assert ("p.pref_w" if name == "dpo" else "p.head_w") in changed
+        if name == "dpo":       # no grad, no decay: the regression head
+            assert not changed - reached, changed - reached
+        ms = wall / TRAIN_STEPS * 1e3
+        out[name] = {"steps": TRAIN_STEPS, "batch": bs, "lr": lr,
+                     "first_step_ms": first_s * 1e3, "ms_per_step": ms,
+                     "samples_per_s": bs / (ms / 1e3), "peak_gb": peak_gb,
+                     "losses": res.losses,
+                     "model_tflop_per_step": flops / 1e12,
+                     "model_tflops": flops / (ms / 1e3) / 1e12,
+                     "share_of_989_bf16": flops / (ms / 1e3) / BF16_OPS_PER_S,
+                     "unchanged_reached_params": still,
+                     "moved_share_of_reached": sum(
+                         moved[n] for n in reached) / sum(
+                         before[n].numel() for n in reached)}
+    prof = device_profile(lambda: dpo.fit_regression(enc, reg, steps=1,
+                                                     lr=1e-4, bs=SFT_BATCH))
+    emb = embedding_grad_repeats(enc.p["tok_embed"],
+                                 reg["tokens"][:SFT_BATCH])
+    emit({"phase": "train", "config": cfg.name, "card": card_line(),
+          "params": n_params, "docs": len(train), "data_s": data_s,
+          "reduced": {"sft_batch": f"{SFT_BATCH} of sft_4k's 4096",
+                      "dpo_batch": f"{DPO_BATCH} pairs of dpo_2k's 2048",
+                      "steps": f"1 + {TRAIN_STEPS} a stage"},
+          "launches": counts, "stages": out,
+          "sft_step_profile": prof, "embedding_grad_repeats": emb})
+    return counts, enc
+
+
+def phase_train_small_parity() -> None:
+    """router-tiny (f32) from one exported init: 20 steps a stage on cuda
+    and on cpu; then serve's build_llm_router twice on cuda."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import dpo
+    from repro_torch.data.synthetic import CorpusConfig, generate_corpus
+    from repro_torch.launch.serve import build_llm_router, llm_training_data
+    from repro_torch.models.encoder import (encoder_from_jax_params,
+                                            encoder_to_jax_params,
+                                            init_encoder)
+
+    small = get_config("adaparse-router").reduced().model
+    ccfg = CorpusConfig(n_docs=150, seed=SEED)
+    train = generate_corpus(ccfg)[:50]
+    _, reg, pref = llm_training_data(train, ccfg,
+                                     np.random.RandomState(SEED + 1),
+                                     small.max_len, "cpu")
+    raw = encoder_to_jax_params(
+        init_encoder(small, torch.Generator().manual_seed(SEED), "cpu"))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        enc = encoder_from_jax_params(raw, small, dev)
+        t0 = time.perf_counter()
+        enc, diag = dpo.three_stage_posttrain(
+            enc, reg, pref, sft_steps=SMALL_STEPS, dpo_steps=SMALL_STEPS,
+            refit_steps=SMALL_STEPS)
+        runs[dev] = (diag, encoder_to_jax_params(enc),
+                     time.perf_counter() - t0)
+    (dc, pc, wc), (dh, ph, wh) = runs["cuda"], runs["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for k in dh
+                   for a, b in zip(dc[k], dh[k]))
+    leaves = lambda t: [t[k] for k in sorted(t) if k != "layers"] + [
+        t["layers"][k] for k in sorted(t["layers"])]
+    param_diff = max(float(np.abs(a - b).max())
+                     for a, b in zip(leaves(pc), leaves(ph)))
+    assert all(len(dc[k]) == SMALL_STEPS for k in dc), dc
+    assert loss_rel <= 1e-5 and param_diff <= 1e-4, (loss_rel, param_diff)
+
+    # serve's reduced router, trained twice on the card: the same bits
+    t0 = time.perf_counter()
+    routers = [build_llm_router(train, ccfg, np.random.RandomState(SEED + 1),
+                                device="cuda") for _ in range(2)]
+    build_s = (time.perf_counter() - t0) / 2
+    a, b = (list(r.encoder.parameters()) for r in routers)
+    assert all(torch.equal(x, y) for x, y in zip(a, b)), \
+        "two cuda trainings differ"
+    assert np.array_equal(routers[0].cls1.w, routers[1].cls1.w)
+    emit({"phase": "train_small_parity", "config": small.name,
+          "steps_a_stage": SMALL_STEPS, "loss_max_rel_diff": loss_rel,
+          "param_max_abs_diff": param_diff, "tolerance":
+          {"loss_rtol": 1e-5, "param_atol": 1e-4},
+          "cuda_s": wc, "cpu_s": wh, "final_losses":
+          {k: [dc[k][-1], dh[k][-1]] for k in dh},
+          "build_llm_router_s": build_s, "two_cuda_trainings_bit_equal": True})
+
+
+def phase_serve_llm() -> dict:
+    """``serve --variant llm`` at the ft phase's sizes on cuda and on
+    cpu. Each route step the engine makes is recorded (the engine's
+    ``make_route_step`` is wrapped for the run) so that its device plan
+    can be held against ``plan_batch`` on the same scores."""
+    import io
+    from contextlib import redirect_stdout
+
+    import numpy as np
+
+    from repro_torch.core import engine, scheduler
+    from repro_torch.launch import serve
+
+    argv = ["--docs", "600", "--batch-size", "256", "--variant", "llm",
+            "--seed", str(SEED)]
+    steps = []
+    real = engine.make_route_step
+
+    def recording(alpha, **kw):
+        step = real(alpha, **kw)
+
+        def route_step(encoder, tokens, mask, valid_logit):
+            res = step(encoder, tokens, mask, valid_logit)
+            steps.append((alpha, encoder,
+                          res["improvement"].float().cpu().numpy(),
+                          res["selected_idx"].cpu().numpy()))
+            return res
+        return route_step
+
+    engine.make_route_step = recording
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        with redirect_stdout(io.StringIO()):
+            res_cuda = serve.main(argv + ["--device", "cuda"])
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        cuda_steps, steps[:] = list(steps), []
+        t0 = time.perf_counter()
+        with redirect_stdout(io.StringIO()):
+            res_cpu = serve.main(argv + ["--device", "cpu"])
+        cpu_wall = time.perf_counter() - t0
+    finally:
+        engine.make_route_step = real
+    for name in ("fast_features", "budget_route"):
+        assert counts[name] > 0, f"{name} did not launch: {counts}"
+    n_batches = math.ceil((600 - 600 // 3) / 256)
+    assert len(cuda_steps) == len(steps) == n_batches, (cuda_steps, steps)
+    routed = []
+    for alpha, enc, imp, idx in cuda_steps:
+        assert enc.device.type == "cuda" and np.isfinite(imp).all()
+        got = set(idx[idx >= 0].tolist())
+        assert got == set(scheduler.plan_batch(imp, alpha).expensive_idx
+                          .tolist()), (got, imp)
+        routed.append(len(got))
+    for res in (res_cuda, res_cpu):
+        assert res["frac_expensive"] <= ALPHA, res
+        assert all(math.isfinite(v) for v in res.values()), res
+    cuda_enc, cpu_enc = cuda_steps[0][1], steps[0][1]
+    assert cpu_enc.device.type == "cpu"
+    diff = max(float((p.detach().cpu() - q).abs().max()) for p, q in
+               zip(cuda_enc.parameters(), cpu_enc.parameters()))
+    emit({"phase": "serve_llm", "argv": argv, "metrics_cuda": res_cuda,
+          "metrics_cpu": res_cpu, "launches": counts,
+          "batches": n_batches, "routed": routed,
+          "device_plan_equals_plan_batch": True,
+          "router_param_max_abs_diff_cuda_cpu": diff,
+          "cuda_wall_s": wall, "cpu_wall_s": cpu_wall})
     return counts
 
 
@@ -1455,33 +1780,26 @@ def phase_gnn() -> dict:
     x, src, dst, w = gnn_inputs(dev)
     n = x.shape[0]
 
-    def synced(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
     # the first step at full size (not counted), profiled: it finds no
     # block of the caching allocator and no sort workspace in place
     cold = device_profile(lambda: ops.segment_matmul(x, src, dst, w,
                                                      n_nodes=n))
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    out, wall_ms = synced(lambda: ops.segment_matmul(x, src, dst, w,
-                                                     n_nodes=n))
+    out, wall_s = synced(lambda: ops.segment_matmul(x, src, dst, w,
+                                                    n_nodes=n))
     counts = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     assert counts["segment_mm"] == 1, counts
     assert all(v == 0 for k, v in counts.items() if k != "segment_mm"), counts
     assert out.shape == (n, w.shape[1]) and bool(torch.isfinite(out).all())
     # the same step in its three parts, each ended by a synchronise
-    order, argsort_ms = synced(lambda: torch.argsort(dst, stable=True))
-    (xg, dsorted), gather_ms = synced(
+    order, argsort_s = synced(lambda: torch.argsort(dst, stable=True))
+    (xg, dsorted), gather_s = synced(
         lambda: (embed_lookup(x, src[order]), dst[order]))
     del order
     free_cuda()
-    out2, kernel_ms = synced(lambda: ops.segment_matmul_kernel(
+    out2, kernel_s = synced(lambda: ops.segment_matmul_kernel(
         xg, w, dsorted, n_nodes=n))
     assert torch.equal(out, out2), "segment_matmul: two runs differ"
     del out2
@@ -1494,9 +1812,9 @@ def phase_gnn() -> dict:
           "reduced": "none: the ogb_products node and edge counts and "
                      "d_feat; d_out = equiformer-v2's d_hidden; uniform "
                      "random edges and features",
-          "launches": counts, "wall_ms": wall_ms,
-          "split_ms": {"argsort": argsort_ms, "gather": gather_ms,
-                       "kernel_with_sorted_check": kernel_ms},
+          "launches": counts, "wall_ms": wall_s * 1e3,
+          "split_ms": {"argsort": argsort_s * 1e3, "gather": gather_s * 1e3,
+                       "kernel_with_sorted_check": kernel_s * 1e3},
           "cold_step_profile": cold,
           "two_runs_bit_identical": True, "vs_plain": cmp,
           "max_memory_allocated_gb": peak_gb, "profile": prof})
@@ -1596,7 +1914,13 @@ def main() -> int:
     phase_kernel_edge_cases(dev)
     phase_routing_parity(dev)
 
-    path_counts = [phase_ft(), phase_llm(), phase_lm()]
+    train_counts, trained = phase_train()
+    phase_train_small_parity()
+    path_counts = [phase_ft(), train_counts, phase_serve_llm(),
+                   phase_llm(trained)]
+    del trained
+    free_cuda()
+    path_counts.append(phase_lm())
     phase_lm_small_parity()
     path_counts.append(phase_recsys())
     phase_recsys_small_parity()

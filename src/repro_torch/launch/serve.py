@@ -2,37 +2,40 @@
 system on one card).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --docs 1000 \
-        --alpha 0.05 [--variant ft] [--device cuda|cpu]
+        --alpha 0.05 [--variant ft|llm] [--device cuda|cpu]
 
-Builds the corpus, trains the CLS-I/II linear stages, then runs the
-engine over the test split and reports Table-1-style metrics +
-throughput. Routing inputs (the fast_features kernel) and evaluation
-run on ``--device`` (cuda by default; asking for cuda without a card is
-an error, never a silent CPU run).
+Builds the corpus, trains the CLS-I/II linear stages (and, for the LLM
+variant, SFT+DPO post-trains a reduced SciBERT router on ``--device``),
+then runs the engine over the test split and reports Table-1-style
+metrics + throughput. Routing inputs (the fast_features kernel), router
+training, routing and evaluation run on ``--device`` (cuda by default;
+asking for cuda without a card is an error, never a silent CPU run).
 
 This is the single-node subset of ``repro.launch.serve``. Not ported
-yet, and refused with an argparse error rather than substituted:
-
-- ``--variant llm``: the LLM router needs its SFT+DPO post-training
-  (``core/dpo.py``) first.
-- every flag that routes the campaign through the fleet layer
-  (``CampaignExecutor``/``CampaignController``, worker processes, the
-  fabric, result stores, scenarios, tracing): ``FLEET_FLAGS`` below.
+yet, and refused with an argparse error rather than substituted: every
+flag that routes the campaign through the fleet layer
+(``CampaignExecutor``/``CampaignController``, worker processes, the
+fabric, result stores, scenarios, tracing): ``FLEET_FLAGS`` below.
 """
 from __future__ import annotations
 
 import argparse
 
 import numpy as np
+import torch
 
 from repro_torch import device as device_lib
+from repro_torch.configs import get_config
+from repro_torch.core import dpo as dpo_lib
 from repro_torch.core import features as F
 from repro_torch.core import metrics as M
 from repro_torch.core import parsers as P
 from repro_torch.core.engine import AdaParseEngine, EngineConfig
 from repro_torch.core.router import (AdaParseRouter, LinearStage,
                                      make_cls1_labels, make_cls2_labels)
-from repro_torch.data.synthetic import CorpusConfig, generate_corpus
+from repro_torch.data.synthetic import (CorpusConfig, generate_corpus,
+                                        preference_utility)
+from repro_torch.models.encoder import Encoder, init_encoder
 
 # flags of repro.launch.serve whose campaign runs through the fleet layer
 # (core/campaign, core/workers, core/fabric, core/scenarios, obs), which
@@ -90,6 +93,67 @@ def build_ft_router(train_docs, ccfg, rng, device=None) -> AdaParseRouter:
     return AdaParseRouter("ft", cls1, cls2)
 
 
+def llm_training_data(train_docs, ccfg, rng, max_len, device=None):
+    """The LLM router's training data, drawn from ``rng`` in the JAX
+    package's order: the fitted CLS-I stage; the regression set (the
+    first-page tokens/mask of every training doc from
+    ``fit_cls1_stage`` on ``device``, BLEU targets of the m parsers);
+    and preference pairs from the first 64 docs, the oracle's
+    (``preference_utility``) better and worse of the cheap and the
+    expensive parse (it stands in for the 23-expert study).
+
+    Returns (cls1, reg, pref): ``reg`` holds tensors on ``device``,
+    ``pref`` numpy arrays."""
+    mat, _, cls1, toks, masks = fit_cls1_stage(train_docs, ccfg, rng,
+                                               max_len=max_len,
+                                               device=device)
+    reg = {"tokens": toks, "mask": masks,
+           "targets": torch.from_numpy(mat.astype(np.float32)).to(
+               toks.device)}
+    pos_t, pos_m, neg_t, neg_m = [], [], [], []
+    for d in train_docs[:64]:
+        outs = {n: P.run_parser(n, d, ccfg, rng)
+                for n in (P.CHEAP_PARSER, P.EXPENSIVE_PARSER)}
+        ref = d.full_text()
+        utils = {n: preference_utility(
+            ref, np.concatenate(o) if sum(map(len, o)) else np.zeros(0),
+            rng) for n, o in outs.items()}
+        better = max(utils, key=utils.get)
+        worse = min(utils, key=utils.get)
+        tp, mp = F.first_page_tokens(outs[better], max_len)
+        tn, mn = F.first_page_tokens(outs[worse], max_len)
+        pos_t.append(tp); pos_m.append(mp); neg_t.append(tn); neg_m.append(mn)
+    pref = {"tok_pos": np.stack(pos_t), "mask_pos": np.stack(pos_m),
+            "tok_neg": np.stack(neg_t), "mask_neg": np.stack(neg_m)}
+    return cls1, reg, pref
+
+
+def build_llm_router(train_docs, ccfg, rng, *, sft_steps=150,
+                     dpo_steps=60, seed=0, device=None,
+                     encoder: Encoder | None = None) -> AdaParseRouter:
+    """The reduced ``adaparse-router`` (``router-tiny``), post-trained
+    SFT -> DPO -> refit on ``device``. It starts from ``encoder`` when
+    given (the JAX package's PRNG cannot be reproduced in torch, so a
+    parity run passes the reference's init through
+    ``encoder_from_jax_params``), else from ``init_encoder`` with a
+    generator seeded by ``seed``."""
+    enc_cfg = get_config("adaparse-router").reduced().model
+    dev = device_lib.resolve(device)
+    cls1, reg, pref = llm_training_data(train_docs, ccfg, rng,
+                                        enc_cfg.max_len, dev)
+    if encoder is None:
+        encoder = init_encoder(enc_cfg, torch.Generator().manual_seed(seed),
+                               dev)
+    elif encoder.cfg != enc_cfg or encoder.device.type != dev.type:
+        raise ValueError(f"build_llm_router: the starting encoder must be "
+                         f"{enc_cfg.name} on {dev}, got {encoder.cfg.name} "
+                         f"on {encoder.device}")
+    enc, _ = dpo_lib.three_stage_posttrain(
+        encoder, reg, pref, sft_steps=sft_steps, dpo_steps=dpo_steps,
+        refit_steps=max(sft_steps // 3, 10))
+    return AdaParseRouter("llm", cls1, None, enc_cfg=enc_cfg, encoder=enc)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--docs", type=int, default=600)
@@ -115,10 +179,6 @@ def main(argv=None):
                  f"is not ported to repro_torch yet; run "
                  f"repro.launch.serve for these, or drop them for the "
                  f"single-node campaign")
-    if args.variant == "llm":
-        ap.error("--variant llm needs the router's SFT+DPO post-training "
-                 "(core/dpo.py), which is not ported to repro_torch yet; "
-                 "use --variant ft, or repro.launch.serve")
     if args.docs < 3:
         ap.error(f"--docs must be >= 3 (got {args.docs}): the corpus is "
                  f"split 1/3 train, 2/3 test")
@@ -138,7 +198,9 @@ def main(argv=None):
     n_train = args.docs // 3
     train, test = docs[:n_train], docs[n_train:]
     rng = np.random.RandomState(args.seed + 1)
-    router = build_ft_router(train, ccfg, rng, device=device)
+    router = (build_ft_router(train, ccfg, rng, device=device)
+              if args.variant == "ft"
+              else build_llm_router(train, ccfg, rng, device=device))
     ecfg = EngineConfig(alpha=args.alpha, batch_size=args.batch_size,
                         seed=args.seed, prefetch_depth=args.prefetch_depth)
     eng = AdaParseEngine(ecfg, router, ccfg, device=device)

@@ -13,12 +13,23 @@ both packages compute the same function. Attention is the plain einsum
 form of ``repro/models/encoder.py``: the QK product is taken into
 float32 (as ``preferred_element_type=f32`` does), the mask bias is
 -1e30, and the softmax runs in float32 before casting to the compute
-dtype. ``remat``/``scan_layers`` are training knobs with no effect here.
+dtype.
+
+Parameters are created with ``requires_grad=False``: serving runs under
+``torch.inference_mode``, and the trainers of ``core/dpo.py`` switch
+grads on for the length of a fit. With ``cfg.remat`` set and grad
+enabled, each layer runs under ``torch.utils.checkpoint`` and saves only
+its input, recomputing the rest in the backward pass: the counterpart of
+the JAX package's ``jax.checkpoint(nothing_saveable)``, with the same
+values. ``scan_layers`` has no counterpart (the layers are a Python
+loop either way).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_lib
 from repro_torch.configs.base import EncoderConfig
@@ -130,8 +141,10 @@ class Encoder(nn.Module):
         x = x + p["pos_embed"][:s].to(cdt)[None]
         x = layer_norm(x, p["ln_embed_s"], p["ln_embed_b"], cfg.norm_eps)
         bias = torch.where(mask > 0, 0.0, NEG_INF).float()
+        remat = cfg.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, bias, cfg)
+            x = (checkpoint(layer, x, bias, cfg, use_reentrant=False)
+                 if remat else layer(x, bias, cfg))
         return torch.tanh(x[:, 0] @ p["pool_w"].to(cdt) + p["pool_b"].to(cdt))
 
     def predict_accuracies(self, tokens, mask=None) -> torch.Tensor:
@@ -212,3 +225,26 @@ def encoder_from_jax_params(raw: dict, cfg: EncoderConfig,
                              f"{tuple(t.shape)} != {tuple(prm.shape)}")
         prm.copy_(t.to(prm.dtype))
     return enc
+
+
+@torch.no_grad()
+def encoder_to_jax_params(enc: Encoder) -> dict:
+    """The inverse of ``encoder_from_jax_params``: the JAX package's raw
+    param dict with numpy leaves on the host, per-layer weights stacked
+    on a leading axis under ``"layers"``. numpy has no bfloat16, so bf16
+    params come out as float32, which holds them exactly and which
+    ``encoder_from_jax_params`` casts back to ``cfg.param_dtype``."""
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    layers: dict = {}
+    raw: dict = {"layers": layers}
+    for name, i, prm in _named_params(enc):
+        if i is None:
+            raw[name] = host(prm)
+        else:
+            layers.setdefault(name, []).append(host(prm))
+    for name, per_layer in layers.items():
+        layers[name] = np.stack(per_layer)
+    return raw

@@ -92,14 +92,21 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor, *,
     ``index_select``; for ``fill``, one host synchronisation asks whether
     any id is out of range, and only then is the mask written in place,
     so there is never a second buffer of the result's size nor, in the
-    common case, a second pass over it."""
+    common case, a second pass over it.
+
+    The gather is ``F.embedding`` (an ``index_select`` forward) for its
+    backward: ``index_select``'s accumulates the table's gradient with
+    ``index_add_``, whose atomics on CUDA sum repeated ids in a varying
+    order, so two trainings would differ in the last bits; the
+    embedding backward sums them in a fixed order."""
     if mode not in ("fill", "clip"):
         raise ValueError(f"embed_lookup: mode must be fill or clip "
                          f"(got {mode!r})")
     r = table.shape[0]
     flat = ids.reshape(-1).long()
     flat = torch.where(flat < 0, flat + r, flat)
-    rows = table.index_select(0, flat.clamp(0, max(r - 1, 0)))
+    rows = F.embedding(flat.clamp(0, max(r - 1, 0)), table.reshape(r, -1))
+    rows = rows.view((-1,) + tuple(table.shape[1:]))
     if mode == "fill":
         oob = (flat < 0) | (flat >= r)
         if bool(oob.any()):

@@ -15,7 +15,10 @@ against cpu within 2e-5; embedding_bag within 2e-5 in float32 and 2e-2
 in bfloat16 (the JAX kernel's bar) and bit-equal for bags of one;
 segment_mm within rtol = atol = 1e-5 (the JAX kernel's bar) and
 bit-identical across runs; the reduced DLRM on cuda against cpu within
-2e-5.
+2e-5; one router-tiny SFT or DPO step on cuda against cpu, the loss
+within rtol 1e-5 and the params within 1e-5 (AdamW's first step moves
+each element by about lr, whatever its grad; a grad near eps is where
+the devices' rounding shows), and two cuda trainings bit-equal.
 """
 import dataclasses
 
@@ -705,3 +708,64 @@ def test_small_dlrm_cuda_matches_cpu(dev):
     assert eb.KERNEL.launches == before + 1
     want = M.recsys_scores(host, cfg, batch)
     torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=0)
+
+
+def _tiny_router_start():
+    """router-tiny (f32) from one exported init, with seeded regression
+    data and preference pairs on the host."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import encoder as E
+
+    cfg = get_config("adaparse-router").reduced().model
+    raw = E.encoder_to_jax_params(
+        E.init_encoder(cfg, torch.Generator().manual_seed(0), "cpu"))
+    r = np.random.RandomState(0)
+    n, s = 24, cfg.max_len
+    toks = r.randint(2, 8000, (3, n, s)).astype(np.int32)
+    lens = r.randint(1, s + 1, (3, n))
+    mask = (np.arange(s) < lens[..., None]).astype(np.float32)
+    reg = {"tokens": toks[0], "mask": mask[0],
+           "targets": r.rand(n, cfg.n_outputs).astype(np.float32)}
+    pref = {"tok_pos": toks[1], "mask_pos": mask[1], "tok_neg": toks[2],
+            "mask_neg": mask[2]}
+    return cfg, raw, reg, pref
+
+
+@pytest.mark.parametrize("stage", ["sft", "dpo"])
+def test_tiny_router_training_step_cuda_matches_cpu(dev, stage):
+    """One SFT and one DPO step of router-tiny from the same init: the
+    loss within rtol 1e-5 and every param within 1e-5 (TF32 is off)."""
+    from repro_torch.core import dpo
+    from repro_torch.models import encoder as E
+
+    cfg, raw, reg, pref = _tiny_router_start()
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        enc = E.encoder_from_jax_params(raw, cfg, d)
+        res = (dpo.fit_regression(enc, reg, steps=1) if stage == "sft"
+               else dpo.fit_dpo(enc, pref, steps=1))
+        out[d.type] = (res.losses, E.encoder_to_jax_params(res.encoder))
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for name, a in out["cuda"][1].items():
+        b = out["cpu"][1][name]
+        for x, y in (zip(a.values(), b.values()) if name == "layers"
+                     else [(a, b)]):
+            np.testing.assert_allclose(x, y, atol=1e-5, rtol=0,
+                                       err_msg=name)
+
+
+def test_tiny_router_training_is_bit_reproducible_on_cuda(dev):
+    """Two trainings on the card from one init give the same bits (the
+    embedding gradient sums repeated ids in a fixed order)."""
+    from repro_torch.core import dpo
+    from repro_torch.models import encoder as E
+
+    cfg, raw, reg, pref = _tiny_router_start()
+    runs = []
+    for _ in range(2):
+        enc = E.encoder_from_jax_params(raw, cfg, dev)
+        enc, diag = dpo.three_stage_posttrain(enc, reg, pref, sft_steps=20,
+                                              dpo_steps=10, refit_steps=10)
+        runs.append((diag, [p.detach().clone() for p in enc.parameters()]))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))

@@ -34,7 +34,8 @@ from repro_torch.data.synthetic import generate_corpus
 from repro_torch.kernels.budget_route.ops import (POSITIVE_TAU,
                                                   capacity_floor)
 from repro_torch.launch import serve as TS
-from repro_torch.models.encoder import encoder_from_jax_params
+from repro_torch.models.encoder import (encoder_from_jax_params,
+                                        encoder_to_jax_params)
 
 N_DOCS = 90
 
@@ -166,12 +167,8 @@ def test_llm_run_matches_jax(corpora, llm_routers):
 def test_router_fingerprint_is_content_based(llm_routers, ft_routers):
     _, tr = llm_routers
     fp = TE._router_fingerprint(tr)
-    layers = tr.encoder.layers
-    copy = encoder_from_jax_params(
-        {"layers": {k: np.stack([lyr.p[k].numpy() for lyr in layers])
-                    for k in layers[0].p},
-         **{k: v.numpy() for k, v in tr.encoder.p.items()}},
-        tr.enc_cfg, "cpu")
+    copy = encoder_from_jax_params(encoder_to_jax_params(tr.encoder),
+                                   tr.enc_cfg, "cpu")
     twin = dataclasses.replace(tr, encoder=copy)
     assert TE._router_fingerprint(twin) == fp
     with torch.no_grad():
@@ -188,7 +185,7 @@ def test_serve_ft_matches_jax():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--variant", "llm"], ["--nodes", "2"], ["--workers", "2"],
+    ["--fabric-workers", "2"], ["--nodes", "2"], ["--workers", "2"],
     ["--cache-dir", "store"], ["--warm-cache"], ["--adaptive-rounds", "2"],
     ["--pools", "cpu:1,gpu:1"], ["--trace-dir", "trace"],
     ["--device", "tpu"], ["--prefetch-depth", "-1"],

@@ -52,7 +52,9 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.launch.specs",
                  "repro_torch.launch.kernel_timing",
                  "repro_torch.kernels.order",
-                 "repro_torch.configs.dlrm_mlperf"):
+                 "repro_torch.configs.dlrm_mlperf",
+                 "repro_torch.core.dpo", "repro_torch.optim.adamw",
+                 "repro_torch.optim.base"):
         assert name in res["modules"]
 
 
