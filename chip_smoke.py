@@ -90,7 +90,24 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    the predictions must be finite in [0, 1]. A reduced f32 encoder then
    runs the same engine on cuda and on cpu, whose records must agree
    (a flip allowed only within 1e-5 of tau).
-7. lm: the full-width bf16 ``qwen3-1.7b`` (28 layers, d=2048, random
+7. campaign: that router over the 3,072 test documents of a 4,608
+   document corpus (12 batches of 256) through the campaign layer, four
+   simulated nodes sharing the card: A1 one ``AdaParseEngine``; A2 a
+   ``CampaignController`` (pools cpu:3,gpu:1, speed factors 1/1/3/1,
+   prefetch 2, probe rate 0.5, straggler rate 0.5, a DiskResultStore),
+   whose records must equal A1's; A2r the same with two GPU-pool nodes
+   and hung stragglers, which must re-issue, records equal; A3 a warm
+   replay of A2's store on the card and on the CPU, every batch a hit;
+   A4 alpha retuning inside 0.02:0.2 (step 0.05, probe rate 1.0) and a
+   fresh controller replaying its telemetry on a cold store: the same
+   records, weights and alpha trajectory. Card seconds and documents/s
+   (host clock, synchronised) are reported apart from the simulated
+   node-second clocks. B: ``serve.main`` with the campaign flags
+   (``--variant ft --docs 1200 --nodes 4 --adaptive-rounds 3`` ...) on
+   cuda, with the cpu run in a child process beside it: equal metric
+   dicts and report lines, and the two result stores hold the same
+   entries. fast_features, budget_route and ngram_score must launch.
+8. lm: the full-width bf16 ``qwen3-1.7b`` (28 layers, d=2048, random
    weights from a seeded CUDA generator) with
    ``attention_impl="pallas"``: ``prefill`` of B=4 x S=4096 seeded tokens
    (``prefill_32k`` is batch 32 x 32768; cut to fit one card and the
@@ -101,10 +118,10 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    Also reported: both bf16 prefills against one computed in float32
    (the model's bf16 noise floor), and a torch.profiler pass over a
    prefill and two decode steps (device busy share, top kernels).
-8. lm_small_parity: the reduced f32 qwen3-tiny and danube-tiny (window
+9. lm_small_parity: the reduced f32 qwen3-tiny and danube-tiny (window
    32) run ``prefill`` and ``decode_step`` on cuda (the kernel) and on
    cpu (the plain version); the logits must agree within 2e-5.
-9. recsys: ``recsys_scores`` of the full-width bf16 ``dlrm-mlperf``
+10. recsys: ``recsys_scores`` of the full-width bf16 ``dlrm-mlperf``
    (the 187,767,808 x 128 table, 48.07 GB, drawn in place from a seeded
    CUDA generator) at ``serve_p99`` (batch 512) and ``serve_bulk`` (batch
    262,144), batches from ``launch.specs._recsys_batch`` (seed 0):
@@ -112,9 +129,9 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    finite scores in (0, 1) bit-equal to a forward whose lookup is a
    plain ``index_select``, peak memory, and a torch.profiler pass over
    one ``serve_bulk`` forward.
-10. recsys_small_parity: the reduced f32 dlrm-tiny on cuda against cpu,
+11. recsys_small_parity: the reduced f32 dlrm-tiny on cuda against cpu,
    scores within 2e-5.
-11. gnn: ``segment_matmul(x, src, dst, w, n_nodes)`` at ``ogb_products``
+12. gnn: ``segment_matmul(x, src, dst, w, n_nodes)`` at ``ogb_products``
    (uniform random edges from a seeded CUDA generator, d_out 128, f32):
    a torch.profiler pass over the first (cold, uncounted) step at full
    size, then wall ms of a warm step and of its argsort, gather and
@@ -1095,8 +1112,10 @@ def batch_stage_times(eng, docs) -> dict:
             "complete_with_probe_s": complete_s, "probe_s": probe_s}
 
 
-def phase_llm(trained) -> dict:
-    """``trained``: the full-width encoder that phase ``train`` trained."""
+def phase_llm(trained):
+    """``trained``: the full-width encoder that phase ``train`` trained.
+    Returns the launch counts and the router (the fitted CLS-I stage
+    behind ``trained``), which phase ``campaign`` runs."""
     import numpy as np
     import torch
 
@@ -1168,6 +1187,290 @@ def phase_llm(trained) -> dict:
           "docs": len(t), "routed": [len(p[3]) for p in pc],
           "records_same_parser": same,
           "flips_within_1e-5_of_tau": len(tau_gap)})
+    return counts, eng.router
+
+
+# -------------------------------------------------------------- campaign
+
+CAMPAIGN_DOCS = 4608    # 3,072 test documents: 12 batches of 256, so
+#                         three rounds of several batches a node
+CAMPAIGN_NODES = ["cpu", "cpu", "cpu", "gpu"]        # --pools cpu:3,gpu:1
+CAMPAIGN_SPEEDS = [1.0, 1.0, 3.0, 1.0]
+CAMPAIGN_ROUNDS = 3
+STRAGGLER_RATE = 0.5
+HUNG_SLOWDOWN = 50.0    # A2r: a hung batch, far past the re-issue deadline
+SERVE_CAMPAIGN = ["--variant", "ft", "--docs", "1200", "--nodes", "4",
+                  "--adaptive-rounds", "3", "--quality-probe-rate", "0.5",
+                  "--alpha-bounds", "0.02:0.2", "--alpha-step", "0.05",
+                  "--warm-cache", "--seed", str(SEED)]
+
+
+def same_records(a: dict, b: dict) -> bool:
+    import numpy as np
+
+    return a.keys() == b.keys() and all(
+        (a[k].parser, a[k].cost_s, len(a[k].pages))
+        == (b[k].parser, b[k].cost_s, len(b[k].pages))
+        and all(np.array_equal(p, q) for p, q in zip(a[k].pages, b[k].pages))
+        for k in a)
+
+
+def campaign_run(label, fn, n_docs) -> tuple:
+    """Run one controller campaign on the card: (result, its JSON
+    summary). Card figures are host-clock seconds with a synchronise;
+    ``simulated`` are the fleet's node-second clocks, the same on any
+    device."""
+    counts0 = read_counts()
+    res, seconds = synced(fn)
+    counts = {k: v - counts0[k] for k, v in read_counts().items()}
+    tele = res.telemetry
+    row = {
+        "run": label, "card_wall_s": seconds,
+        "card_docs_per_s": n_docs / seconds, "launches": counts,
+        "simulated": {"wall_s": res.wall_s, "docs_per_s": res.docs_per_s,
+                      "node_busy_frac": res.node_busy_frac},
+        "reissued": res.reissued, "reissued_reparse": res.reissued_reparse,
+        "cache_hits": res.cache_hits, "cache_misses": res.cache_misses,
+        "node_alphas": res.node_alphas,
+        "weight_history": res.weight_history,
+        "alpha_trajectory": [t.alpha for t in tele],
+        "decisions": [t.decision for t in tele],
+        "probe_quality": [t.quality for t in tele]}
+    emit({"phase": "campaign_run", **row})
+    return res, row
+
+
+def serve_cpu_process(argv):
+    """``serve.main(argv)`` in a child process that cannot see the card
+    (host-bound BLEU runs beside the card's run there); ``finish`` reads
+    its metric dict and report lines."""
+    import os
+
+    code = ("import json, sys\n"
+            "from repro_torch.launch import serve\n"
+            "res = serve.main(sys.argv[1:])\n"
+            "print('RESULT ' + json.dumps(res))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, "-c", code, *argv],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env, cwd=ROOT)
+
+
+def finish(proc, timeout: float = 600.0):
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        proc.kill()
+    if proc.returncode:
+        raise RuntimeError(f"cpu serve exited {proc.returncode}:\n"
+                           f"{err[-3000:]}")
+    lines = out.splitlines()
+    return json.loads(lines[-1][len("RESULT "):]), lines
+
+
+def serve_with_cpu_beside(cuda_argv, cpu_argv):
+    """``serve.main`` on the card in this process while the cpu run goes
+    on in a child: ((metrics, lines) on cuda, (metrics, lines) on cpu)."""
+    import io
+    from contextlib import redirect_stdout
+
+    from repro_torch.launch import serve
+
+    proc = serve_cpu_process(cpu_argv + ["--device", "cpu"])
+    try:
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            res = serve.main(cuda_argv + ["--device", "cuda"])
+    except BaseException:
+        proc.kill()
+        proc.wait()
+        raise
+    return (res, buf.getvalue().splitlines()), finish(proc)
+
+
+def report_lines(lines) -> list[str]:
+    return [ln for ln in lines
+            if ln.startswith(("[serve] executor[", "[serve]   "))]
+
+
+def cache_counts(lines) -> list[list[int]]:
+    """(hits, misses) of each executor pass, from its report line."""
+    out = []
+    for ln in lines:
+        if ln.startswith("[serve] executor["):
+            h, m = ln.rsplit("cache=", 1)[1].split("/")
+            out.append([int(h[:-1]), int(m[:-1])])
+    return out
+
+
+def store_entries(path) -> dict:
+    """A DiskResultStore's batches by file name (the hash of the key),
+    each as its records keyed by doc id."""
+    import pickle
+
+    return {f.name: {r.doc_id: r for r in pickle.loads(f.read_bytes())}
+            for f in Path(path).glob("*.pkl")}
+
+
+def phase_campaign(router) -> dict:
+    """The campaign layer on the card with the full-width router that
+    phases ``train`` and ``llm`` left: A1 the single-node engine, A2 the
+    4-node controller (pools cpu:3,gpu:1, speeds 1/1/3/1, prefetch 2,
+    probe rate 0.5, a disk store), A2r the same fleet with a two-node
+    GPU pool so that the seeded stragglers re-issue, A3 a warm replay of
+    A2's store on the card and on the CPU, A4 α retuning and its replay;
+    B ``serve`` with the campaign flags on cuda and cpu."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import obs
+    from repro_torch.core.backends import DiskResultStore
+    from repro_torch.core.campaign import (CampaignController,
+                                           ControllerConfig, ExecutorConfig)
+    from repro_torch.core.engine import AdaParseEngine, EngineConfig
+    from repro_torch.core.quality import QualityProbeConfig
+    from repro_torch.data.synthetic import CorpusConfig, generate_corpus
+    from repro_torch.launch import obs_report
+    from repro_torch.models.encoder import (encoder_from_jax_params,
+                                            encoder_to_jax_params)
+
+    ccfg = CorpusConfig(n_docs=CAMPAIGN_DOCS, seed=SEED)
+    test = generate_corpus(ccfg)[CAMPAIGN_DOCS // 3:]
+    n, bs = len(test), 256
+    n_batches = -(-n // bs)
+    ecfg = EngineConfig(alpha=ALPHA, batch_size=bs, seed=SEED)
+    xcfg = ExecutorConfig(n_nodes=len(CAMPAIGN_NODES),
+                          node_pools=CAMPAIGN_NODES, prefetch_depth=2,
+                          node_speed_factors=CAMPAIGN_SPEEDS,
+                          straggler_rate=STRAGGLER_RATE, seed=SEED)
+    probed = ControllerConfig(rounds=CAMPAIGN_ROUNDS, probe=QualityProbeConfig(
+        probe_rate=0.5, seed=SEED))
+    retune = dict(rounds=CAMPAIGN_ROUNDS, alpha_bounds=(0.02, 0.2),
+                  alpha_step=0.05,
+                  probe=QualityProbeConfig(probe_rate=1.0, seed=SEED))
+    runs = []
+
+    def controller(ctl, xc=xcfg, dev="cuda", rtr=router):
+        return CampaignController(ecfg, xc, ctl, rtr, ccfg, device=dev)
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        eng = AdaParseEngine(ecfg, router, ccfg, device="cuda")
+        single, seconds = synced(lambda: eng.run(test))
+        # one node: its clock is the engine's charged node-seconds
+        runs.append({"run": "A1 single node", "card_wall_s": seconds,
+                     "card_docs_per_s": n / seconds,
+                     "launches": read_counts(),
+                     "simulated": {"wall_s": eng.stats.node_seconds,
+                                   "docs_per_s": eng.stats.throughput}})
+        emit({"phase": "campaign_run", **runs[-1]})
+
+        a2, row = campaign_run(
+            "A2 controller", lambda: controller(probed).run(
+                test, cache=DiskResultStore(tmp / "a2")), n)
+        runs.append(row)
+        assert same_records(a2.records, single), "A2 records differ from A1"
+        assert a2.cache_misses == n_batches, a2.cache_misses
+
+        # with one GPU-pool node a forwarded re-parse has no eligible
+        # peer (GPU work cannot leave its pool), so A2's stragglers run
+        # to completion at the 4x slowdown; with two GPU nodes, and the
+        # seeded stragglers hung, they re-issue
+        two_gpu = dataclasses.replace(xcfg,
+                                      node_pools=["cpu", "cpu", "gpu", "gpu"],
+                                      straggler_slowdown=HUNG_SLOWDOWN)
+        a2r, row = campaign_run(
+            "A2r controller, re-issue", lambda: controller(
+                probed, two_gpu).run(test), n)
+        runs.append(row)
+        assert a2r.reissued >= 1, "the seeded stragglers re-issued nothing"
+        assert same_records(a2r.records, single), "A2r records differ"
+
+        a3, row = campaign_run(
+            "A3 warm replay", lambda: controller(probed).run(
+                test, cache=DiskResultStore(tmp / "a2")), n)
+        runs.append(row)
+        assert (a3.cache_hits, a3.cache_misses) == (n_batches, 0), row
+        assert same_records(a3.records, single), "A3 records differ"
+
+        # the card's store on the CPU, with the same router's weights
+        cpu_router = dataclasses.replace(router, encoder=encoder_from_jax_params(
+            encoder_to_jax_params(router.encoder), router.enc_cfg, "cpu"))
+        t0 = time.perf_counter()
+        a3c = controller(probed, dev="cpu", rtr=cpu_router).run(
+            test, cache=DiskResultStore(tmp / "a2"))
+        runs.append({"run": "A3 warm replay on the cpu",
+                     "host_wall_s": time.perf_counter() - t0,
+                     "cache_hits": a3c.cache_hits,
+                     "cache_misses": a3c.cache_misses})
+        emit({"phase": "campaign_run", **runs[-1]})
+        assert (a3c.cache_hits, a3c.cache_misses) == (n_batches, 0), \
+            "the card's store did not replay on the cpu"
+        assert same_records(a3c.records, single), "A3 cpu records differ"
+        del cpu_router
+
+        a4, row = campaign_run(
+            "A4 alpha retuning", lambda: controller(
+                ControllerConfig(**retune)).run(
+                    test, cache=DiskResultStore(tmp / "a4")), n)
+        runs.append(row)
+        traj = a4.alpha_trajectory
+        assert all(0.02 <= a <= 0.2 for a in traj + a4.node_alphas), traj
+        a4r, row = campaign_run(
+            "A4 replay, cold store", lambda: controller(ControllerConfig(
+                telemetry_trace=a4.telemetry, **retune)).run(
+                    test, cache=DiskResultStore(tmp / "a4r")), n)
+        runs.append(row)
+        assert a4r.alpha_trajectory == traj, (a4r.alpha_trajectory, traj)
+        assert a4r.weight_history == a4.weight_history
+        assert all(t.decision == "replay" for t in a4r.telemetry)
+        assert same_records(a4r.records, a4.records), "A4 replay differs"
+
+        def argv(tag):
+            return SERVE_CAMPAIGN + [
+                "--cache-dir", str(tmp / f"store_{tag}"),
+                "--trace-dir", str(tmp / f"trace_{tag}"),
+                "--metrics-out", str(tmp / f"metrics_{tag}.txt")]
+
+        t0 = time.perf_counter()
+        (b_cuda, l_cuda), (b_cpu, l_cpu) = serve_with_cpu_beside(
+            argv("cuda"), argv("cpu"))
+        b_s = time.perf_counter() - t0
+        assert b_cuda == b_cpu, f"serve metrics differ: {b_cuda} {b_cpu}"
+        assert report_lines(l_cuda) == report_lines(l_cpu), \
+            (report_lines(l_cuda), report_lines(l_cpu))
+        trace = obs_report.summarize(*obs.load_spans(tmp / "trace_cuda"))
+        # the card's store holds the CPU's entries, key for key (the
+        # keys embed the router fingerprint and each round's α)
+        stored = {dev: store_entries(tmp / f"store_{dev}")
+                  for dev in ("cuda", "cpu")}
+        assert stored["cuda"].keys() == stored["cpu"].keys(), \
+            "the card's and the cpu's stores hold different keys"
+        assert all(same_records(stored["cuda"][k], stored["cpu"][k])
+                   for k in stored["cuda"]), "stored records differ"
+    counts = read_counts()
+    for name in ("fast_features", "budget_route", "ngram_score"):
+        assert counts[name] > 0, \
+            f"{name} did not launch in phase campaign: {counts}"
+    emit({"phase": "campaign", "config": router.enc_cfg.name,
+          "docs": n, "batches": n_batches, "nodes": CAMPAIGN_NODES,
+          "speed_factors": CAMPAIGN_SPEEDS, "straggler_rate": STRAGGLER_RATE,
+          "runs": runs, "launches": counts,
+          "phase_s": time.perf_counter() - t_phase,
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "serve": {"argv": SERVE_CAMPAIGN, "metrics": b_cuda,
+                    "equal_on_cpu": True, "wall_s_both": b_s,
+                    "report": report_lines(l_cuda),
+                    "cache": cache_counts(l_cuda),
+                    "store_entries_equal_to_cpu": len(stored["cuda"]),
+                    "trace": {k: trace[k] for k in
+                              ("n_spans", "complete", "complete_cached")}}})
     return counts
 
 
@@ -1916,9 +2219,10 @@ def main() -> int:
 
     train_counts, trained = phase_train()
     phase_train_small_parity()
-    path_counts = [phase_ft(), train_counts, phase_serve_llm(),
-                   phase_llm(trained)]
-    del trained
+    path_counts = [phase_ft(), train_counts, phase_serve_llm()]
+    llm_counts, router = phase_llm(trained)
+    path_counts += [llm_counts, phase_campaign(router)]
+    del trained, router
     free_cuda()
     path_counts.append(phase_lm())
     phase_lm_small_parity()

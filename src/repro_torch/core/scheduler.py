@@ -4,9 +4,10 @@ The optimization:  max_j Σ E[A(φ_{j_i}) | φ¹(d_i)]  s.t.  Σ T(φ_{j_i}) ≤
 
 Two-parser case (AdaParse production config): sort documents by predicted
 improvement of the expensive parser and route the top ⌊αk⌋ of each batch
-of k — streaming, node-local, embarrassingly parallel. (The general
-m-parser greedy knapsack of ``repro.core.scheduler`` serves the fleet
-layer and benchmarks, and is not ported yet.)
+of k — streaming, node-local, embarrassingly parallel. The general
+m-parser case is solved by a greedy cost-benefit knapsack (host-side,
+``assign_parsers_greedy``); ``alpha_for_budget`` turns a node's share
+of the campaign budget into its α (core/campaign).
 
 ``budget_topk`` is the device-side selection op on torch tensors; the
 fused select-and-compact CUDA kernel lives in
@@ -22,6 +23,15 @@ import torch
 from repro_torch.core import obs
 from repro_torch.kernels.budget_route.ops import capacity_floor
 from repro_torch.kernels.order import flush_subnormal, total_order_key
+
+
+def alpha_for_budget(t_budget: float, n_docs: int, t_cheap: float,
+                     t_expensive: float) -> float:
+    """α ≤ (T̄ − n·T_cheap) / (n·(T_exp − T_cheap)), clipped to [0, 1]."""
+    if n_docs == 0 or t_expensive <= t_cheap:
+        return 1.0
+    a = (t_budget - n_docs * t_cheap) / (n_docs * (t_expensive - t_cheap))
+    return float(np.clip(a, 0.0, 1.0))
 
 
 def budget_topk(scores: torch.Tensor, alpha: float
@@ -85,6 +95,76 @@ def least_loaded(candidates: list[int], clocks) -> int:
     """The candidate with the smallest simulated clock (deterministic:
     ties break on node index via min's stable comparison order)."""
     return min(candidates, key=lambda i: (float(clocks[i]), i))
+
+
+def expected_goodput(alpha: float, t_cheap: float, t_expensive: float,
+                     router_cost: float = 0.0) -> float:
+    """Docs/node-second of the adaptive strategy (amortized)."""
+    per_doc = (1 - alpha) * t_cheap + alpha * t_expensive + router_cost
+    return 1.0 / per_doc
+
+
+# ---------------------------------------------------------------------------
+# General m-parser greedy knapsack (reference / benchmark path)
+# ---------------------------------------------------------------------------
+
+
+def assign_parsers_greedy(pred_acc: np.ndarray, costs: np.ndarray,
+                          budget: float,
+                          devices: list[str] | None = None,
+                          device_budgets: dict[str, float] | None = None
+                          ) -> np.ndarray:
+    """pred_acc (n, m), costs (m,) per-doc node-seconds, budget in
+    node-seconds. Start everyone on the cheapest parser, then greedily buy
+    the best accuracy-per-cost upgrades until the budget is exhausted.
+    Returns assignment (n,) parser indices.
+
+    Pool-aware mode: ``devices`` names each parser's device pool (len m,
+    e.g. "cpu"/"gpu" per backends.BackendInfo.device) and
+    ``device_budgets`` caps the node-seconds each pool may absorb. An
+    upgrade must then fit the target parser's pool budget as well as the
+    total budget — a small GPU pool bounds how much Nougat/Marker work
+    the campaign can buy regardless of the overall budget (§5 / App. C).
+    """
+    n, m = pred_acc.shape
+    cheapest = int(np.argmin(costs))
+    assign = np.full(n, cheapest, np.int64)
+    spent = n * costs[cheapest]
+    pooled = devices is not None and device_budgets is not None
+    if pooled:
+        if len(devices) != m:
+            raise ValueError(f"need {m} parser devices, got {len(devices)}")
+        pool_spent = {d: 0.0 for d in devices}
+        pool_spent[devices[cheapest]] = spent
+    # candidate upgrades: (gain/extra_cost, doc, parser)
+    gains = pred_acc - pred_acc[:, cheapest:cheapest + 1]
+    extra = np.maximum(costs - costs[cheapest], 1e-12)[None, :]
+    ratio = gains / extra
+    order = np.dstack(np.unravel_index(np.argsort(-ratio, axis=None),
+                                       ratio.shape))[0]
+    cur_gain = np.zeros(n)
+    for doc, p in order:
+        if p == cheapest:
+            continue
+        g = gains[doc, p]
+        if g <= cur_gain[doc]:
+            continue
+        cur = assign[doc]
+        delta_cost = (costs[p] - costs[cur])
+        if spent + delta_cost > budget:
+            continue
+        if pooled:
+            refund = costs[cur] if devices[cur] == devices[p] else 0.0
+            cap = device_budgets.get(devices[p], np.inf)
+            if pool_spent[devices[p]] - refund + costs[p] > cap:
+                continue
+            pool_spent[devices[p]] += costs[p] - refund
+            if devices[cur] != devices[p]:
+                pool_spent[devices[cur]] -= costs[cur]
+        spent += delta_cost
+        assign[doc] = p
+        cur_gain[doc] = g
+    return assign
 
 
 @dataclasses.dataclass

@@ -11,8 +11,10 @@ fresh checkout builds once and a source change rebuilds.
 
 ``CudaKernel`` is what each op's wrapper holds: the C symbol with its
 ``argtypes`` (``c_void_p`` for every pointer and the stream, or ctypes
-would cut pointers to 32 bits) and a plain launch counter that the
-wrapper bumps only where it launches.
+would cut pointers to 32 bits) and a launch counter that the wrapper
+bumps only where it launches. The count is exact under threads (a
+campaign's prefetch threads launch ``fast_features`` at once, and ctypes
+releases the GIL during the launch), so the bump takes a lock.
 """
 from __future__ import annotations
 
@@ -137,10 +139,11 @@ class CudaKernel:
         self.argtypes = argtypes
         self.launches = 0
         self._fn = None
+        self._count_lock = threading.Lock()
 
     def __call__(self, *args) -> None:
         """Launch on the current stream; raise if the launch was refused.
-        Counts one launch per call."""
+        Counts one launch per call, exactly under concurrent callers."""
         if self._fn is None:
             lib = library()
             fn = getattr(lib, self.symbol)
@@ -152,7 +155,8 @@ class CudaKernel:
             msg = library().adaparse_error_string(err).decode()
             raise RuntimeError(f"{self.name}: CUDA launch failed with error "
                                f"{err} ({msg})")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1
 
 
 def stream_of(device) -> int:

@@ -769,3 +769,130 @@ def test_tiny_router_training_is_bit_reproducible_on_cuda(dev):
         runs.append((diag, [p.detach().clone() for p in enc.parameters()]))
     assert runs[0][0] == runs[1][0]
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+# -- the campaign layer: several simulated nodes on one card --------------
+
+CAMPAIGN_QUALITY_TOL = 1e-6     # the float32 BLEU kernel against float64
+
+
+def _campaign_corpus():
+    from repro_torch.data.synthetic import CorpusConfig, generate_corpus
+
+    ccfg = CorpusConfig(n_docs=150, seed=0)
+    return ccfg, generate_corpus(ccfg)
+
+
+def _same_records(a: dict, b: dict) -> None:
+    assert a.keys() == b.keys()
+    for k in a:
+        assert (a[k].parser, a[k].cost_s) == (b[k].parser, b[k].cost_s)
+        assert all(np.array_equal(p, q)
+                   for p, q in zip(a[k].pages, b[k].pages))
+
+
+def test_ft_controller_cuda_equals_cpu(dev, tmp_path):
+    """A 4-node pooled, prefetched, straggling, speed-skewed ft controller
+    with α retuning: records, simulated clocks, weights and α decisions
+    on the card equal the CPU's; the card's store replays on the CPU,
+    every batch a hit."""
+    from repro_torch.core import engine as TE
+    from repro_torch.core.backends import DiskResultStore
+    from repro_torch.core.campaign import (CampaignController,
+                                           ControllerConfig, ExecutorConfig)
+    from repro_torch.core.quality import QualityProbeConfig
+    from repro_torch.launch import serve
+
+    ccfg, docs = _campaign_corpus()
+    routers = {d: serve.build_ft_router(docs[:75], ccfg,
+                                        np.random.RandomState(1), device=d)
+               for d in ("cuda", "cpu")}
+    assert TE._router_fingerprint(routers["cuda"]) == \
+        TE._router_fingerprint(routers["cpu"])
+    ecfg = TE.EngineConfig(alpha=0.1, batch_size=8)
+    xcfg = ExecutorConfig(n_nodes=4, node_pools=["cpu", "cpu", "cpu", "gpu"],
+                          prefetch_depth=2, straggler_rate=0.3,
+                          node_speed_factors=[1.0, 1.0, 3.0, 1.0])
+
+    def ctl(trace=None):
+        return ControllerConfig(rounds=3, alpha_bounds=(0.02, 0.3),
+                                alpha_step=0.05, telemetry_trace=trace,
+                                probe=QualityProbeConfig(probe_rate=1.0,
+                                                         max_len=128))
+
+    res = {d: CampaignController(ecfg, xcfg, ctl(), routers[d], ccfg,
+                                 device=d).run(
+        docs[75:], cache=DiskResultStore(tmp_path / d))
+        for d in ("cuda", "cpu")}
+    c, h = res["cuda"], res["cpu"]
+    _same_records(c.records, h.records)
+    for f in ("wall_s", "docs_per_s", "node_busy_frac", "reissued",
+              "cache_misses", "node_alphas", "weight_history",
+              "alpha_trajectory"):
+        assert getattr(c, f) == getattr(h, f), f
+    for tc_, th in zip(c.telemetry, h.telemetry):
+        assert (tc_.throughput, tc_.decision) == (th.throughput, th.decision)
+        for p in th.quality:
+            assert abs(tc_.quality[p] - th.quality[p]) <= \
+                CAMPAIGN_QUALITY_TOL
+    replay = CampaignController(ecfg, xcfg, ctl(c.telemetry),
+                                routers["cpu"], ccfg, device="cpu").run(
+        docs[75:], cache=DiskResultStore(tmp_path / "cuda"))
+    assert replay.cache_misses == 0 and replay.cache_hits == c.cache_misses
+    _same_records(replay.records, c.records)
+
+
+def test_tiny_llm_executor_cuda_equals_cpu(dev):
+    """``router-tiny`` behind a 2-node executor on the card and on the
+    CPU: the same records, a parser flip allowed only for documents
+    within 1e-5 of tau (f32 sums in another order on the card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import engine as TE
+    from repro_torch.core.campaign import CampaignExecutor, ExecutorConfig
+    from repro_torch.core.router import AdaParseRouter, make_route_step
+    from repro_torch.launch import serve
+    from repro_torch.models.encoder import (encoder_from_jax_params,
+                                            encoder_to_jax_params,
+                                            init_encoder)
+
+    ccfg, docs = _campaign_corpus()
+    cfg = get_config("adaparse-router").reduced().model
+    enc = init_encoder(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(2, 8000, (16, cfg.max_len),
+                         generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        pred = enc.predict_accuracies(toks)
+    exp = int((pred[:, 1:] > pred[:, :1]).sum(0).argmax()) + 1
+    ft = serve.build_ft_router(docs[:75], ccfg, np.random.RandomState(1),
+                               device="cpu")
+    encs = {"cpu": enc, "cuda": encoder_from_jax_params(
+        encoder_to_jax_params(enc), cfg, "cuda")}
+    ecfg = TE.EngineConfig(alpha=0.1, batch_size=16, seed=3)
+    xcfg = ExecutorConfig(n_nodes=2, straggler_rate=0.0)
+    res, routers = {}, {}
+    for d in ("cuda", "cpu"):
+        routers[d] = AdaParseRouter("llm", ft.cls1, None, enc_cfg=cfg,
+                                    encoder=encs[d], expensive_idx=exp)
+        res[d] = CampaignExecutor(ecfg, xcfg, routers[d], ccfg,
+                                  device=d).run(docs[75:])
+    c, h = res["cuda"], res["cpu"]
+    assert c.node_alphas == h.node_alphas
+    step = make_route_step(0.1, expensive_idx=exp)
+    eng = TE.AdaParseEngine(ecfg, routers["cpu"], ccfg, device="cpu")
+    test = docs[75:]
+    for b in range(-(-len(test) // 16)):
+        batch = test[b * 16:(b + 1) * 16]
+        flipped = [i for i, d in enumerate(batch)
+                   if c.records[d.doc_id].parser != h.records[d.doc_id].parser]
+        if not flipped:
+            _same_records({d.doc_id: c.records[d.doc_id] for d in batch},
+                          {d.doc_id: h.records[d.doc_id] for d in batch})
+            continue
+        prep = eng.prepare_batch(batch, batch_key=b)
+        imp = step(routers["cpu"].encoder, prep.route_host["tokens"],
+                   prep.route_host["mask"],
+                   torch.from_numpy(prep.route_host["valid_logit"])
+                   )["improvement"].numpy()
+        tau = max(float(np.sort(imp)[::-1][br.capacity_floor(0.1, len(imp))
+                                          - 1]), br.POSITIVE_TAU)
+        assert all(abs(imp[i] - tau) <= 1e-5 for i in flipped), flipped

@@ -185,16 +185,22 @@ def test_serve_ft_matches_jax():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--fabric-workers", "2"], ["--nodes", "2"], ["--workers", "2"],
-    ["--cache-dir", "store"], ["--warm-cache"], ["--adaptive-rounds", "2"],
-    ["--pools", "cpu:1,gpu:1"], ["--trace-dir", "trace"],
+    ["--fabric-workers", "2"], ["--workers", "2"],
+    ["--heartbeat-timeout", "5"], ["--transport", "pickle"],
+    ["--coordinator", "127.0.0.1:0"], ["--scenario", "list"],
+    ["--status-interval", "1"], ["--tuning-dir", "tuning"],
     ["--device", "tpu"], ["--prefetch-depth", "-1"],
 ])
 def test_serve_rejects_unported_flags(argv, capsys):
+    """The flags still waiting for their ROADMAP item exit 2 and name it
+    (the campaign flags of item 12a run: tests/test_torch_campaign.py)."""
     with pytest.raises(SystemExit) as e:
         TS.main(["--docs", "30", "--device", "cpu"] + argv)
     assert e.value.code == 2
-    assert "error" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "error" in err
+    if argv[0] in TS.UNPORTED_FLAGS:
+        assert f"ROADMAP item {TS.UNPORTED_FLAGS[argv[0]]}" in err
 
 
 def test_entry_points_default_to_cuda(corpora, ft_routers):

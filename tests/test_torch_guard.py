@@ -54,7 +54,9 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.kernels.order",
                  "repro_torch.configs.dlrm_mlperf",
                  "repro_torch.core.dpo", "repro_torch.optim.adamw",
-                 "repro_torch.optim.base"):
+                 "repro_torch.optim.base", "repro_torch.core.campaign",
+                 "repro_torch.core.workers",
+                 "repro_torch.launch.obs_report"):
         assert name in res["modules"]
 
 
