@@ -107,7 +107,33 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    cuda, with the cpu run in a child process beside it: equal metric
    dicts and report lines, and the two result stores hold the same
    entries. fast_features, budget_route and ngram_score must launch.
-8. lm: the full-width bf16 ``qwen3-1.7b`` (28 layers, d=2048, random
+8. fleet: the same router and documents on real worker processes, each
+   with its own CUDA context on the one card (no MPS: they time-slice
+   it). F1: 4 workers (``runtime="process"``, shm transport, prefetch
+   2, probe rate 0.5, a disk store, 3 controller rounds); F2: F1 over
+   the pickle transport; F2p: F2 with pools cpu:3,gpu:1, so every
+   routed prepare is forwarded from card to card through the
+   coordinator; F3: a crash (``crash_after``) and a flap (mute, then
+   unmute) on 2 workers over the first 1,024 documents, their heartbeat
+   timeouts chosen from F1's measured batch time (the flap's slowdown
+   outlasts the largest deadline its window can grant by one more
+   timeout); F4: 4 loopback TCP fabric workers, then an elastic fabric
+   controller with one join and one crash. Records must equal A1's (or
+   its first 1,024 documents'), every document counted once, something
+   re-issued in F3 and F4's elastic run, and no /dev/shm entry left.
+   Each worker's launches of the three kernels and its peak memory come
+   from the worker's own metric snapshot (the gauges it ships when
+   tracing is on), never from this process's counters, which must not
+   move; each worker must launch fast_features and budget_route, and
+   the workers ngram_score at least once per probed batch. The shm and
+   inline payload counts are printed (F1 must carry all by shm, F2 all
+   inline). F5: ``serve --workers 2`` and ``serve --fabric-workers 2``
+   with the ``campaign`` phase's serve flags on cuda and on cpu, all
+   four at once in child processes but one: equal metric dicts and
+   report lines but for what they measure (wall, documents/s, busy, the
+   adaptive weights that follow the measured clocks, and
+   ``throughput_docs_per_node_s``), and equal result stores.
+9. lm: the full-width bf16 ``qwen3-1.7b`` (28 layers, d=2048, random
    weights from a seeded CUDA generator) with
    ``attention_impl="pallas"``: ``prefill`` of B=4 x S=4096 seeded tokens
    (``prefill_32k`` is batch 32 x 32768; cut to fit one card and the
@@ -118,10 +144,10 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    Also reported: both bf16 prefills against one computed in float32
    (the model's bf16 noise floor), and a torch.profiler pass over a
    prefill and two decode steps (device busy share, top kernels).
-9. lm_small_parity: the reduced f32 qwen3-tiny and danube-tiny (window
+10. lm_small_parity: the reduced f32 qwen3-tiny and danube-tiny (window
    32) run ``prefill`` and ``decode_step`` on cuda (the kernel) and on
    cpu (the plain version); the logits must agree within 2e-5.
-10. recsys: ``recsys_scores`` of the full-width bf16 ``dlrm-mlperf``
+11. recsys: ``recsys_scores`` of the full-width bf16 ``dlrm-mlperf``
    (the 187,767,808 x 128 table, 48.07 GB, drawn in place from a seeded
    CUDA generator) at ``serve_p99`` (batch 512) and ``serve_bulk`` (batch
    262,144), batches from ``launch.specs._recsys_batch`` (seed 0):
@@ -129,9 +155,9 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    finite scores in (0, 1) bit-equal to a forward whose lookup is a
    plain ``index_select``, peak memory, and a torch.profiler pass over
    one ``serve_bulk`` forward.
-11. recsys_small_parity: the reduced f32 dlrm-tiny on cuda against cpu,
+12. recsys_small_parity: the reduced f32 dlrm-tiny on cuda against cpu,
    scores within 2e-5.
-12. gnn: ``segment_matmul(x, src, dst, w, n_nodes)`` at ``ogb_products``
+13. gnn: ``segment_matmul(x, src, dst, w, n_nodes)`` at ``ogb_products``
    (uniform random edges from a seeded CUDA generator, d_out 128, f32):
    a torch.profiler pass over the first (cold, uncounted) step at full
    size, then wall ms of a warm step and of its argsort, gather and
@@ -1240,18 +1266,19 @@ def campaign_run(label, fn, n_docs) -> tuple:
     return res, row
 
 
-def serve_cpu_process(argv):
-    """``serve.main(argv)`` in a child process that cannot see the card
-    (host-bound BLEU runs beside the card's run there); ``finish`` reads
-    its metric dict and report lines."""
+def serve_process(argv, card: bool = False):
+    """``serve.main(argv)`` in a child process, which cannot see the card
+    unless ``card`` (host-bound BLEU runs beside the card's run there);
+    ``finish`` reads its metric dict and report lines."""
     import os
 
     code = ("import json, sys\n"
             "from repro_torch.launch import serve\n"
             "res = serve.main(sys.argv[1:])\n"
             "print('RESULT ' + json.dumps(res))\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               CUDA_VISIBLE_DEVICES="")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    if not card:
+        env["CUDA_VISIBLE_DEVICES"] = ""
     return subprocess.Popen([sys.executable, "-c", code, *argv],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, env=env, cwd=ROOT)
@@ -1277,7 +1304,7 @@ def serve_with_cpu_beside(cuda_argv, cpu_argv):
 
     from repro_torch.launch import serve
 
-    proc = serve_cpu_process(cpu_argv + ["--device", "cpu"])
+    proc = serve_process(cpu_argv + ["--device", "cpu"])
     try:
         buf = io.StringIO()
         with redirect_stdout(buf):
@@ -1471,7 +1498,313 @@ def phase_campaign(router) -> dict:
                     "store_entries_equal_to_cpu": len(stored["cuda"]),
                     "trace": {k: trace[k] for k in
                               ("n_spans", "complete", "complete_cached")}}})
-    return counts
+    return counts, (ccfg, test, single)
+
+
+# -------------------------------------------------------------- fleet
+
+FLEET_WORKERS = 4
+FAULT_DOCS = 1024       # F3: the fault runs' 4 batches of 256
+MAIN_KERNELS = ("fast_features", "budget_route", "ngram_score")
+MEASURED_FIELDS = [(r"(wall|docs/s|busy)=[0-9.]+", r"\1=*"),
+                   (r"weights [0-9./]+ -> [0-9./]+", "weights *")]
+
+
+def worker_gauges(res, n_workers: int) -> list[dict]:
+    """Each worker's kernel launches and peak card memory, as the
+    worker published them in the metrics snapshot it shipped (its
+    launches never reach this process's counters)."""
+    g = res.obs_metrics["gauges"]
+    return [{"worker": w,
+             "launches": {k: int(g.get(f"kernel.launches.{k}.n{w}", 0))
+                          for k in MAIN_KERNELS},
+             "peak_gb": g.get(f"worker.peak_bytes.n{w}", 0.0) / 1e9}
+            for w in range(n_workers)]
+
+
+def shm_entries() -> list[str]:
+    """/dev/shm segments of any pool this process made."""
+    import glob
+    import os
+
+    return sorted(glob.glob(f"/dev/shm/adaparse-{os.getpid():x}-*"))
+
+
+def fleet_run(label, fn, n_docs: int, n_workers: int, **extra) -> tuple:
+    """One campaign over real worker processes on the card: (result,
+    its JSON row). ``card_wall_s`` is the pool's drain wall (first task
+    sent to last record, workers up); ``run_s`` adds spawning the
+    workers and building their engines."""
+    counts0 = read_counts()
+    t0 = time.perf_counter()
+    res = fn()
+    run_s = time.perf_counter() - t0
+    assert read_counts() == counts0, \
+        f"{label}: the coordinator launched a kernel itself"
+    c = res.obs_metrics["counters"]
+    row = {"run": label, "card_wall_s": res.wall_s,
+           "card_docs_per_s": n_docs / res.wall_s, "run_s": run_s,
+           "workers": worker_gauges(res, n_workers),
+           "payloads_shm": c.get("pool.payloads_shm", 0),
+           "payloads_inline": c.get("pool.payloads_inline", 0),
+           "shm_fallbacks": c.get("shm.fallbacks", 0),
+           "reissued": res.reissued,
+           "duplicates_dropped": res.duplicates_dropped,
+           "docs_counted": sum(st.n_docs for st in res.node_stats),
+           "shm_left": shm_entries(), **extra}
+    emit({"phase": "fleet_run", **row})
+    assert not row["shm_left"], f"{label}: /dev/shm entries left"
+    assert row["docs_counted"] == n_docs, row["docs_counted"]
+    return res, row
+
+
+def masked_report(lines) -> list[str]:
+    """A real fleet's report lines with what it measures (wall,
+    documents/s, busy share, and the adaptive weights, which follow the
+    measured clocks) masked out."""
+    import re
+
+    out = []
+    for ln in report_lines(lines):
+        for pat, sub in MEASURED_FIELDS:
+            ln = re.sub(pat, sub, ln)
+        out.append(ln)
+    return out
+
+
+def phase_fleet(router, ccfg, test, single) -> dict:
+    """The campaign on real worker processes, each with its own CUDA
+    context on the one card, with the router of phase ``campaign`` and
+    its single-node records (A1). F1: 4 workers, shm transport,
+    prefetch 2, probe 0.5, a disk store, 3 controller rounds. F2: F1 on
+    the pickle transport; F2p the same with pools cpu:3,gpu:1, so that
+    every routed batch's prepare is forwarded (from card to card through
+    the coordinator) to the GPU-pool worker. F3: a crash run and a flap
+    run (2 workers, 1,024 documents), their heartbeat timeouts chosen
+    from F1's measured batch time. F4: 4 loopback fabric workers, then
+    an elastic fabric campaign with one join and one crash. F5: ``serve
+    --workers 2`` and ``serve --fabric-workers 2`` on cuda, each beside
+    the same on the cpu in a child process."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.core.backends import DiskResultStore
+    from repro_torch.core.campaign import (CampaignController,
+                                           CampaignExecutor,
+                                           ControllerConfig, ExecutorConfig,
+                                           FaultInjection)
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.core.fabric import FabricElastic
+    from repro_torch.core.quality import QualityProbe, QualityProbeConfig
+
+    free_cuda()
+    n, bs = len(test), 256
+    n_batches = -(-n // bs)
+    ecfg = EngineConfig(alpha=ALPHA, batch_size=bs, seed=SEED)
+    probe_cfg = QualityProbeConfig(probe_rate=0.5, seed=SEED)
+    probed = ControllerConfig(rounds=CAMPAIGN_ROUNDS, probe=probe_cfg)
+    n_probed = sum(QualityProbe(probe_cfg, device="cpu").should_probe(k)
+                   for k in range(n_batches))
+    fleet = ExecutorConfig(n_nodes=FLEET_WORKERS, runtime="process",
+                           transport="shm", prefetch_depth=2, obs=True,
+                           seed=SEED)
+    runs, totals = [], dict.fromkeys(MAIN_KERNELS, 0)
+
+    def add(row):
+        runs.append(row)
+        for wk in row["workers"]:
+            for k, v in wk["launches"].items():
+                totals[k] += v
+
+    def sub_single(docs):
+        return {d.doc_id: single[d.doc_id] for d in docs}
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        f1, row = fleet_run(
+            "F1 process, shm", lambda: CampaignController(
+                ecfg, fleet, probed, router, ccfg, device="cuda").run(
+                    test, cache=DiskResultStore(tmp / "f1")),
+            n, FLEET_WORKERS)
+        add(row)
+        assert same_records(f1.records, single), "F1 records differ from A1"
+        assert f1.cache_misses == n_batches, f1.cache_misses
+        for wk in row["workers"]:
+            assert wk["launches"]["fast_features"] > 0, wk
+            assert wk["launches"]["budget_route"] > 0, wk
+        assert totals["ngram_score"] >= n_probed, (totals, n_probed)
+        assert row["payloads_shm"] == 2 * n_batches, row
+        assert row["payloads_inline"] == 0, row
+
+        pickled = dataclasses.replace(fleet, transport="pickle")
+        f2, row = fleet_run(
+            "F2 process, pickle", lambda: CampaignController(
+                ecfg, pickled, probed, router, ccfg, device="cuda").run(test),
+            n, FLEET_WORKERS)
+        add(row)
+        assert same_records(f2.records, f1.records), "F2 records differ"
+        assert (row["payloads_shm"], row["payloads_inline"]) == \
+            (0, 2 * n_batches), row
+
+        pooled = dataclasses.replace(pickled, node_pools=CAMPAIGN_NODES)
+        f2p, row = fleet_run(
+            "F2p process, pickle, pools cpu:3,gpu:1", lambda:
+            CampaignController(ecfg, pooled, probed, router, ccfg,
+                               device="cuda").run(test),
+            n, FLEET_WORKERS)
+        add(row)
+        assert same_records(f2p.records, single), "F2p records differ"
+        assert f2p.node_stats[3].n_expensive > 0, "nothing was forwarded"
+
+        # F3: the fault runs' heartbeat timeouts follow the measured
+        # batch time (F1's busy seconds a batch, four workers sharing
+        # the card, so an upper estimate for two)
+        batch_s = float(sum(st.node_seconds for st in f1.node_stats)
+                        / n_batches)
+        fault_docs = test[:FAULT_DOCS]
+        crash_timeout = max(5.0, 10 * batch_s)
+        crash = dataclasses.replace(
+            fleet, n_nodes=2, prefetch_depth=0,
+            heartbeat_timeout_s=crash_timeout, heartbeat_interval_s=0.1,
+            fault_injection=FaultInjection(crash_after=((1, 1),)))
+        f3c, row = fleet_run(
+            "F3 crash", lambda: CampaignExecutor(
+                ecfg, crash, router, ccfg, device="cuda").run(fault_docs),
+            FAULT_DOCS, 2, batch_s=batch_s,
+            heartbeat_timeout_s=crash_timeout)
+        add(row)
+        assert f3c.reissued >= 1, row
+        assert same_records(f3c.records, sub_single(fault_docs)), \
+            "F3 crash records differ"
+        # the flap: worker 1 mutes after one task and unmutes after
+        # two; the muted task's slowdown outlasts the largest deadline
+        # _deadline_for can grant at a window of 3 (the timeout times
+        # 1 + 3 queued tasks) by one more timeout
+        flap_timeout = max(1.0, batch_s)
+        slowdown = flap_timeout * (1 + 3) + flap_timeout
+        flap = dataclasses.replace(
+            fleet, n_nodes=2, prefetch_depth=2,
+            heartbeat_timeout_s=flap_timeout, heartbeat_interval_s=0.1,
+            straggler_grace_s=slowdown + 5.0,
+            fault_injection=FaultInjection(mute_after=((1, 0),),
+                                           unmute_after=((1, 2),),
+                                           mute_slowdown_s=slowdown))
+        f3f, row = fleet_run(
+            "F3 flap", lambda: CampaignExecutor(
+                ecfg, flap, router, ccfg, device="cuda").run(fault_docs),
+            FAULT_DOCS, 2, batch_s=batch_s,
+            heartbeat_timeout_s=flap_timeout, mute_slowdown_s=slowdown)
+        add(row)
+        assert f3f.reissued >= 1, row
+        assert same_records(f3f.records, sub_single(fault_docs)), \
+            "F3 flap records differ"
+
+        fabric = dataclasses.replace(fleet, runtime="fabric",
+                                     heartbeat_interval_s=0.2)
+        f4, row = fleet_run(
+            "F4 fabric, 4 loopback workers", lambda: CampaignExecutor(
+                ecfg, fabric, router, ccfg, device="cuda").run(test),
+            n, FLEET_WORKERS)
+        add(row)
+        assert same_records(f4.records, single), "F4 records differ"
+        for wk in row["workers"]:
+            assert wk["launches"]["fast_features"] > 0, wk
+        elastic = dataclasses.replace(
+            fabric, n_nodes=3, heartbeat_timeout_s=crash_timeout,
+            heartbeat_interval_s=0.1,
+            fault_injection=FaultInjection(crash_after=((1, 2),)),
+            fabric=FabricElastic(join_after=((2, 3),)))
+        f4e, row = fleet_run(
+            "F4 fabric, elastic join and crash", lambda: CampaignController(
+                ecfg, elastic, ControllerConfig(rounds=2), router, ccfg,
+                device="cuda").run(test), n, 3)
+        spans = {}
+        for sp in f4e.spans or []:
+            spans[sp.name] = spans.get(sp.name, 0) + 1
+        row["membership_spans"] = {k: spans.get(k, 0)
+                                   for k in ("join", "leave")}
+        add(row)
+        assert same_records(f4e.records, single), "F4 elastic records differ"
+        assert f4e.reissued >= 1 and spans.get("leave") == 1, spans
+
+        # the campaign phase's serve flags, with the fleet in worker
+        # processes instead of 4 in-process nodes (the serve coordinator
+        # itself launches fast_features for its router and evaluation)
+        i = SERVE_CAMPAIGN.index("--nodes")
+        serve_argv = SERVE_CAMPAIGN[:i] + SERVE_CAMPAIGN[i + 2:]
+        served, out = {}, {}
+        counts0 = read_counts()
+        t0 = time.perf_counter()
+        flags = ("--workers", "--fabric-workers")
+
+        def argv(flag, dev):
+            return serve_argv + [flag, "2", "--device", dev, "--cache-dir",
+                                 str(tmp / f"serve{flag}_{dev}")]
+
+        # all four at once (their time is mostly host BLEU): the first
+        # flag's cuda run here, the other three in child processes
+        procs = {(f, "cpu"): serve_process(argv(f, "cpu")) for f in flags}
+        procs[flags[1], "cuda"] = serve_process(argv(flags[1], "cuda"),
+                                                card=True)
+        try:
+            import io
+            from contextlib import redirect_stdout
+
+            from repro_torch.launch import serve
+
+            buf = io.StringIO()
+            with redirect_stdout(buf):
+                res = serve.main(argv(flags[0], "cuda"))
+            out[flags[0], "cuda"] = res, buf.getvalue().splitlines()
+        except BaseException:
+            for proc in procs.values():
+                proc.kill()
+                proc.wait()
+            raise
+        out.update({key: finish(proc) for key, proc in procs.items()})
+        for flag in flags:
+            (m_cuda, l_cuda), (m_cpu, l_cpu) = out[flag, "cuda"], \
+                out[flag, "cpu"]
+            measured = {d: m.pop("throughput_docs_per_node_s")
+                        for d, m in (("cuda", m_cuda), ("cpu", m_cpu))}
+            assert m_cuda == m_cpu, (flag, m_cuda, m_cpu)
+            assert masked_report(l_cuda) == masked_report(l_cpu), \
+                (masked_report(l_cuda), masked_report(l_cpu))
+            stored = {d: store_entries(tmp / f"serve{flag}_{d}")
+                      for d in ("cuda", "cpu")}
+            assert stored["cuda"].keys() == stored["cpu"].keys(), flag
+            assert all(same_records(stored["cuda"][k], stored["cpu"][k])
+                       for k in stored["cuda"]), flag
+            served[flag] = {"metrics": m_cuda,
+                            "throughput_docs_per_node_s": measured,
+                            "report_cuda": report_lines(l_cuda),
+                            "report_cpu": report_lines(l_cpu),
+                            "store_entries_equal_to_cpu":
+                                len(stored["cuda"])}
+        serve_s = time.perf_counter() - t0
+        coordinator = {k: v - counts0[k] for k, v in read_counts().items()}
+    assert not shm_entries(), shm_entries()
+    for name in MAIN_KERNELS:
+        assert totals[name] > 0, f"{name} launched in no worker: {totals}"
+    from repro_torch.core import shm, specs
+
+    def nbytes(x):
+        return (sum(map(nbytes, x.values())) if isinstance(x, dict)
+                else x.nbytes)
+
+    emit({"phase": "fleet", "config": router.enc_cfg.name, "docs": n,
+          "router_numpy_mb": nbytes(specs.portable_router(router)
+                                    .enc_params) / 1e6,
+          "batch_payload_mb": shm.pack_payload(test[:bs])[3] / 1e6,
+          "batches": n_batches, "workers": FLEET_WORKERS,
+          "fault_docs": FAULT_DOCS, "probed_batches": n_probed,
+          "runs": runs, "worker_launches": totals,
+          "serve": {"argv": serve_argv, "runs": served,
+                    "wall_s_both": serve_s,
+                    "coordinator_launches": coordinator},
+          "phase_s": time.perf_counter() - t_phase})
+    return {k: v + totals.get(k, 0) for k, v in coordinator.items()}
 
 
 # -------------------------------------------------------------- train
@@ -2191,6 +2524,7 @@ def main() -> int:
              .splitlines() if "registers" in ln or "Compiling entry" in ln]
     emit({"phase": "device", "card": card,
           "kind": torch.cuda.get_device_name(0),
+          "torch": torch.__version__, "python": sys.version.split()[0],
           "build_s": time.perf_counter() - t0, "library": lib.name,
           "sources": [str(p.relative_to(ROOT))
                       for p in cuda_lib.sources()], "ptxas": ptxas,
@@ -2221,8 +2555,9 @@ def main() -> int:
     phase_train_small_parity()
     path_counts = [phase_ft(), train_counts, phase_serve_llm()]
     llm_counts, router = phase_llm(trained)
-    path_counts += [llm_counts, phase_campaign(router)]
-    del trained, router
+    campaign_counts, a1 = phase_campaign(router)
+    path_counts += [llm_counts, campaign_counts, phase_fleet(router, *a1)]
+    del trained, router, a1
     free_cuda()
     path_counts.append(phase_lm())
     phase_lm_small_parity()

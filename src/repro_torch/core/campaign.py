@@ -63,22 +63,35 @@ campaign reproduces its α trajectory and record set bit-identically
 across restarts; without a trace, divergence is round-granular.
 
 Both the executor and the controller dispatch through one
-``workers.WorkerPool``: ``ExecutorConfig.runtime="local"`` (the
-default, and the only runtime ported so far) runs the simulated
-in-process fleet (``workers.LocalWorkerPool``). ``runtime="process"``
-(real OS worker processes) and ``runtime="fabric"`` (workers over TCP)
-are ROADMAP items 12b and 12c; ``workers.make_worker_pool`` raises for
-them. ``ExecutorConfig`` keeps every field of theirs, so configs
-round-trip.
+``workers.WorkerPool``: ``ExecutorConfig.runtime="local"`` (default)
+runs the simulated in-process fleet (``workers.LocalWorkerPool``), and
+``runtime="process"`` backs the same dispatch with **real OS worker
+processes** (``workers.ProcessWorkerPool``: spawn context, one engine
+per worker rebuilt from a serialized spec, PrepareTask/CompleteTask/
+BatchDone/Heartbeat over multiprocessing queues, heartbeat-deadline
+straggler detection and worker-crash recovery with pool-aware
+re-issue). ``runtime="fabric"`` (``fabric.FabricWorkerPool``) carries
+the same message protocol over length-prefixed TCP frames instead: a
+coordinator listens on ``ExecutorConfig.coordinator``, workers —
+loopback or other machines — dial in and are fingerprint-checked at
+admission, membership is elastic (join/leave mid-campaign, the
+controller re-shards over the live fleet at round boundaries), and the
+inherited dedup + re-issue machinery keeps the record set byte-equal
+to the single-node run through any churn. ``ExecutorConfig.tuning_dir``
+(autotune, ROADMAP item 11) is not ported: the process and fabric
+pools refuse it.
 
 Device: every node's engine and the controller's quality probe run on
 the one torch device the campaign is given (``device``, cuda unless
-the caller passes "cpu"; asking for cuda without a card raises). N
-simulated nodes share that card and one router; a node's pool
-("cpu"/"gpu") names the simulated backend's device, never a torch
-device. The simulated clocks (``wall_s``, ``docs_per_s``,
+the caller passes "cpu"; asking for cuda without a card raises). On
+the local runtime N simulated nodes share that card and one router; a
+node's pool ("cpu"/"gpu") names the simulated backend's device, never
+a torch device. The simulated clocks (``wall_s``, ``docs_per_s``,
 ``node_busy_frac``) come from the cost models and are the same on
-either device.
+either device. On the process and fabric runtimes ``device`` is the
+workers' (``WorkerSpec.device``): each worker process builds its own
+engine there, several of them sharing one card, and the clocks are
+measured wall seconds.
 
 Batch rng streams are keyed by the batch's *global* index
 (engine.process_batch batch_key) and carried from prepare into
@@ -228,8 +241,6 @@ class ExecutorConfig:
     # --- worker runtime (core/workers) ---
     # "local": the in-process simulated fleet (LocalWorkerPool —
     # injected stragglers, simulated clocks/speed factors).
-    # "process" and "fabric" are ROADMAP items 12b and 12c, not ported:
-    # workers.make_worker_pool raises for them. In the reference:
     # "process": real OS worker processes (ProcessWorkerPool — spawn
     # context, one engine per worker, heartbeat-deadline straggler
     # detection, worker-crash recovery). straggler_rate /
@@ -281,12 +292,9 @@ class ExecutorConfig:
     # unavailable; "pickle" forces the queue-serialized path. Ignored
     # by the local runtime (no process boundary to cross).
     transport: str = "shm"
-    # fleet-shared persistent autotune store directory
-    # (kernels/tuning_store): every worker process opens a handle on
-    # the same dir, so kernel block-size sweeps run once per
-    # (kernel, shape, backend, device) across the fleet's lifetime —
-    # a warm restart re-sweeps nothing. None disables persistence
-    # (workers fall back to per-process defaults, no sweeps).
+    # fleet-shared persistent autotune store directory: ROADMAP item
+    # 11 (autotune), not ported. The process and fabric pools raise
+    # NotImplementedError for anything but None.
     tuning_dir: str | None = None
     # --- observability plane (core/obs) ---
     # span tracing: False keeps the provably-free noop recorder in
@@ -468,9 +476,9 @@ class CampaignExecutor:
                    alpha_of: dict[int, float], cache, probe=None):
         """Build the worker pool for this run (``ExecutorConfig
         .runtime``): the local simulated fleet over caller-built
-        engines. Real workers — spawned processes or fabric dialers,
-        ROADMAP items 12b and 12c — are not ported: ``make_worker_pool``
-        raises for them before any engine is built."""
+        engines, or real workers — spawned processes or fabric dialers
+        — that each build their own engine from a serialized spec on
+        this campaign's device (core/workers, core/fabric)."""
         probe = probe if probe is not None else self.probe
         if getattr(self.xcfg, "runtime", "local") in ("process",
                                                       "fabric"):
@@ -479,7 +487,7 @@ class CampaignExecutor:
                 ingest_nodes, reparse_nodes, pools, alpha_of=alpha_of,
                 cache=cache, probe=probe,
                 image_degraded=self.image_degraded,
-                text_degraded=self.text_degraded)
+                text_degraded=self.text_degraded, device=self.device)
         engines = self._build_engines(n_nodes, alpha_of, cache, probe)
         return make_worker_pool(
             self.ecfg, self.xcfg, self.router, self.ccfg, n_nodes,

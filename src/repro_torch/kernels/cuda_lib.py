@@ -130,6 +130,10 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+#: every CudaKernel made in this process, by name (``launch_counts``)
+_KERNELS: dict[str, "CudaKernel"] = {}
+
+
 class CudaKernel:
     """One exported C launcher plus the wrapper's launch counter."""
 
@@ -140,6 +144,7 @@ class CudaKernel:
         self.launches = 0
         self._fn = None
         self._count_lock = threading.Lock()
+        _KERNELS[name] = self
 
     def __call__(self, *args) -> None:
         """Launch on the current stream; raise if the launch was refused.
@@ -157,6 +162,13 @@ class CudaKernel:
                                f"{err} ({msg})")
         with self._count_lock:
             self.launches += 1
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of every kernel whose wrapper this process imported
+    (a worker process ships these to the coordinator, whose own counters
+    never see its launches)."""
+    return {name: k.launches for name, k in _KERNELS.items()}
 
 
 def stream_of(device) -> int:

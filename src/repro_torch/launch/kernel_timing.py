@@ -73,7 +73,9 @@ def profiled_ms(launch, reps: int = 20) -> dict:
 
     A session on the H100 (torch 2.11) once came back with no device
     events at all though the kernels ran, so an empty session is taken
-    again, up to three sessions in all."""
+    again, up to three sessions in all; when all three are empty the
+    profiler's figures are not measured (None), and the CUDA-event
+    timing (``device_ms``) stands alone."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -94,8 +96,7 @@ def profiled_ms(launch, reps: int = 20) -> dict:
         if by:
             return {"ms": sum(by.values()), "kernels": by,
                     "launches": sum(e.count for e in ops) / reps}
-    raise RuntimeError("torch.profiler recorded no device time in 3 "
-                       "sessions")
+    return {"ms": None, "kernels": {}, "launches": None}
 
 
 def empty_ms(grids, device) -> dict:

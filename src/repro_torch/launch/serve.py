@@ -36,10 +36,21 @@ run's span log, Chrome timeline and folded metrics (summarise with
 ``repro_torch.launch.obs_report``); ``--metrics-out FILE`` writes the
 folded metrics as Prometheus text.
 
+Real worker fleets: ``--workers N`` runs the campaign on N spawned
+worker processes (core/workers.ProcessWorkerPool; ``--transport shm``
+or ``pickle`` carries their batch payloads, ``--heartbeat-timeout S``
+sets the silence after which a worker's batches re-issue), and
+``--fabric-workers N`` on N workers over TCP (core/fabric): loopback
+workers serve spawns itself, or, with ``--coordinator HOST:PORT``,
+N standalone workers that dial in with ``--connect HOST:PORT``. Every
+worker builds its engine on ``--device`` (a standalone worker on its
+own ``--device``); several share one card. Records equal the
+single-node run's; ``wall``, ``docs/s`` and ``busy`` are measured.
+
 Not ported yet, and refused with an argparse error (exit 2) that names
 the ROADMAP item each waits for, rather than substituted:
-``UNPORTED_FLAGS`` below (worker processes, the TCP fabric, the
-scenario lab, the live status line, the autotune store).
+``UNPORTED_FLAGS`` below (the scenario lab, the live status line, the
+autotune store).
 """
 from __future__ import annotations
 
@@ -69,12 +80,6 @@ from repro_torch.models.encoder import Encoder, init_encoder
 # flags of repro.launch.serve that the port has not reached yet, each
 # with the ROADMAP item it waits for
 UNPORTED_FLAGS = {
-    "--workers": "12b (worker processes)",
-    "--heartbeat-timeout": "12b (worker processes)",
-    "--transport": "12b (worker processes)",
-    "--fabric-workers": "12c (the TCP fabric)",
-    "--coordinator": "12c (the TCP fabric)",
-    "--connect": "12c (the TCP fabric)",
     "--scenario": "12d (the scenario lab)",
     "--status-interval": "12d (the live fleet status)",
     "--tuning-dir": "11 (autotune)",
@@ -248,6 +253,40 @@ def main(argv=None):
     ap.add_argument("--variant", default="ft", choices=["ft", "llm"])
     ap.add_argument("--batch-size", type=int, default=256)
     ap.add_argument("--nodes", type=int, default=1)
+    ap.add_argument("--workers", type=int, default=0,
+                    help="run the campaign on N real worker processes "
+                         "(core/workers spawn runtime) instead of the "
+                         "in-process simulated fleet; 0 disables")
+    ap.add_argument("--heartbeat-timeout", type=float, default=None,
+                    help="seconds of worker silence before its "
+                         "in-flight batches re-issue to a pool peer "
+                         "(needs --workers; default 30)")
+    ap.add_argument("--transport", default=None,
+                    help="batch-payload transport for the worker "
+                         "processes: shm (zero-copy shared-memory "
+                         "arenas, the default; falls back to pickle "
+                         "with a warning when /dev/shm is unavailable) "
+                         "or pickle (queue-serialized payloads; needs "
+                         "--workers)")
+    ap.add_argument("--fabric-workers", type=int, default=0,
+                    help="run the campaign on N cross-machine fabric "
+                         "workers (core/fabric TCP runtime): without "
+                         "--coordinator serve spawns N loopback "
+                         "workers itself; with it, the fleet is N "
+                         "standalone workers dialing in with --connect. "
+                         "0 disables")
+    ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="bind the fabric coordinator's listener here "
+                         "and wait for --fabric-workers standalone "
+                         "workers to dial in (instead of spawning "
+                         "loopback workers); needs --fabric-workers")
+    ap.add_argument("--connect", default=None, metavar="HOST:PORT",
+                    help="run as a standalone fabric worker on --device: "
+                         "dial the coordinator at HOST:PORT, join its "
+                         "fleet (spec-fingerprint admission), serve "
+                         "batches until shutdown. Excludes every "
+                         "campaign flag — the coordinator ships the "
+                         "worker its spec")
     ap.add_argument("--pools", default=None,
                     help="heterogeneous node pools, e.g. cpu:3,gpu:1 "
                          "(overrides --nodes)")
@@ -303,8 +342,34 @@ def main(argv=None):
         ap.error("; ".join(f"{f} waits for ROADMAP item {UNPORTED_FLAGS[f]}"
                            for f in given)
                  + ": not ported to repro_torch yet; run "
-                   "repro.launch.serve for it, or drop it (the in-process "
-                   "fleet is --nodes/--pools)")
+                   "repro.launch.serve for it, or drop it")
+    if args.connect is not None:
+        # standalone fabric worker: everything about the campaign —
+        # corpus, router, engine config — arrives from the coordinator
+        # in the admission reply, so no campaign flag makes sense here;
+        # the worker runs on its own --device
+        busy = [flag for flag, changed in (
+            ("--workers", args.workers != 0),
+            ("--fabric-workers", args.fabric_workers != 0),
+            ("--coordinator", args.coordinator is not None),
+            ("--nodes", args.nodes != 1),
+        ) if changed]
+        if busy:
+            ap.error(f"--connect runs this process as a standalone "
+                     f"fabric worker (the coordinator owns the whole "
+                     f"campaign shape); drop {', '.join(busy)}")
+        from repro_torch.core.fabric import parse_addr
+        from repro_torch.launch.fabric_worker import run_worker
+        try:
+            addr = parse_addr(args.connect)
+        except ValueError as e:
+            ap.error(str(e))
+        try:
+            device = device_lib.resolve(args.device)
+        except (RuntimeError, ValueError) as e:
+            ap.error(f"--device {args.device}: {e}")
+        run_worker(addr, device=device)
+        return None
     if args.docs < 3:
         ap.error(f"--docs must be >= 3 (got {args.docs}): the corpus is "
                  f"split 1/3 train, 2/3 test")
@@ -319,6 +384,62 @@ def main(argv=None):
     if args.adaptive_rounds < 0:
         ap.error(f"--adaptive-rounds must be >= 0 (got "
                  f"{args.adaptive_rounds}); 0 uses the one-shot executor")
+    if args.workers < 0:
+        ap.error(f"--workers must be >= 0 (got {args.workers}); 0 runs "
+                 f"the in-process simulated fleet, N > 0 spawns N real "
+                 f"worker processes")
+    if args.workers and args.nodes != 1:
+        ap.error(f"--workers {args.workers} and --nodes {args.nodes} "
+                 f"both set the fleet size; choose one (--workers runs "
+                 f"real processes, --nodes simulates in-process)")
+    if args.fabric_workers < 0:
+        ap.error(f"--fabric-workers must be >= 0 (got "
+                 f"{args.fabric_workers}); 0 disables the fabric "
+                 f"runtime, N > 0 runs the campaign on N fabric workers")
+    if args.fabric_workers and args.workers:
+        ap.error(f"--workers {args.workers} and --fabric-workers "
+                 f"{args.fabric_workers} both pick a real worker "
+                 f"runtime; choose one (--workers spawns local queue-"
+                 f"connected processes, --fabric-workers runs the "
+                 f"TCP fabric)")
+    if args.fabric_workers and args.nodes != 1:
+        ap.error(f"--fabric-workers {args.fabric_workers} and --nodes "
+                 f"{args.nodes} both set the fleet size; choose one")
+    if args.coordinator is not None and not args.fabric_workers:
+        ap.error("--coordinator binds the fabric listener and waits "
+                 "for standalone workers to dial in; it needs "
+                 "--fabric-workers N > 0 to size the fleet")
+    if args.coordinator is not None:
+        from repro_torch.core.fabric import parse_addr
+        try:
+            parse_addr(args.coordinator)
+        except ValueError as e:
+            ap.error(str(e))
+    if args.heartbeat_timeout is not None and not (args.workers
+                                                   or args.fabric_workers):
+        ap.error("--heartbeat-timeout only applies to the process and "
+                 "fabric runtimes; add --workers or --fabric-workers "
+                 "N > 0")
+    if args.transport is not None and args.transport not in ("shm",
+                                                             "pickle"):
+        ap.error(f"unknown --transport {args.transport!r} (choose shm "
+                 f"or pickle); shm moves batch payloads through "
+                 f"zero-copy shared-memory arenas, pickle serializes "
+                 f"them onto the worker queues")
+    if args.transport is not None and not args.workers:
+        ap.error(f"--transport {args.transport} only applies to the "
+                 f"process runtime (payloads of real worker "
+                 f"processes); add --workers N > 0")
+    if args.heartbeat_timeout is not None and args.heartbeat_timeout <= 0.5:
+        ap.error(f"--heartbeat-timeout must exceed the 0.5 s worker "
+                 f"heartbeat interval (got {args.heartbeat_timeout}); a "
+                 f"deadline at or below the beat period would re-issue "
+                 f"healthy workers' batches")
+    if ((args.workers or args.fabric_workers) and args.warm_cache
+            and not args.cache_dir):
+        ap.error("--warm-cache with a real worker fleet needs "
+                 "--cache-dir: an in-memory result store cannot be "
+                 "shared across worker processes")
     if args.cache_max_bytes is not None and args.cache_dir is None:
         ap.error("--cache-max-bytes only applies with --cache-dir")
     if args.cache_max_bytes is not None and args.cache_max_bytes < 1:
@@ -356,6 +477,12 @@ def main(argv=None):
         pools = parse_pools(args.pools) if args.pools else None
     except ValueError as e:
         ap.error(str(e))
+    fleet = args.workers or args.fabric_workers
+    if fleet and pools and len(pools) != fleet:
+        ap.error(f"a {fleet}-worker fleet with --pools needs the pool "
+                 f"spec to name exactly {fleet} nodes, got "
+                 f"{len(pools)} ({args.pools}); size the pools to the "
+                 f"worker fleet")
     try:
         device = device_lib.resolve(args.device)
     except (RuntimeError, ValueError) as e:
@@ -369,7 +496,8 @@ def main(argv=None):
     router = (build_ft_router(train, ccfg, rng, device=device)
               if args.variant == "ft"
               else build_llm_router(train, ccfg, rng, device=device))
-    nodes = len(pools) if pools else args.nodes
+    nodes = (args.workers or args.fabric_workers
+             or (len(pools) if pools else args.nodes))
     ecfg = EngineConfig(alpha=args.alpha, batch_size=args.batch_size,
                         seed=args.seed, prefetch_depth=args.prefetch_depth)
     eng = AdaParseEngine(ecfg, router, ccfg, device=device)
@@ -381,11 +509,24 @@ def main(argv=None):
     else:
         cache = None
     obs_on = bool(args.trace_dir or args.metrics_out)
-    if (nodes > 1 or pools or args.adaptive_rounds or cache is not None
-            or obs_on):
-        xcfg = ExecutorConfig(n_nodes=nodes, node_pools=pools,
-                              prefetch_depth=args.prefetch_depth,
-                              obs=obs_on)
+    if (nodes > 1 or pools or args.adaptive_rounds or args.workers
+            or args.fabric_workers or cache is not None or obs_on):
+        runtime = ("fabric" if args.fabric_workers
+                   else "process" if args.workers else "local")
+        xcfg = ExecutorConfig(
+            n_nodes=nodes, node_pools=pools,
+            prefetch_depth=args.prefetch_depth,
+            runtime=runtime,
+            heartbeat_timeout_s=(args.heartbeat_timeout
+                                 if args.heartbeat_timeout is not None
+                                 else 30.0),
+            transport=args.transport or "shm",
+            coordinator=args.coordinator or "127.0.0.1:0",
+            # an explicit --coordinator means standalone workers dial
+            # in from elsewhere; without it serve provisions its
+            # own loopback fleet
+            fabric_spawn=args.coordinator is None,
+            obs=obs_on)
         if args.adaptive_rounds:
             probe = (QualityProbeConfig(probe_rate=args.quality_probe_rate,
                                         seed=args.seed)

@@ -548,15 +548,27 @@ def test_obs_report_summarizes_stages_workers_and_causes(tmp_path):
                                           ("fabric", "12c")])
 def test_real_worker_runtimes_raise_instead_of_running_locally(
         shared, runtime, item):
+    """The real worker runtimes (ROADMAP ``item``, ported) never fall
+    back to the in-process fleet: ``make_worker_pool`` builds their own
+    pool class, and what they do not support — the autotune store of
+    item 11 — raises before any worker spawns instead of being
+    ignored. Their campaigns run in ``tests/test_torch_workers.py`` and
+    ``tests/test_torch_fabric.py``."""
+    from repro_torch.core.fabric import FabricWorkerPool
+
     jc, jtest, jr, tc, ttest, tr = shared
-    ex = TC.CampaignExecutor(TE.EngineConfig(batch_size=16),
-                             TC.ExecutorConfig(n_nodes=2, runtime=runtime),
-                             tr, tc, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
+    cls = {"process": TW.ProcessWorkerPool,
+           "fabric": FabricWorkerPool}[runtime]
+    assert not issubclass(cls, TW.LocalWorkerPool), item
+    xcfg = TC.ExecutorConfig(n_nodes=2, runtime=runtime,
+                             tuning_dir="tuning")
+    ex = TC.CampaignExecutor(TE.EngineConfig(batch_size=16), xcfg, tr, tc,
+                             device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
         ex.run(ttest)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="item 11"):
         TW.make_worker_pool(TE.EngineConfig(), ex.xcfg, tr, tc, 2, [0, 1],
-                            [0, 1], None)
+                            [0, 1], None, device="cpu")
 
 
 def test_campaign_defaults_to_cuda(shared):

@@ -896,3 +896,30 @@ def test_tiny_llm_executor_cuda_equals_cpu(dev):
         tau = max(float(np.sort(imp)[::-1][br.capacity_floor(0.1, len(imp))
                                           - 1]), br.POSITIVE_TAU)
         assert all(abs(imp[i] - tau) <= 1e-5 for i in flipped), flipped
+
+
+@pytest.mark.parametrize("runtime", ["process", "fabric"])
+def test_worker_fleet_campaign_cuda_equals_cpu(dev, runtime):
+    """A 2-worker campaign over real worker processes (``process``, shm
+    transport) and over loopback TCP workers (``fabric``) on the card:
+    the records equal the same fleet's on the CPU, and each worker, with
+    its own CUDA context, launched fast_features itself (counts read
+    from the workers' metric snapshots, not this process's counters)."""
+    from repro_torch.core import engine as TE
+    from repro_torch.core.campaign import CampaignExecutor, ExecutorConfig
+    from repro_torch.launch import serve
+
+    ccfg, docs = _campaign_corpus()
+    router = serve.build_ft_router(docs[:75], ccfg,
+                                   np.random.RandomState(1), device="cpu")
+    ecfg = TE.EngineConfig(alpha=0.1, batch_size=16)
+    xcfg = ExecutorConfig(n_nodes=2, runtime=runtime, obs=True)
+    res = {d: CampaignExecutor(ecfg, xcfg, router, ccfg, device=d).run(
+        docs[75:]) for d in ("cuda", "cpu")}
+    _same_records(res["cuda"].records, res["cpu"].records)
+    for d, want_launches in (("cuda", True), ("cpu", False)):
+        g = res[d].obs_metrics["gauges"]
+        for w in (0, 1):
+            n = g[f"kernel.launches.fast_features.n{w}"]
+            assert (n > 0) == want_launches, (d, w, n)
+        assert ("worker.peak_bytes.n0" in g) == want_launches

@@ -185,7 +185,7 @@ def test_serve_ft_matches_jax():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--fabric-workers", "2"], ["--workers", "2"],
+    ["--fabric-workers", "-1"], ["--workers", "-1"],
     ["--heartbeat-timeout", "5"], ["--transport", "pickle"],
     ["--coordinator", "127.0.0.1:0"], ["--scenario", "list"],
     ["--status-interval", "1"], ["--tuning-dir", "tuning"],
@@ -193,7 +193,11 @@ def test_serve_ft_matches_jax():
 ])
 def test_serve_rejects_unported_flags(argv, capsys):
     """The flags still waiting for their ROADMAP item exit 2 and name it
-    (the campaign flags of item 12a run: tests/test_torch_campaign.py)."""
+    (the campaign flags of item 12a run: tests/test_torch_campaign.py).
+    The worker and fabric flags of items 12b and 12c are ported and run
+    (tests/test_torch_workers.py, tests/test_torch_fabric.py); misused
+    — a negative fleet, or a flag without the runtime it needs — they
+    exit 2 with the reference's messages."""
     with pytest.raises(SystemExit) as e:
         TS.main(["--docs", "30", "--device", "cpu"] + argv)
     assert e.value.code == 2

@@ -56,7 +56,11 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.core.dpo", "repro_torch.optim.adamw",
                  "repro_torch.optim.base", "repro_torch.core.campaign",
                  "repro_torch.core.workers",
-                 "repro_torch.launch.obs_report"):
+                 "repro_torch.launch.obs_report",
+                 "repro_torch.core.specs", "repro_torch.core.shm",
+                 "repro_torch.core.fabric",
+                 "repro_torch.launch.worker_main",
+                 "repro_torch.launch.fabric_worker"):
         assert name in res["modules"]
 
 
