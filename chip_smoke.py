@@ -133,7 +133,25 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    report lines but for what they measure (wall, documents/s, busy, the
    adaptive weights that follow the measured clocks, and
    ``throughput_docs_per_node_s``), and equal result stores.
-9. lm: the full-width bf16 ``qwen3-1.7b`` (28 layers, d=2048, random
+9. scenarios: the scenario lab's eight scenarios (``run_scenario`` on
+   cuda: the local, process and fabric runtimes, each over its spec's
+   150-document corpus and an ft router trained on its first half; each
+   holds its records to its single-node reference), with each one's
+   seconds, goodput, re-issues, duplicates dropped, cache hits and
+   misses, and whether the elastic joiner served a batch (it must);
+   ``serve --scenario bursty_arrivals`` on cuda beside cpu, equal but for
+   the goodput; ``serve --workers 2 --status-interval 0.5`` on cuda at
+   2,400 documents, which must print the live status line.
+10. autotune: every candidate of the three main-path kernels' launch
+   knobs (fast_features and ngram_score threads a block, budget_route
+   rows a block of its grid) at the path's shapes and at route_64k:
+   bit-equal to the default launch, held against the plain version, with
+   its ``ms_device`` and the fastest; then a 2-worker process fleet over
+   one ``tuning_dir`` with the ``campaign`` phase's router and documents,
+   twice: the cold fleet sweeps and publishes a fast_features key for
+   this card, the warm one sweeps nothing and leaves the store's bytes
+   as they were, and both record sets equal A1's.
+11. lm: the full-width bf16 ``qwen3-1.7b`` (28 layers, d=2048, random
    weights from a seeded CUDA generator) with
    ``attention_impl="pallas"``: ``prefill`` of B=4 x S=4096 seeded tokens
    (``prefill_32k`` is batch 32 x 32768; cut to fit one card and the
@@ -144,10 +162,10 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    Also reported: both bf16 prefills against one computed in float32
    (the model's bf16 noise floor), and a torch.profiler pass over a
    prefill and two decode steps (device busy share, top kernels).
-10. lm_small_parity: the reduced f32 qwen3-tiny and danube-tiny (window
+12. lm_small_parity: the reduced f32 qwen3-tiny and danube-tiny (window
    32) run ``prefill`` and ``decode_step`` on cuda (the kernel) and on
    cpu (the plain version); the logits must agree within 2e-5.
-11. recsys: ``recsys_scores`` of the full-width bf16 ``dlrm-mlperf``
+13. recsys: ``recsys_scores`` of the full-width bf16 ``dlrm-mlperf``
    (the 187,767,808 x 128 table, 48.07 GB, drawn in place from a seeded
    CUDA generator) at ``serve_p99`` (batch 512) and ``serve_bulk`` (batch
    262,144), batches from ``launch.specs._recsys_batch`` (seed 0):
@@ -155,9 +173,9 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    finite scores in (0, 1) bit-equal to a forward whose lookup is a
    plain ``index_select``, peak memory, and a torch.profiler pass over
    one ``serve_bulk`` forward.
-12. recsys_small_parity: the reduced f32 dlrm-tiny on cuda against cpu,
+14. recsys_small_parity: the reduced f32 dlrm-tiny on cuda against cpu,
    scores within 2e-5.
-13. gnn: ``segment_matmul(x, src, dst, w, n_nodes)`` at ``ogb_products``
+15. gnn: ``segment_matmul(x, src, dst, w, n_nodes)`` at ``ogb_products``
    (uniform random edges from a seeded CUDA generator, d_out 128, f32):
    a torch.profiler pass over the first (cold, uncounted) step at full
    size, then wall ms of a warm step and of its argsort, gather and
@@ -1807,6 +1825,308 @@ def phase_fleet(router, ccfg, test, single) -> dict:
     return {k: v + totals.get(k, 0) for k, v in coordinator.items()}
 
 
+# -------------------------------------------------------------- autotune
+
+
+def knob_rows(dev, ccfg, docs, pages, exp_pages) -> list[dict]:
+    """Every candidate of each main-path kernel's autotune knob at the
+    path's shapes (and budget_route at route_64k): the outputs equal the
+    default launch's bit for bit and, with the kernel rows' tolerances,
+    the plain version's; ``ms_device`` of each (100 back-to-back
+    launches, as phase ``kernels`` times them) and the fastest."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import metrics as M
+    from repro_torch.data.synthetic import MANGLED, SCRAMBLE, WS
+    from repro_torch.kernels.autotune_common import device_ms
+    from repro_torch.kernels.budget_route import autotune as br_at
+    from repro_torch.kernels.budget_route import ops as br
+    from repro_torch.kernels.budget_route import ref as br_ref
+    from repro_torch.kernels.fast_features import autotune as ff_at
+    from repro_torch.kernels.fast_features import ops as ff
+    from repro_torch.kernels.fast_features import ref as ff_ref
+    from repro_torch.kernels.ngram_score import autotune as ng_at
+    from repro_torch.kernels.ngram_score import ops as ng
+    from repro_torch.kernels.ngram_score import ref as ng_ref
+
+    def row(kernel, param, shape, cands, default, make, check):
+        """make(c) -> (launch, outputs); check(outputs) -> max abs err
+        against the plain version."""
+        launch, want = make(default)
+        launch()
+        torch.cuda.synchronize()
+        want = [None if t is None else t.clone() for t in want]
+        times, err = {}, 0.0
+        for c in cands:
+            launch, got = make(c)
+            for t in got:
+                if t is not None:
+                    t.fill_(-7)          # garbage: every element rewritten
+            launch()
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                assert (a is None) == (b is None) and (
+                    a is None or torch.equal(a, b)), \
+                    f"{kernel} {param}={c} at {shape}: not the default's bits"
+            err = max(err, check(got))
+            times[c] = device_ms(launch)
+        win = min(times, key=times.get)
+        out = dict(kernel=kernel, param=param, shape=shape, default=default,
+                   ms_device=times, winner=win,
+                   winner_over_default=times[win] / times[default],
+                   max_abs_err=err, bit_equal_to_default=True)
+        emit({"phase": "autotune_knob", **out})
+        return out
+
+    rows = []
+    # fast_features: the prepare stage's batch, max_len 0 (ft) and 512
+    for max_len in (0, 512):
+        packed = ff.pack_routing_batch(pages, max_len=max_len)
+        ins = [torch.from_numpy(np.asarray(a, np.int32)).to(dev) for a in (
+            packed.tok_matrix, packed.n_tok, packed.first_len,
+            packed.n_pages, packed.n_empty)]
+        kw = dict(max_len=max_len, ws=WS, scramble=SCRAMBLE,
+                  mangled=MANGLED, latex_lo=ccfg.latex_lo,
+                  ident_lo=ccfg.ident_lo, vocab_size=ccfg.vocab_size, bos=1)
+        plain = ff_ref.fast_features_ref(*ins, **kw)
+        n = len(pages)
+
+        def make(c, ins=ins, kw=kw, n=n, max_len=max_len):
+            fast = torch.empty((n, 8), dtype=torch.float32, device=dev)
+            toks = mask = None
+            if max_len:
+                toks = torch.empty((n, max_len), dtype=torch.int32,
+                                   device=dev)
+                mask = torch.empty((n, max_len), dtype=torch.float32,
+                                   device=dev)
+            flag = torch.zeros(1, dtype=torch.int32, device=dev)
+            return (lambda: ff._launch(*ins, fast, toks, mask, flag,
+                                       threads=c, **kw)), [fast, toks, mask]
+
+        def check(got, plain=plain, max_len=max_len):
+            err = (got[0] - plain[0]).abs().max().item()
+            assert err <= 1e-6, err
+            if max_len:
+                assert torch.equal(got[1], plain[1]) and torch.equal(
+                    got[2], plain[2])
+            return err
+
+        rows.append(row("fast_features", "threads",
+                        dict(n=n, width=packed.width, max_len=max_len),
+                        ff_at.DEFAULT_CANDIDATES, ff_at.DEFAULT_THREADS,
+                        make, check))
+    # budget_route: the path's N = 256 (one block: one candidate) and
+    # route_64k
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for n, d in ((256, 512), br_at.ROUTE_64K):
+        scores = torch.round(torch.randn(n, generator=g, device=dev) * 4) / 4
+        tokens = torch.randint(0, 10000, (n, d), generator=g,
+                               dtype=torch.int32, device=dev)
+        cap = br.capacity_floor(ALPHA, n)
+        tau = br.route_tau(scores, cap)
+        plain = br_ref.budget_route_ref(scores, tokens, tau[0], capacity=cap)
+
+        def make(c, scores=scores, tokens=tokens, tau=tau, cap=cap, n=n,
+                 d=d):
+            out = torch.empty((cap, d), dtype=torch.int32, device=dev)
+            idx = torch.empty(cap, dtype=torch.int32, device=dev)
+            count = torch.empty(1, dtype=torch.int32, device=dev)
+            plan = br.launch_plan(n, br.sm_count(dev), c)
+            scratch = torch.empty(br.scratch_ints(plan[0]),
+                                  dtype=torch.int32, device=dev)
+            return (lambda: br._launch(scores, tokens, tau, out, idx, count,
+                                       capacity=cap, scratch=scratch,
+                                       block_rows=c)), [out, idx, count]
+
+        def check(got, plain=plain):
+            assert torch.equal(got[0], plain[0]) and torch.equal(
+                got[1], plain[1]) and int(got[2]) == int(plain[2])
+            return 0.0
+
+        r = row("budget_route", "block_rows", dict(n=n, d=d, capacity=cap),
+                br_at._clamp_candidates(br_at.DEFAULT_CANDIDATES, n),
+                br_at.DEFAULT_BLOCK_ROWS, make, check)
+        r["grids"] = {c: br.launch_plan(n, br.sm_count(dev), c)
+                      for c in r["ms_device"]}
+        rows.append(r)
+    # ngram_score: the probe's B = 256, L = 256 (cheap and expensive
+    # parses against the references)
+    refs = [doc.full_text() for doc in docs]
+    hyps = [np.concatenate(o) if sum(map(len, o)) else np.zeros(0, np.int32)
+            for outs in (pages, exp_pages) for o in outs]
+    ra, rl = M._pad_batch((refs * 2)[:256], 256)
+    ha, hl = M._pad_batch(hyps[:256], 256)
+    ins = [torch.from_numpy(x).to(dev) for x in (ra, ha, rl, hl)]
+    plain = ng_ref.ngram_bleu_ref(*ins)
+
+    def make(c):
+        out = torch.empty(256, dtype=torch.float32, device=dev)
+        return (lambda: ng._launch(*ins, out, max_n=4, threads=c)), [out]
+
+    def check(got):
+        diff = (got[0].double() - plain).abs()
+        assert bool((diff <= 1e-6 + 1e-5 * plain.abs()).all()), diff.max()
+        return diff.max().item()
+
+    rows.append(row("ngram_score", "threads", dict(b=256, L=256, max_n=4),
+                    ng_at.DEFAULT_CANDIDATES, ng_at.DEFAULT_THREADS, make,
+                    check))
+    return rows
+
+
+# -------------------------------------------------------------- scenarios
+
+GOODPUT = (r"goodput=[0-9.]+docs/s", "goodput=*")
+# 200 batches of 8: a drain of about a second, so the 0.5 s status
+# pulse fires; the router trains on 800 documents
+STATUS_ARGV = ["--docs", "2400", "--batch-size", "8", "--workers", "2",
+               "--status-interval", "0.5"]
+
+
+def phase_scenarios() -> dict:
+    """The scenario lab on the card: ``run_scenario`` of all eight
+    scenarios (their own corpus and ft router, every engine and worker on
+    cuda; each asserts its records equal its single-node reference), the
+    elastic scenario's joiner serving documents; ``serve --scenario
+    bursty_arrivals`` on cuda and on cpu (a child process), equal but for
+    the goodput; and ``serve --workers 2 --status-interval 0.5`` on cuda
+    in a child process, which must print the live status line. Launches:
+    this process's (the local scenarios and the cuda serve); the
+    workers' are not read here."""
+    import re
+
+    from repro_torch.core.scenarios import SCENARIOS, run_scenario
+
+    free_cuda()
+    t_phase = time.perf_counter()
+    counts0 = read_counts()
+    status = serve_process(STATUS_ARGV + ["--device", "cuda"], card=True)
+    try:
+        rows = []
+        for name, spec in SCENARIOS.items():
+            t0 = time.perf_counter()
+            res = run_scenario(spec, device="cuda")
+            row = {"scenario": name, "seconds": time.perf_counter() - t0,
+                   **res.metrics(),
+                   "joiner_served_a_batch": (None if res.joiner_docs is None
+                                             else res.joiner_docs > 0)}
+            emit({"phase": "scenario_run", **row})
+            assert res.records_match, name
+            rows.append(row)
+        elastic = next(r for r in rows if r["scenario"] ==
+                       "elastic_join_leave")
+        assert elastic["joiner_served_a_batch"] and elastic["reissued"] >= 1
+        assert all(r["reissued"] >= 1 for r in rows if r["scenario"] in (
+            "crash_storm", "shm_crash_reissue", "slowdown_skew"))
+        assert next(r for r in rows if r["scenario"] ==
+                    "cold_warm_shared_store")["warm_cache_misses"] == 0
+        t0 = time.perf_counter()
+        argv = ["--scenario", "bursty_arrivals"]
+        (m_cuda, l_cuda), (m_cpu, l_cpu) = serve_with_cpu_beside(argv, argv)
+        masked = [[re.sub(*GOODPUT, ln) for ln in ls
+                   if ln.startswith("[serve]")] for ls in (l_cuda, l_cpu)]
+        assert masked[0] == masked[1], masked
+        measured = {d: {k: m.pop(k) for k in ("wall_s", "goodput_docs_per_s")}
+                    for d, m in (("cuda", m_cuda), ("cpu", m_cpu))}
+        assert m_cuda == m_cpu, (m_cuda, m_cpu)
+        serve_s = time.perf_counter() - t0
+        counts = {k: v - counts0[k] for k, v in read_counts().items()}
+        out, err = status.communicate(timeout=900)
+    finally:
+        status.kill()
+    if status.returncode:
+        raise RuntimeError(f"serve --status-interval exited "
+                           f"{status.returncode}:\n{err[-3000:]}")
+    lines = [ln for ln in err.splitlines() if ln.startswith("[status] ")]
+    assert lines, "serve --status-interval printed no status line"
+    emit({"phase": "scenarios", "runs": rows, "launches": counts,
+          "serve_scenario": {"argv": argv, "report": masked[0],
+                             "metrics": m_cuda, "measured": measured,
+                             "seconds_both": serve_s},
+          "serve_status": {"argv": STATUS_ARGV, "status_lines": len(lines),
+                           "first": lines[0], "last": lines[-1],
+                           "report": report_lines(out.splitlines())},
+          "phase_s": time.perf_counter() - t_phase})
+    return counts
+
+
+# -------------------------------------------------------------- autotune
+
+TUNE_WORKERS = 2
+
+
+def phase_autotune(router, ccfg, test, single, knob_inputs) -> tuple:
+    """Every candidate of the three main-path kernels' launch knobs at
+    the path's shapes (``knob_rows``; uncounted), then a 2-worker process
+    fleet over one ``tuning_dir`` with the campaign's router and
+    documents on the card, twice: the cold fleet sweeps (the workers'
+    ``sweeps_run()`` sum above 0) and publishes a
+    ``v1|fast_features|...|<card>|device`` key; a fresh fleet over the
+    same directory sweeps 0 times and leaves the store's bytes as they
+    were; both record sets equal A1's. Returns (the fleets' launches,
+    the knob rows)."""
+    import tempfile
+
+    from repro_torch.core.campaign import CampaignExecutor, ExecutorConfig
+    from repro_torch.core.engine import EngineConfig
+    import torch
+
+    from repro_torch.kernels import tuning_store
+
+    free_cuda()
+    t_phase = time.perf_counter()
+    knobs = knob_rows(*knob_inputs)
+    n = len(test)
+    ecfg = EngineConfig(alpha=ALPHA, batch_size=256, seed=SEED)
+    totals = dict.fromkeys(MAIN_KERNELS, 0)
+    runs = []
+    card = torch.cuda.get_device_name(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        tdir = Path(tmp) / "tuning"
+        xcfg = ExecutorConfig(n_nodes=TUNE_WORKERS, runtime="process",
+                              obs=True, seed=SEED, tuning_dir=str(tdir))
+
+        def files():
+            return {p.name: p.read_bytes() for p in tdir.iterdir()
+                    if not p.name.startswith(".")}
+
+        for label in ("cold", "warm"):
+            res, row = fleet_run(
+                f"T {label}, tuning_dir", lambda: CampaignExecutor(
+                    ecfg, xcfg, router, ccfg, device="cuda").run(test),
+                n, TUNE_WORKERS)
+            assert same_records(res.records, single), f"T {label} records"
+            g = res.obs_metrics["gauges"]
+            sweeps = [int(g[f"autotune.sweeps.n{w}"])
+                      for w in range(TUNE_WORKERS)]
+            keys = tuning_store.TuningStore(str(tdir)).keys()
+            runs.append({"run": label, "sweeps": sweeps, "store_keys": keys,
+                         "store_bytes": sum(map(len, files().values())),
+                         "start_and_stop_s": row["run_s"] - row["card_wall_s"],
+                         "card_wall_s": row["card_wall_s"],
+                         "workers": row["workers"]})
+            for wk in row["workers"]:
+                for k, v in wk["launches"].items():
+                    totals[k] += v
+            if label == "cold":
+                cold_files = files()
+        assert sum(runs[0]["sweeps"]) > 0, runs[0]
+        assert sum(runs[1]["sweeps"]) == 0, runs[1]
+        assert files() == cold_files, "the warm fleet changed the store"
+        assert any(k.startswith("v1|fast_features|")
+                   and k.endswith(f"|{card}|device")
+                   for k in runs[0]["store_keys"]), runs[0]["store_keys"]
+        winners = {k: tuning_store.TuningStore(str(tdir)).get(k)
+                   for k in runs[0]["store_keys"]}
+    for name in ("fast_features", "budget_route"):
+        assert totals[name] > 0, totals
+    emit({"phase": "autotune", "knobs": knobs, "fleet": runs,
+          "fleet_winners": winners, "worker_launches": totals,
+          "phase_s": time.perf_counter() - t_phase})
+    return {k: totals.get(k, 0) for k in read_counts()}, knobs
+
+
 # -------------------------------------------------------------- train
 
 TRAIN_DOCS = 800        # 266 training docs: one SFT minibatch of 256
@@ -2557,6 +2877,10 @@ def main() -> int:
     llm_counts, router = phase_llm(trained)
     campaign_counts, a1 = phase_campaign(router)
     path_counts += [llm_counts, campaign_counts, phase_fleet(router, *a1)]
+    path_counts.append(phase_scenarios())
+    tune_counts, knobs = phase_autotune(router, *a1,
+                                        (dev, ccfg, docs, pages, exp_pages))
+    path_counts.append(tune_counts)
     del trained, router, a1
     free_cuda()
     path_counts.append(phase_lm())
@@ -2595,7 +2919,11 @@ def main() -> int:
                if k in row},
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row.get("library_ms")})
+            "library_ms": row.get("library_ms"),
+            **({"knobs": [{k: r[k] for k in ("param", "shape", "default",
+                                              "winner", "ms_device")}
+                          for r in knobs if r["kernel"] == name]}
+               if name in MAIN_KERNELS else {})})
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -78,8 +78,8 @@ admission, membership is elastic (join/leave mid-campaign, the
 controller re-shards over the live fleet at round boundaries), and the
 inherited dedup + re-issue machinery keeps the record set byte-equal
 to the single-node run through any churn. ``ExecutorConfig.tuning_dir``
-(autotune, ROADMAP item 11) is not ported: the process and fabric
-pools refuse it.
+hands every worker of a process or fabric fleet one shared kernel
+tuning store (``kernels/tuning_store``).
 
 Device: every node's engine and the controller's quality probe run on
 the one torch device the campaign is given (``device``, cuda unless
@@ -292,9 +292,10 @@ class ExecutorConfig:
     # unavailable; "pickle" forces the queue-serialized path. Ignored
     # by the local runtime (no process boundary to cross).
     transport: str = "shm"
-    # fleet-shared persistent autotune store directory: ROADMAP item
-    # 11 (autotune), not ported. The process and fabric pools raise
-    # NotImplementedError for anything but None.
+    # fleet-shared persistent autotune store directory
+    # (kernels/tuning_store): every process / fabric worker configures
+    # it, so a launch-knob sweep runs once per shape across the fleet
+    # and a warm restart performs zero re-sweeps
     tuning_dir: str | None = None
     # --- observability plane (core/obs) ---
     # span tracing: False keeps the provably-free noop recorder in

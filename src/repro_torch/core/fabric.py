@@ -533,6 +533,9 @@ class FabricWorkerPool(ProcessWorkerPool):
         self._joins = 0
         self._leaves = 0
         self._rejected = 0
+        # slots the elastic schedule has launched a joiner for, with its
+        # process, until the joiner's ready heartbeat arrives
+        self._joining: dict[int, object] = {}
         self._left: set[int] = set()
         self._tx_flushed = 0
         self._rx_flushed = 0
@@ -682,7 +685,54 @@ class FabricWorkerPool(ProcessWorkerPool):
             if getattr(self.xcfg, "fabric_spawn", True):
                 from repro_torch.launch.fabric_worker import spawn_loopback
 
-                self._local_procs.append(spawn_loopback(self.addr))
+                proc = spawn_loopback(self.addr)
+                self._local_procs.append(proc)
+                self._joining[w] = proc
+
+    def drain(self, queues: dict[int, list]) -> None:
+        """``ProcessWorkerPool.drain``, after the joiners the elastic
+        schedule has launched are ready (``_await_joiners``): the round
+        is sharded over the nodes that were live at its boundary, and a
+        joiner takes work from it as a peer, by re-issue."""
+        self._await_joiners()
+        super().drain(queues)
+
+    def _await_joiners(self) -> None:
+        """Wait for the joiners the elastic schedule has launched until
+        each has been admitted and sent its ready heartbeat (bounded by
+        ``worker_start_timeout_s``), handling every message meanwhile as
+        the drain loop would. A worker's start (a fresh interpreter,
+        torch, on a card its CUDA context) can outlast what is left of a
+        short campaign; waiting before the next round's dispatch makes
+        the join happen inside it. Records do not depend on placement,
+        so the wait changes who computes a batch, never a record."""
+        deadline = time.time() + self.xcfg.worker_start_timeout_s
+        while True:
+            for w, proc in list(self._joining.items()):
+                if w in self._dead or w in self._left or (
+                        w not in self._unassigned and w not in self._quiet):
+                    del self._joining[w]         # ready, or already gone
+                elif w in self._unassigned and not proc.is_alive():
+                    raise RuntimeError(
+                        f"fabric joiner for node {w} exited (code "
+                        f"{proc.exitcode}) before it was admitted")
+            if not self._joining:
+                return
+            timeout = deadline - time.time()
+            if timeout <= 0:
+                raise RuntimeError(
+                    f"fabric joiners {sorted(self._joining)} not ready "
+                    f"within {self.xcfg.worker_start_timeout_s}s "
+                    f"(worker_start_timeout_s)")
+            try:
+                msg = self.result_q.get(timeout=min(timeout, 0.2))
+            except queue_lib.Empty:
+                continue
+            if (isinstance(msg, BatchDone) and msg.error is not None
+                    and msg.task_id == -1 and msg.worker in self._joining):
+                raise RuntimeError(f"fabric worker {msg.worker} failed "
+                                   f"to start:\n{msg.error}")
+            self._handle(msg)
 
     def live_ingest_nodes(self) -> list[int]:
         """The ingest nodes a round boundary may shard over right now:

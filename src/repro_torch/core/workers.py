@@ -257,6 +257,11 @@ class WorkerSpec:
     shm_base: str | None = None
     n_workers: int = 1
     shm_resp_slots: int = 8
+    # fleet-shared persistent autotune store (kernels/tuning_store):
+    # every worker configures this dir, so launch-knob sweeps amortize
+    # across the fleet and a warm restart performs zero re-sweeps. Not
+    # part of the fingerprint (a knob never changes a record)
+    tuning_dir: str | None = None
     # observability plane (core/obs): span tracing defaults off (noop
     # recorder); when on, the worker records into a bounded ring and
     # ships drained slices on its outgoing messages
@@ -693,11 +698,6 @@ class ProcessWorkerPool:
 
     @staticmethod
     def _validate_xcfg(xcfg) -> None:
-        if getattr(xcfg, "tuning_dir", None) is not None:
-            raise NotImplementedError(
-                "ExecutorConfig.tuning_dir (the fleet-shared autotune "
-                "store) is ROADMAP item 11, not ported to repro_torch "
-                "yet; drop tuning_dir")
         if xcfg.node_speed_factors is not None:
             raise ValueError(
                 "node_speed_factors are simulation-only (they skew the "
@@ -875,7 +875,9 @@ class ProcessWorkerPool:
             image_degraded=image_degraded,
             text_degraded=text_degraded,
             alpha=self._alpha_of.get(i), cache_dir=cache_dir,
-            cache_max_bytes=cache_max, probe_cfg=probe_cfg,
+            cache_max_bytes=cache_max,
+            tuning_dir=getattr(self.xcfg, "tuning_dir", None),
+            probe_cfg=probe_cfg,
             backend_specs=tuple(backend_specs),
             heartbeat_interval_s=self.xcfg.heartbeat_interval_s,
             fault=fault, shm_base=shm_base, n_workers=self.n_nodes,

@@ -7,7 +7,11 @@ kernel, as ``lax.top_k`` sits outside the Pallas kernel in the JAX
 package), clamped to the shared positive threshold, then the
 select+compact kernel (``csrc/budget_route.cu``) for CUDA tensors or the
 plain version (``ref.py``) for CPU tensors. Both compare scores with tau
-after flushing subnormals to zero, as XLA's compare does.
+after flushing subnormals to zero, as XLA's compare does. Beyond 4,096
+rows the kernel's cooperative grid takes ``block_rows`` rows a block a
+chunk: the winner the autotune store holds for the shape
+(``autotune.tuned_block_rows``; dispatch reads it, never sweeps), else
+512.
 
 Semantics are the exact device mirror of ``scheduler.plan_batch``:
 floor capacity (floor(alpha*N) == 0 routes nothing), tau clamped to
@@ -22,6 +26,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.budget_route import autotune
+from repro_torch.kernels.budget_route.autotune import (DEFAULT_BLOCK_ROWS,
+                                                       tuned_block_rows)
 from repro_torch.kernels.budget_route.ref import budget_route_ref
 from repro_torch.kernels.cuda_lib import I, P
 from repro_torch.kernels.order import total_order_key
@@ -31,8 +38,8 @@ from repro_torch.kernels.order import total_order_key
 POSITIVE_TAU = 1e-12
 MAX_THREADS = 1024                 # threads of one block (csrc kMaxThreads)
 SINGLE_BLOCK_ROWS = 4 * MAX_THREADS  # the largest N one block routes
-GRID_THREADS = 128                 # threads a block of a grid
 GRID_ROWS = 4                      # rows a thread of a grid
+GRID_THREADS = DEFAULT_BLOCK_ROWS // GRID_ROWS   # a grid's block, by default
 
 KERNEL = cuda_lib.CudaKernel(
     "budget_route", "adaparse_budget_route",
@@ -90,24 +97,29 @@ def sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def launch_plan(n: int, sms: int) -> tuple[int, int, int, int]:
+def launch_plan(n: int, sms: int, block_rows: int = DEFAULT_BLOCK_ROWS
+                ) -> tuple[int, int, int, int]:
     """(blocks, threads, rows a thread, chunks a block) of the one launch
     that routes N rows on a card of ``sms`` SMs: one block of the fewest
     whole warps, a row a thread up to 1024 rows, four up to 4096; beyond,
-    a cooperative grid of at most one block an SM, ``GRID_THREADS``
-    threads of ``GRID_ROWS`` rows (each block taking several such chunks
-    when N needs them)."""
+    a cooperative grid of at most one block an SM, ``block_rows`` /
+    ``GRID_ROWS`` threads of ``GRID_ROWS`` rows (each block taking
+    several such chunks of ``block_rows`` when N needs them)."""
     if n <= MAX_THREADS:
         return 1, max(32, -(-n // 32) * 32), 1, 1
     if n <= SINGLE_BLOCK_ROWS:
         return 1, -(-n // (32 * 4)) * 32, 4, 1
-    chunk = GRID_THREADS * GRID_ROWS
-    chunks = -(-n // (chunk * sms))
-    return -(-n // (chunk * chunks)), GRID_THREADS, GRID_ROWS, chunks
+    if block_rows not in autotune.DEFAULT_CANDIDATES:
+        raise ValueError(f"budget_route: block_rows {block_rows} outside "
+                         f"{autotune.DEFAULT_CANDIDATES}")
+    chunks = -(-n // (block_rows * sms))
+    return (-(-n // (block_rows * chunks)), block_rows // GRID_ROWS,
+            GRID_ROWS, chunks)
 
 
 def launch_grid(n: int, device) -> list[tuple[int, int, int]]:
-    """(blocks, threads, cooperative) of the one kernel a launch runs."""
+    """(blocks, threads, cooperative) of the one kernel a default launch
+    runs."""
     blocks, threads, _, _ = launch_plan(n, sm_count(device))
     return [(blocks, threads, int(blocks > 1))]
 
@@ -119,12 +131,12 @@ def scratch_ints(blocks: int) -> int:
 
 
 def _launch(scores, tokens, tau, out, idx, count, *, capacity: int,
-            scratch=None) -> None:
+            scratch=None, block_rows: int = DEFAULT_BLOCK_ROWS) -> None:
     """One kernel launch into preallocated outputs, every element of
     which it writes; no synchronisation. A grid needs ``scratch`` of two
     int32 a block (allocated here when not given)."""
     n, d = tokens.shape
-    plan = launch_plan(n, sm_count(scores.device))
+    plan = launch_plan(n, sm_count(scores.device), block_rows)
     need = scratch_ints(plan[0])
     if scratch is None:
         scratch = torch.empty(need, dtype=torch.int32, device=scores.device)
@@ -151,22 +163,27 @@ def route_tau(scores, capacity: int, require_positive: bool = True):
     return kth
 
 
-def budget_route_kernel(scores, tokens, tau, *, capacity: int):
+def budget_route_kernel(scores, tokens, tau, *, capacity: int,
+                        block_rows: int | None = None):
     """The CUDA kernel on CUDA tensors: (routed (capacity, D), idx
-    (capacity,) int32 source rows (-1 = empty), count () int32)."""
+    (capacity,) int32 source rows (-1 = empty), count () int32).
+    ``block_rows=None`` reads the tuned winner for (N, D, capacity), or
+    the default."""
     if scores.device.type != "cuda":
         raise ValueError(f"budget_route_kernel: CUDA tensors only (got "
                          f"{scores.device})")
     dev = scores.device
     n, d = tokens.shape
-    blocks = launch_plan(n, sm_count(dev))[0]
+    if block_rows is None:
+        block_rows = tuned_block_rows(n, d, capacity, device=dev)
+    blocks = launch_plan(n, sm_count(dev), block_rows)[0]
     out = torch.empty((capacity, d), dtype=tokens.dtype, device=dev)
     # idx, count and the grid's scratch in one allocation
     ints = torch.empty((capacity + 1 + scratch_ints(blocks),),
                        dtype=torch.int32, device=dev)
     _launch(scores, tokens, tau.reshape(1), out, ints[:capacity],
             ints[capacity:capacity + 1], capacity=capacity,
-            scratch=ints[capacity + 1:])
+            scratch=ints[capacity + 1:], block_rows=block_rows)
     return out, ints[:capacity], ints[capacity]
 
 

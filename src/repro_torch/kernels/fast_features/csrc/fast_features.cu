@@ -45,18 +45,19 @@
 // agrees with the plain version bit for bit. A token outside
 // [0, vocab_size) sets *err; the wrapper reads it and raises.
 //
-// Launch shape: 256 threads per document. The probe batch's 256 blocks
-// give each SM about two, so every block of the batch is resident at
-// once and the kernel takes about one block's chain of latencies (512
-// threads a block measured slower).
+// Launch shape: one block per document, of 128, 256 or 512 threads (the
+// `threads` argument, a template parameter of the kernel; the autotune
+// knob, fast_features/autotune.py). 256 is the default: the probe batch's
+// 256 blocks give each SM about two, so every block of the batch is
+// resident at once and the kernel takes about one block's chain of
+// latencies. The outputs do not depend on the block size: every count is
+// an exact integer sum, and the ratios are formed after the reduction.
 #include <stdint.h>
 
 #include "../../csrc/common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / adaparse::kWarp;
 constexpr int kVec = 4;              // 16-byte words a thread loads a round
 constexpr int kFeatures = 8;
 // per-document counts: ws, scramble, mangled, latex, new, out of range
@@ -73,6 +74,7 @@ __device__ __forceinline__ int4 load_word(const int* __restrict__ row, int q,
                    p + 2 < n ? row[p + 2] : -1, p + 3 < n ? row[p + 3] : -1);
 }
 
+template <int kThreads>
 __global__ void __launch_bounds__(kThreads)
 fast_features_kernel(const int* __restrict__ tok, const int* __restrict__ n_tok,
                      const int* __restrict__ first_len,
@@ -82,6 +84,7 @@ fast_features_kernel(const int* __restrict__ tok, const int* __restrict__ n_tok,
                      int ident_lo, int vocab_size, int bos,
                      float* __restrict__ fast, int* __restrict__ toks,
                      float* __restrict__ mask, int* __restrict__ err) {
+  constexpr int kWarps = kThreads / adaparse::kWarp;
   extern __shared__ unsigned int present[];     // ceil(vocab/32) words
   __shared__ int warp_counts[kWarps][kCounts];
   const int doc = blockIdx.x;
@@ -205,25 +208,20 @@ fast_features_kernel(const int* __restrict__ tok, const int* __restrict__ n_tok,
   }
 }
 
-}  // namespace
-
-// tok (n, width) int32; n_tok/first_len/n_pages/n_empty (n,) int32;
-// fast (n, 8) float32; toks/mask (n, max_len) (unused when max_len == 0);
-// err (1,) int32, zeroed by the caller. Returns cudaGetLastError().
-ADAPARSE_EXPORT int adaparse_fast_features(
-    const void* tok, const void* n_tok, const void* first_len,
-    const void* n_pages, const void* n_empty, int n, int width, int max_len,
-    int ws, int scramble, int mangled, int latex_lo, int ident_lo,
-    int vocab_size, int bos, void* fast, void* toks, void* mask, void* err,
-    void* stream) {
+template <int kThreads>
+int launch(const void* tok, const void* n_tok, const void* first_len,
+           const void* n_pages, const void* n_empty, int n, int width,
+           int max_len, int ws, int scramble, int mangled, int latex_lo,
+           int ident_lo, int vocab_size, int bos, void* fast, void* toks,
+           void* mask, void* err, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>((vocab_size + 31) / 32) * sizeof(unsigned);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        fast_features_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        fast_features_kernel<kThreads>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  fast_features_kernel<<<n, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  fast_features_kernel<kThreads><<<n, kThreads, smem, stream>>>(
       static_cast<const int*>(tok), static_cast<const int*>(n_tok),
       static_cast<const int*>(first_len), static_cast<const int*>(n_pages),
       static_cast<const int*>(n_empty), width, max_len, ws, scramble, mangled,
@@ -231,4 +229,31 @@ ADAPARSE_EXPORT int adaparse_fast_features(
       static_cast<int*>(toks), static_cast<float*>(mask),
       static_cast<int*>(err));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// tok (n, width) int32; n_tok/first_len/n_pages/n_empty (n,) int32;
+// fast (n, 8) float32; toks/mask (n, max_len) (unused when max_len == 0);
+// err (1,) int32, zeroed by the caller; threads: 128, 256 or 512 a block.
+// Returns cudaGetLastError() (cudaErrorInvalidValue for another block
+// size).
+ADAPARSE_EXPORT int adaparse_fast_features(
+    const void* tok, const void* n_tok, const void* first_len,
+    const void* n_pages, const void* n_empty, int n, int width, int max_len,
+    int ws, int scramble, int mangled, int latex_lo, int ident_lo,
+    int vocab_size, int bos, void* fast, void* toks, void* mask, void* err,
+    int threads, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define ADAPARSE_FF_LAUNCH(T)                                               \
+  launch<T>(tok, n_tok, first_len, n_pages, n_empty, n, width, max_len, ws, \
+            scramble, mangled, latex_lo, ident_lo, vocab_size, bos, fast,   \
+            toks, mask, err, st)
+  switch (threads) {
+    case 128: return ADAPARSE_FF_LAUNCH(128);
+    case 256: return ADAPARSE_FF_LAUNCH(256);
+    case 512: return ADAPARSE_FF_LAUNCH(512);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef ADAPARSE_FF_LAUNCH
 }

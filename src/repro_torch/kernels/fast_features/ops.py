@@ -9,7 +9,10 @@ kernel's (n, width) matrix built lazily, its width a power of two
 
 ``fast_features`` is the wrapper around the CUDA kernel
 (``csrc/fast_features.cu``): for CPU tensors it runs the plain version
-(``ref.py``); for CUDA tensors it launches the kernel or raises.
+(``ref.py``); for CUDA tensors it launches the kernel or raises, at the
+block size ``autotune.ensure_tuned`` gives for the packed shape (the
+default, 256 threads, unless a tuning store is configured; with one, a
+miss sweeps the candidates on the card first).
 ``routing_features`` moves a ``PackedBatch`` to a device and calls it.
 """
 from __future__ import annotations
@@ -22,11 +25,11 @@ import torch
 
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.cuda_lib import I, P
+from repro_torch.kernels.fast_features import autotune
 from repro_torch.kernels.fast_features.ref import (N_FAST_FEATURES,
                                                    fast_features_ref)
 
 MIN_WIDTH = 128
-THREADS = 256                      # threads per block (csrc kThreads)
 # shared memory a block may use on Hopper (227 KB), less 256 bytes for
 # the kernel's static shared memory: the presence bitmap holds
 # ceil(vocab_size / 32) words
@@ -34,7 +37,7 @@ MAX_VOCAB = (227 * 1024 - 256) * 8
 
 KERNEL = cuda_lib.CudaKernel(
     "fast_features", "adaparse_fast_features",
-    [P] * 5 + [I] * 10 + [P] * 4 + [P])
+    [P] * 5 + [I] * 10 + [P] * 4 + [I, P])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,33 +120,34 @@ def _check(tok, scalars, max_len: int, vocab_size: int) -> None:
 
 
 def launch_grid(n: int) -> list[tuple[int, int]]:
-    """(blocks, threads) of the kernel one launch runs."""
-    return [(n, THREADS)]
+    """(blocks, threads) of the kernel one default launch runs."""
+    return [(n, autotune.DEFAULT_THREADS)]
 
 
 def _launch(tok, n_tok, first_len, n_pages, n_empty, fast, toks, mask,
             err, *, max_len, ws, scramble, mangled, latex_lo, ident_lo,
-            vocab_size, bos) -> None:
-    """One kernel launch into preallocated outputs, no synchronisation
-    (``err`` must be zeroed)."""
+            vocab_size, bos, threads=autotune.DEFAULT_THREADS) -> None:
+    """One kernel launch into preallocated outputs at ``threads`` a
+    block, no synchronisation (``err`` must be zeroed)."""
     n, width = tok.shape
     KERNEL(tok.data_ptr(), n_tok.data_ptr(), first_len.data_ptr(),
            n_pages.data_ptr(), n_empty.data_ptr(), n, width, max_len,
            ws, scramble, mangled, latex_lo, ident_lo, vocab_size, bos,
            fast.data_ptr(), toks.data_ptr() if max_len else None,
            mask.data_ptr() if max_len else None, err.data_ptr(),
-           cuda_lib.stream_of(tok.device))
+           int(threads), cuda_lib.stream_of(tok.device))
 
 
 def fast_features(tok, n_tok, first_len, n_pages, n_empty, *,
                   max_len: int, ws: int, scramble: int, mangled: int,
                   latex_lo: int, ident_lo: int, vocab_size: int,
-                  bos: int = 1):
+                  bos: int = 1, threads: int | None = None):
     """Packed (n, width) token matrix + per-doc scalars -> (fast (n, 8)
     f32, toks (n, max_len) i32, mask (n, max_len) f32), or (fast, None,
     None) when ``max_len == 0``. CPU tensors: plain version; CUDA
-    tensors: the kernel. Raises ValueError on a token outside
-    [0, vocab_size) either way."""
+    tensors: the kernel, at ``threads`` a block (None: the tuned value
+    for (width, max_len), ``autotune.ensure_tuned``). Raises ValueError
+    on a token outside [0, vocab_size) either way."""
     kw = dict(max_len=max_len, ws=ws, scramble=scramble, mangled=mangled,
               latex_lo=latex_lo, ident_lo=ident_lo, vocab_size=vocab_size,
               bos=bos)
@@ -163,8 +167,10 @@ def fast_features(tok, n_tok, first_len, n_pages, n_empty, *,
         mask = torch.empty((n, max_len), dtype=torch.float32, device=dev)
     if n == 0:
         return fast, toks, mask
+    if threads is None:
+        threads = autotune.ensure_tuned(tok.shape[1], max_len, device=dev)
     err = torch.zeros(1, dtype=torch.int32, device=dev)
-    _launch(tok, *scalars, fast, toks, mask, err, **kw)
+    _launch(tok, *scalars, fast, toks, mask, err, threads=threads, **kw)
     if int(err.item()):
         raise ValueError(f"fast_features: token id outside "
                          f"[0, vocab_size={vocab_size}) in the packed stream")

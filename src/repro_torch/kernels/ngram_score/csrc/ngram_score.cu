@@ -36,15 +36,21 @@
 // after them: a lane past a stream's end reads there, or the next row,
 // under a false predicate, so the -1 padding never counts.
 //
-// Launch shape: one document per block of 24 warps, N = max_n a template
-// argument. The warps take starts four at a time from a shared counter,
+// Launch shape: one document per block of 24 warps by default (768
+// threads; 256, 512 and 1024 are the other values of the `threads`
+// argument, the autotune knob of ngram_score/autotune.py), N = max_n and
+// the block size template arguments. The warps take starts four at a time from a shared counter,
 // the latest first: their hyp-hyp scans are the longest, so the warps
 // finish together however the matches fall. The probe's 256 documents put
 // two blocks on each of 124 SMs (one on the other 8): 48 resident warps
 // an SM, which __launch_bounds__(768, 2) pays for with at most 40
 // registers a thread (N <= 4; longer orders take one block an SM). More
 // warps (32 a block, 64 an SM) would cap registers at 32 and spill the
-// four grams; the integer pipes, not latency, set the pace at 48. The
+// four grams; the integer pipes, not latency, set the pace at 48. Every
+// block size asks for as many blocks an SM as make 48 warps (256 threads:
+// six, 512: three), so each keeps the 40-register budget; 1024 threads fit
+// one block an SM (32 warps, 64 registers). The BLEU of a document does
+// not depend on the block size: the clipped counts are integer sums. The
 // credits of all orders are reduced together (one shared atomic per
 // order and lane group, one barrier); thread 0 assembles log precision,
 // the brevity penalty and the empty-hypothesis zero in float32 in the
@@ -56,7 +62,8 @@
 namespace {
 
 constexpr int kMaxN = 8;
-constexpr int kThreads = 768;
+// resident threads an SM that every block size aims for (48 warps)
+constexpr int kResidentThreads = 1536;
 // hypothesis starts a warp scans at once: lane 8g + o counts order o + 1
 // of start g, a byte g of each packed sum
 constexpr int kStarts = 4;
@@ -68,6 +75,7 @@ constexpr float kSmooth = 1e-9f;
 
 // Copies n ints of a global row into shared memory, 16 bytes a thread
 // when both rows and n allow it.
+template <int kThreads>
 __device__ __forceinline__ void load_row(int* __restrict__ dst,
                                          const int* __restrict__ src, int n,
                                          bool vec4) {
@@ -145,8 +153,9 @@ __device__ __forceinline__ void scan(const int* __restrict__ s, int len,
     scan_word<N, false>(s, len, base, lim, w, lane, count);
 }
 
-template <int N>
-__global__ void __launch_bounds__(kThreads, N <= 4 ? 2 : 1)
+template <int N, int kThreads>
+__global__ void __launch_bounds__(kThreads,
+                                  N <= 4 ? kResidentThreads / kThreads : 1)
 ngram_bleu_kernel(const int* __restrict__ ref, const int* __restrict__ hyp,
                   const int* __restrict__ lr_p, const int* __restrict__ lh_p,
                   int max_len, float* __restrict__ out) {
@@ -163,8 +172,8 @@ ngram_bleu_kernel(const int* __restrict__ ref, const int* __restrict__ hyp,
   const bool vec4 = (max_len % 4 == 0) &&
                     ((reinterpret_cast<uintptr_t>(ref) |
                       reinterpret_cast<uintptr_t>(hyp)) % 16 == 0);
-  load_row(r, ref + static_cast<size_t>(doc) * max_len, lr, vec4);
-  load_row(h, hyp + static_cast<size_t>(doc) * max_len, lh, vec4);
+  load_row<kThreads>(r, ref + static_cast<size_t>(doc) * max_len, lr, vec4);
+  load_row<kThreads>(h, hyp + static_cast<size_t>(doc) * max_len, lh, vec4);
   if (threadIdx.x < kMaxN) clipped[threadIdx.x] = 0;
   if (threadIdx.x == 0) taken = 0;
   __syncthreads();
@@ -212,42 +221,59 @@ ngram_bleu_kernel(const int* __restrict__ ref, const int* __restrict__ hyp,
   }
 }
 
-template <int N>
+template <int N, int kThreads>
 int launch(const void* ref, const void* hyp, const void* lr, const void* lh,
            int b, int max_len, void* out, cudaStream_t stream) {
   const size_t smem = (2 * static_cast<size_t>(max_len) + kPad) * sizeof(int);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        ngram_bleu_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        ngram_bleu_kernel<N, kThreads>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  ngram_bleu_kernel<N><<<b, kThreads, smem, stream>>>(
+  ngram_bleu_kernel<N, kThreads><<<b, kThreads, smem, stream>>>(
       static_cast<const int*>(ref), static_cast<const int*>(hyp),
       static_cast<const int*>(lr), static_cast<const int*>(lh), max_len,
       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int N>
+int launch_threads(const void* ref, const void* hyp, const void* lr,
+                   const void* lh, int b, int max_len, void* out, int threads,
+                   cudaStream_t st) {
+  switch (threads) {
+    case 256: return launch<N, 256>(ref, hyp, lr, lh, b, max_len, out, st);
+    case 512: return launch<N, 512>(ref, hyp, lr, lh, b, max_len, out, st);
+    case 768: return launch<N, 768>(ref, hyp, lr, lh, b, max_len, out, st);
+    case 1024: return launch<N, 1024>(ref, hyp, lr, lh, b, max_len, out, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // ref, hyp (b, max_len) int32; lr, lh (b,) int32; out (b,) float32.
-// 1 <= max_n <= 8; 2 * max_len int32 must fit the block's shared memory.
-// Returns cudaGetLastError() (cudaErrorInvalidValue for another max_n).
+// 1 <= max_n <= 8; 2 * max_len int32 must fit the block's shared memory;
+// threads: 256, 512, 768 or 1024 a block. Returns cudaGetLastError()
+// (cudaErrorInvalidValue for another max_n or block size).
 ADAPARSE_EXPORT int adaparse_ngram_bleu(const void* ref, const void* hyp,
                                         const void* lr, const void* lh,
                                         int b, int max_len, int max_n,
-                                        void* out, void* stream) {
+                                        void* out, int threads, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (max_n) {
-    case 1: return launch<1>(ref, hyp, lr, lh, b, max_len, out, st);
-    case 2: return launch<2>(ref, hyp, lr, lh, b, max_len, out, st);
-    case 3: return launch<3>(ref, hyp, lr, lh, b, max_len, out, st);
-    case 4: return launch<4>(ref, hyp, lr, lh, b, max_len, out, st);
-    case 5: return launch<5>(ref, hyp, lr, lh, b, max_len, out, st);
-    case 6: return launch<6>(ref, hyp, lr, lh, b, max_len, out, st);
-    case 7: return launch<7>(ref, hyp, lr, lh, b, max_len, out, st);
-    case 8: return launch<8>(ref, hyp, lr, lh, b, max_len, out, st);
+#define ADAPARSE_NG_CASE(N) \
+    case N: return launch_threads<N>(ref, hyp, lr, lh, b, max_len, out, threads, st);
+    ADAPARSE_NG_CASE(1)
+    ADAPARSE_NG_CASE(2)
+    ADAPARSE_NG_CASE(3)
+    ADAPARSE_NG_CASE(4)
+    ADAPARSE_NG_CASE(5)
+    ADAPARSE_NG_CASE(6)
+    ADAPARSE_NG_CASE(7)
+    ADAPARSE_NG_CASE(8)
+#undef ADAPARSE_NG_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -3,8 +3,11 @@
 ``ngram_bleu(ref, hyp, ref_len, hyp_len)`` scores a padded (B, max_len)
 batch of (reference, hypothesis) token streams per document: the CUDA
 kernel (``csrc/ngram_score.cu``, float32, one block of 24 warps per
-document; a warp scans 32 starts at once for four hypothesis starts) for
-CUDA tensors, the plain float64 version (``ref.py``) for CPU tensors.
+document by default; a warp scans 32 starts at once for four
+hypothesis starts) for CUDA tensors, at the block size the autotune
+store holds for the shape (``autotune.tuned_threads``; dispatch reads a
+winner, it never sweeps), the plain float64 version (``ref.py``) for CPU
+tensors.
 """
 from __future__ import annotations
 
@@ -12,16 +15,17 @@ import torch
 
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.cuda_lib import I, P
+from repro_torch.kernels.ngram_score.autotune import (DEFAULT_THREADS,
+                                                      tuned_threads)
 from repro_torch.kernels.ngram_score.ref import ngram_bleu_ref
 
 MAX_N = 8                          # csrc kMaxN
-THREADS = 768                      # threads per block (csrc kThreads)
 # two int32 rows (and 40 ints of padding) of dynamic shared memory per
 # block, beside the kernel's static shared memory, within Hopper's 227 KB
 MAX_LEN = (227 * 1024 - 256) // 8
 
 KERNEL = cuda_lib.CudaKernel(
-    "ngram_score", "adaparse_ngram_bleu", [P, P, P, P, I, I, I, P, P])
+    "ngram_score", "adaparse_ngram_bleu", [P, P, P, P, I, I, I, P, I, P])
 
 
 def _check(ref, hyp, ref_len, hyp_len, max_n: int) -> None:
@@ -49,29 +53,36 @@ def _check(ref, hyp, ref_len, hyp_len, max_n: int) -> None:
 
 
 def launch_grid(b: int, max_len: int) -> list[tuple[int, int]]:
-    """(blocks, threads) of the kernel one launch runs."""
-    return [(b, THREADS)]
+    """(blocks, threads) of the kernel one default launch runs."""
+    return [(b, DEFAULT_THREADS)]
 
 
-def _launch(ref, hyp, ref_len, hyp_len, out, *, max_n: int) -> None:
-    """One kernel launch into a preallocated (B,) float32 ``out``; no
-    synchronisation."""
+def _launch(ref, hyp, ref_len, hyp_len, out, *, max_n: int,
+            threads: int = DEFAULT_THREADS) -> None:
+    """One kernel launch into a preallocated (B,) float32 ``out`` at
+    ``threads`` a block; no synchronisation."""
     b, max_len = ref.shape
     KERNEL(ref.data_ptr(), hyp.data_ptr(), ref_len.data_ptr(),
            hyp_len.data_ptr(), b, max_len, max_n, out.data_ptr(),
-           cuda_lib.stream_of(ref.device))
+           int(threads), cuda_lib.stream_of(ref.device))
 
 
-def ngram_bleu(ref, hyp, ref_len, hyp_len, *, max_n: int = 4):
+def ngram_bleu(ref, hyp, ref_len, hyp_len, *, max_n: int = 4,
+               threads: int | None = None):
     """ref, hyp (B, max_len) padded int ids; ref_len, hyp_len (B,) true
     lengths in [0, max_len]. Returns (B,) per-document BLEU: float32
-    from the kernel on CUDA tensors, float64 from the plain version on
-    CPU tensors."""
+    from the kernel on CUDA tensors (``threads`` a block; None: the
+    tuned winner for the shape, else the default), float64 from the
+    plain version on CPU tensors."""
     _check(ref, hyp, ref_len, hyp_len, max_n)
     if ref.device.type == "cpu":
         return ngram_bleu_ref(ref, hyp, ref_len, hyp_len, max_n=max_n)
     b = ref.shape[0]
     out = torch.empty((b,), dtype=torch.float32, device=ref.device)
     if b:
-        _launch(ref, hyp, ref_len, hyp_len, out, max_n=max_n)
+        if threads is None:
+            threads = tuned_threads(b, ref.shape[1], max_n,
+                                    device=ref.device)
+        _launch(ref, hyp, ref_len, hyp_len, out, max_n=max_n,
+                threads=threads)
     return out

@@ -16,7 +16,9 @@ prepare stage's shapes (256 documents), and ``budget_route`` at N = 256
 and at route_64k's N = 65,536 (D = 512, alpha = 0.05), in turns:
 baseline, this, this, baseline. Each launch is first held against the
 plain version. ``ngram_score``'s and ``fast_features``' C interfaces
-must agree between the checkouts; ``budget_route``'s baseline may be
+must agree between the checkouts but for the block-size argument a
+checkout from before the autotune knob lacks (both are then timed at
+the default block size); ``budget_route``'s baseline may be
 the two-pass kernel (a ``counts`` scratch, outputs zeroed by the
 caller), which is bound with its own interface. The whole
 ``budget_route()`` op at N = 256 (``route_tau``, the allocations and
@@ -35,35 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import cuda_lib
-
-
-def device_ms(launch, reps: int = 100, warmup: int = 5) -> float:
-    """Device ms per launch over ``reps`` back-to-back launches: CUDA
-    events around the run, elapsed time over the count, after a warm-up.
-    The run is queued behind a sleep kernel, so the card finds every
-    launch queued and runs them without waiting for the host; the sleep
-    is lengthened until the host has queued the whole run before the
-    first event fires (else a small kernel would read the host's
-    launch rate)."""
-    for _ in range(warmup):
-        launch()
-    torch.cuda.synchronize()
-    cycles = 1 << 22
-    for _ in range(8):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        a.record()
-        for _ in range(reps):
-            launch()
-        b.record()
-        queued_ahead = not a.query()
-        b.synchronize()
-        if queued_ahead:
-            return a.elapsed_time(b) / reps
-        cycles *= 4
-    raise RuntimeError("the host could not queue the launches ahead of "
-                       "the card")
+from repro_torch.kernels.autotune_common import device_ms
 
 
 def profiled_ms(launch, reps: int = 20) -> dict:
@@ -160,6 +134,20 @@ TWO_PASS_ROUTE = [cuda_lib.P, cuda_lib.P, cuda_lib.P, cuda_lib.I, cuda_lib.I,
                   cuda_lib.P, cuda_lib.P]
 
 
+def has_threads_knob(kernels_dir: Path, name: str) -> bool:
+    """Whether a checkout's ``name`` kernel takes its block size (the
+    autotune knob) as the ``threads`` argument before the stream."""
+    src = kernels_dir / name / "csrc" / f"{name}.cu"
+    return "int threads, void* stream" in src.read_text()
+
+
+def _bind_knob(lib: ctypes.CDLL, kernel: cuda_lib.CudaKernel, knob: bool):
+    """``kernel``'s C entry in ``lib``, bound with or without the
+    ``threads`` argument before the stream."""
+    types = kernel.argtypes if knob else kernel.argtypes[:-2] + [cuda_lib.P]
+    return _bind_args(lib, kernel.symbol, types)
+
+
 def is_two_pass_route(kernels_dir: Path) -> bool:
     """Whether a checkout's budget_route is the two-pass kernel (its
     source defines the ``route_count`` pass)."""
@@ -194,6 +182,9 @@ def compare(baseline: Path, device) -> dict:
     libs = {"this": cuda_lib.library(),
             "baseline": ctypes.CDLL(str(cuda_lib.build(base_dir)))}
     two_pass = {"this": False, "baseline": is_two_pass_route(base_dir)}
+    knob = {name: {"this": True,
+                   "baseline": has_threads_knob(base_dir, name)}
+            for name in ("ngram_score", "fast_features")}
     ng_in, ff_in, kw = probe_inputs(device)
     b, max_len = ng_in[0].shape
     n, width = ff_in[0].shape
@@ -202,12 +193,14 @@ def compare(baseline: Path, device) -> dict:
     st = cuda_lib.stream_of(device)
 
     def ngram(which):
-        fn = _bind(libs[which], ng_ops.KERNEL)
+        has = knob["ngram_score"][which]
+        fn = _bind_knob(libs[which], ng_ops.KERNEL, has)
+        threads = (ng_ops.DEFAULT_THREADS,) if has else ()
         out = torch.empty(b, dtype=torch.float32, device=device)
 
         def launch():
             fn(*(t.data_ptr() for t in ng_in), b, max_len, 4,
-               out.data_ptr(), st)
+               out.data_ptr(), *threads, st)
 
         def check():
             d = (out.double() - ng_want).abs()
@@ -215,7 +208,9 @@ def compare(baseline: Path, device) -> dict:
         return launch, check
 
     def features(which):
-        fn = _bind(libs[which], ff_ops.KERNEL)
+        has = knob["fast_features"][which]
+        fn = _bind_knob(libs[which], ff_ops.KERNEL, has)
+        threads = (ff_ops.autotune.DEFAULT_THREADS,) if has else ()
         fast = torch.empty((n, 8), dtype=torch.float32, device=device)
         toks = torch.empty((n, kw["max_len"]), dtype=torch.int32,
                            device=device)
@@ -227,7 +222,8 @@ def compare(baseline: Path, device) -> dict:
             fn(*(t.data_ptr() for t in ff_in), n, width, kw["max_len"],
                kw["ws"], kw["scramble"], kw["mangled"], kw["latex_lo"],
                kw["ident_lo"], kw["vocab_size"], kw["bos"], fast.data_ptr(),
-               toks.data_ptr(), mask.data_ptr(), err.data_ptr(), st)
+               toks.data_ptr(), mask.data_ptr(), err.data_ptr(), *threads,
+               st)
 
         def check():
             assert torch.equal(fast, ff_want[0]), "fast_features features"

@@ -46,11 +46,23 @@ N standalone workers that dial in with ``--connect HOST:PORT``. Every
 worker builds its engine on ``--device`` (a standalone worker on its
 own ``--device``); several share one card. Records equal the
 single-node run's; ``wall``, ``docs/s`` and ``busy`` are measured.
+``--status-interval S`` prints a live one-line fleet status to stderr
+every S seconds while such a fleet drains.
 
-Not ported yet, and refused with an argparse error (exit 2) that names
-the ROADMAP item each waits for, rather than substituted:
-``UNPORTED_FLAGS`` below (the scenario lab, the live status line, the
-autotune store).
+Scenario lab (core/scenarios): ``--scenario NAME`` runs one named,
+fully declarative stress scenario over its worker runtime on
+``--device``, asserts byte-identical records against the scenario's
+single-node reference, and reports its goodput / re-issue / dedup /
+cache counters; ``--scenario list`` prints the registry. The fleet
+shape and fault schedule live in the spec, so campaign-shape flags
+conflict with ``--scenario``.
+
+Kernel autotune (kernels/tuning_store): ``--tuning-dir DIR`` opens a
+flock-shared tuning store that this process and every worker of its
+fleet share: the first to meet a packed shape sweeps fast_features'
+block size on the card and publishes the winner, the rest (and a warm
+restart) read it; budget_route and ngram_score launch at any winner the
+store holds. On the CPU the plain versions run, which have no knob.
 """
 from __future__ import annotations
 
@@ -78,12 +90,8 @@ from repro_torch.data.synthetic import (CorpusConfig, generate_corpus,
 from repro_torch.models.encoder import Encoder, init_encoder
 
 # flags of repro.launch.serve that the port has not reached yet, each
-# with the ROADMAP item it waits for
-UNPORTED_FLAGS = {
-    "--scenario": "12d (the scenario lab)",
-    "--status-interval": "12d (the live fleet status)",
-    "--tuning-dir": "11 (autotune)",
-}
+# with the ROADMAP item it waits for: none is left
+UNPORTED_FLAGS: dict[str, str] = {}
 
 
 def bleu_matrix(docs, ccfg, rng, parsers=P.REGRESSION_PARSERS):
@@ -301,6 +309,13 @@ def main(argv=None):
                          "across process restarts)")
     ap.add_argument("--cache-max-bytes", type=int, default=None,
                     help="LRU byte budget for --cache-dir")
+    ap.add_argument("--tuning-dir", default=None,
+                    help="persist kernel autotune winners in a "
+                         "flock-shared TuningStore under this directory "
+                         "(kernels/tuning_store); worker processes share "
+                         "one store, so block-size sweeps run once per "
+                         "shape across the fleet and a warm restart "
+                         "re-sweeps nothing")
     ap.add_argument("--adaptive-rounds", type=int, default=0,
                     help=">0: dispatch through the adaptive "
                          "CampaignController with this many rounds "
@@ -327,28 +342,32 @@ def main(argv=None):
                     help="write the fleet-folded metrics registry "
                          "(counters, gauges, log2-bucket latency "
                          "histograms) as Prometheus text to FILE")
+    ap.add_argument("--status-interval", type=float, default=0.0,
+                    metavar="S",
+                    help="print a live one-line status to stderr every "
+                         "S seconds while the worker fleet drains "
+                         "(docs/s, alpha, cache hit rate, in-flight, "
+                         "re-issues; needs --workers; 0 disables)")
+    ap.add_argument("--scenario", default=None, metavar="NAME",
+                    help="run one named stress scenario from the "
+                         "scenario lab (core/scenarios) on --device and "
+                         "report its counters; 'list' prints the "
+                         "registry. The fleet shape, fault schedule, and "
+                         "retune settings live in the spec, so "
+                         "campaign-shape flags conflict with this one")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device for routing inputs and scoring: "
                          "cuda (default; an error without a card) or cpu")
-    for flag in UNPORTED_FLAGS:
-        ap.add_argument(flag, nargs="?", const=True, default=None,
-                        help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
-    given = [f for f in UNPORTED_FLAGS
-             if getattr(args, f[2:].replace("-", "_")) is not None]
-    if given:
-        ap.error("; ".join(f"{f} waits for ROADMAP item {UNPORTED_FLAGS[f]}"
-                           for f in given)
-                 + ": not ported to repro_torch yet; run "
-                   "repro.launch.serve for it, or drop it")
     if args.connect is not None:
         # standalone fabric worker: everything about the campaign —
         # corpus, router, engine config — arrives from the coordinator
         # in the admission reply, so no campaign flag makes sense here;
         # the worker runs on its own --device
         busy = [flag for flag, changed in (
+            ("--scenario", args.scenario is not None),
             ("--workers", args.workers != 0),
             ("--fabric-workers", args.fabric_workers != 0),
             ("--coordinator", args.coordinator is not None),
@@ -370,6 +389,66 @@ def main(argv=None):
             ap.error(f"--device {args.device}: {e}")
         run_worker(addr, device=device)
         return None
+
+    if args.scenario:
+        from repro_torch.core.scenarios import (SCENARIOS, get_scenario,
+                                                run_scenario)
+        if args.scenario == "list":
+            for name, spec in SCENARIOS.items():
+                print(f"{name:24s} [{spec.runtime}] {spec.description}")
+            return None
+        conflicts = [flag for flag, changed in (
+            ("--nodes", args.nodes != 1),
+            ("--workers", args.workers != 0),
+            ("--fabric-workers", args.fabric_workers != 0),
+            ("--coordinator", args.coordinator is not None),
+            ("--pools", args.pools is not None),
+            ("--adaptive-rounds", args.adaptive_rounds != 0),
+            ("--quality-probe-rate", args.quality_probe_rate != 0.0),
+            ("--alpha-bounds", args.alpha_bounds is not None),
+            ("--warm-cache", args.warm_cache),
+            ("--cache-dir", args.cache_dir is not None),
+            ("--tuning-dir", args.tuning_dir is not None),
+            ("--heartbeat-timeout", args.heartbeat_timeout is not None),
+            ("--transport", args.transport is not None),
+            ("--metrics-out", args.metrics_out is not None),
+            ("--status-interval", args.status_interval != 0.0),
+        ) if changed]
+        if conflicts:
+            ap.error(f"--scenario {args.scenario} is fully declarative "
+                     f"(fleet topology, fault schedule, and retune "
+                     f"settings all live in the scenario spec); drop "
+                     f"{', '.join(conflicts)}, or run those campaign "
+                     f"flags without --scenario")
+        try:
+            spec = get_scenario(args.scenario)
+        except KeyError as e:
+            ap.error(e.args[0])
+        try:
+            device = device_lib.resolve(args.device)
+        except (RuntimeError, ValueError) as e:
+            ap.error(f"--device {args.device}: {e}")
+        res = run_scenario(spec, trace_dir=args.trace_dir, device=device)
+        print(f"[serve] scenario {res.name} [{res.runtime}] "
+              f"nodes={res.n_nodes} docs={res.n_docs} "
+              f"records_match={res.records_match} "
+              f"goodput={res.goodput_docs_per_s:.1f}docs/s "
+              f"reissued={res.reissued} "
+              f"dup_dropped={res.duplicates_dropped} "
+              f"cache={res.cache_hits}h/{res.cache_misses}m "
+              f"warm={res.warm_cache_hits}h/{res.warm_cache_misses}m")
+        if res.alpha_trajectory:
+            print("[serve]   alpha "
+                  + "->".join(f"{a:.2f}" for a in res.alpha_trajectory))
+        if res.joiner_docs is not None:
+            print(f"[serve]   elastic joiners served "
+                  f"{res.joiner_docs} docs")
+        if args.trace_dir:
+            print(f"[serve] trace written to {args.trace_dir}; summarize "
+                  f"with: python -m repro_torch.launch.obs_report "
+                  f"--trace-dir {args.trace_dir}")
+        return res.metrics()
+
     if args.docs < 3:
         ap.error(f"--docs must be >= 3 (got {args.docs}): the corpus is "
                  f"split 1/3 train, 2/3 test")
@@ -435,6 +514,16 @@ def main(argv=None):
                  f"heartbeat interval (got {args.heartbeat_timeout}); a "
                  f"deadline at or below the beat period would re-issue "
                  f"healthy workers' batches")
+    if args.status_interval < 0:
+        ap.error(f"--status-interval must be >= 0 (got "
+                 f"{args.status_interval}); 0 disables the live status "
+                 f"line")
+    if args.status_interval > 0 and not (args.workers
+                                         or args.fabric_workers):
+        ap.error("--status-interval only applies to the process and "
+                 "fabric runtimes (the live status line is printed "
+                 "from the worker-fleet drain loop); add --workers or "
+                 "--fabric-workers N > 0")
     if ((args.workers or args.fabric_workers) and args.warm_cache
             and not args.cache_dir):
         ap.error("--warm-cache with a real worker fleet needs "
@@ -488,6 +577,13 @@ def main(argv=None):
     except (RuntimeError, ValueError) as e:
         ap.error(f"--device {args.device}: {e}")
 
+    if args.tuning_dir:
+        # coordinator-side store handle: router training and single-node
+        # runs consult (and, on the card, populate) the same winners the
+        # worker fleet shares via WorkerSpec.tuning_dir
+        from repro_torch.kernels import tuning_store
+        tuning_store.configure(args.tuning_dir)
+
     ccfg = CorpusConfig(n_docs=args.docs, seed=args.seed)
     docs = generate_corpus(ccfg)
     n_train = args.docs // 3
@@ -521,12 +617,13 @@ def main(argv=None):
                                  if args.heartbeat_timeout is not None
                                  else 30.0),
             transport=args.transport or "shm",
+            tuning_dir=args.tuning_dir,
             coordinator=args.coordinator or "127.0.0.1:0",
             # an explicit --coordinator means standalone workers dial
             # in from elsewhere; without it serve provisions its
             # own loopback fleet
             fabric_spawn=args.coordinator is None,
-            obs=obs_on)
+            obs=obs_on, status_interval_s=args.status_interval)
         if args.adaptive_rounds:
             probe = (QualityProbeConfig(probe_rate=args.quality_probe_rate,
                                         seed=args.seed)

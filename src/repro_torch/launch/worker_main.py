@@ -12,7 +12,11 @@ spec's ``(module, attr)`` factory pairs, rebuilds the router's encoder
 from the shipped numpy on that device
 (``core/specs.materialize_router``), opens its own handle on the shared
 ``DiskResultStore`` directory (the store's WAL appends are
-multi-process safe), and builds an ``AdaParseEngine`` whose
+multi-process safe), configures the fleet-shared kernel tuning store
+when the spec names one (``kernels/tuning_store``: a launch-knob winner
+any worker or an earlier fleet published is a lookup here, and a miss
+this worker sweeps on the card is published for the rest), and builds
+an ``AdaParseEngine`` whose
 content-addressed cache tag matches every other worker's — the
 property that lets N processes share one result store and still
 replay byte-identically. Several workers share one card, each with its
@@ -30,7 +34,10 @@ Protocol (core/workers dataclasses over the two queues; the worker's
 - ``Heartbeat``    -> sent on a fixed interval from a daemon thread
   (and once at startup, the ready signal). The coordinator treats a
   missed deadline as a wedged worker and re-issues its in-flight work.
-- ``None``         -> shutdown sentinel; flush the store and exit.
+- ``None``         -> shutdown sentinel; flush the store and exit. A
+  worker whose coordinator process has died takes that as the sentinel
+  too (``_next_item``): it never blocks for ever on its task queue, so
+  it never outlives its coordinator holding a CUDA context.
 
 With the shm transport (``WorkerSpec.shm_base`` set) the bulk payloads
 ride in ``core/shm`` arena slots instead of the queues: inbound tasks
@@ -49,9 +56,12 @@ the coordinator.
 With tracing on (``WorkerSpec.obs_enabled``) the metrics snapshot the
 worker piggybacks on its replies and heartbeats also carries, as
 gauges, the launch count of every hand-written kernel in this process
-(``kernel.launches.<name>.n<worker>``) and, on a card, its peak
-allocated bytes (``worker.peak_bytes.n<worker>``): the launches happen
-in the worker, so only the worker can count them.
+(``kernel.launches.<name>.n<worker>``), its autotune sweeps
+(``autotune.sweeps.n<worker>``, ``autotune_common.sweeps_run()``) and
+the keys of its tuning store (``autotune.store_keys.n<worker>``, -1
+without one) and, on a card, its peak allocated bytes
+(``worker.peak_bytes.n<worker>``): the launches and sweeps happen in
+the worker, so only the worker can count them.
 
 A worker-side exception never wedges the pool: the traceback travels
 back as ``BatchDone.error``. ``wall_s`` on every reply is the real
@@ -94,6 +104,11 @@ def _build_engine(spec):
         if mismatch:
             raise RuntimeError(f"worker {spec.worker_id} spec drifted "
                                f"in transit: {mismatch}")
+    if getattr(spec, "tuning_dir", None) is not None:
+        # one flock-shared tuning store per fleet: a knob swept by any
+        # worker (or a previous fleet) is a lookup for the rest
+        from repro_torch.kernels import tuning_store
+        tuning_store.configure(spec.tuning_dir)
     cache = (B.DiskResultStore(spec.cache_dir,
                                max_bytes=spec.cache_max_bytes)
              if spec.cache_dir is not None else None)
@@ -118,14 +133,19 @@ def _host_prep(prep):
 
 
 def _device_gauges(wid: int, dev) -> None:
-    """Publish this process's kernel launch counts, and its peak
-    card memory, as gauges of the metrics snapshot the worker ships."""
+    """Publish this process's kernel launch counts, autotune sweeps and
+    tuning-store keys, and its peak card memory, as gauges of the
+    metrics snapshot the worker ships."""
     from repro_torch.core import obs
-    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels import autotune_common, cuda_lib, tuning_store
 
     reg = obs.metrics()
     for name, n in cuda_lib.launch_counts().items():
         reg.gauge(f"kernel.launches.{name}.n{wid}", n)
+    reg.gauge(f"autotune.sweeps.n{wid}", autotune_common.sweeps_run())
+    store = tuning_store.get_store()
+    reg.gauge(f"autotune.store_keys.n{wid}",
+              len(store) if store is not None else -1)
     if dev.type == "cuda":
         import torch
 
@@ -201,6 +221,26 @@ def _encode_reply(shm_t, done) -> None:
             done.payload, done.payload_kind = ref, "prep"
 
 
+#: seconds between checks that the coordinator is still alive
+_PARENT_POLL_S = 1.0
+
+
+def _next_item(task_q):
+    """The next item on the task queue, or None (the shutdown sentinel)
+    once the coordinator process has died: the wait polls, so an
+    orphaned worker exits instead of blocking for ever."""
+    import multiprocessing
+    import queue
+
+    parent = multiprocessing.parent_process()
+    while True:
+        try:
+            return task_q.get(timeout=_PARENT_POLL_S)
+        except queue.Empty:
+            if parent is not None and not parent.is_alive():
+                return None
+
+
 def worker_loop(task_q, result_q) -> None:
     """Process main: take the ``WorkerSpec`` (the first item on the task
     queue), build the engine, heartbeat, serve tasks until the shutdown
@@ -208,7 +248,9 @@ def worker_loop(task_q, result_q) -> None:
     from repro_torch.core import obs
     from repro_torch.core.workers import BatchDone, Heartbeat
 
-    spec = task_q.get()
+    spec = _next_item(task_q)
+    if spec is None:
+        return
     wid = spec.worker_id
     current: list[int | None] = [None]
     muted = [False]
@@ -269,7 +311,7 @@ def worker_loop(task_q, result_q) -> None:
         if fault else {}
     n_done = 0
     while True:
-        task = task_q.get()
+        task = _next_item(task_q)
         if task is None:
             break
         if wid in crash_after and n_done >= crash_after[wid]:

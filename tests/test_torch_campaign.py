@@ -57,6 +57,7 @@ from repro_torch.kernels.budget_route.ops import (POSITIVE_TAU,
 from repro_torch.launch import obs_report as TOR
 from repro_torch.launch import serve as TS
 from repro_torch.models.encoder import encoder_from_jax_params
+from torch_spawn_env import one_thread_workers  # noqa: F401
 
 PROBE_TOL = 1e-9        # probe qualities, tests/test_torch_metrics.py
 
@@ -550,10 +551,12 @@ def test_real_worker_runtimes_raise_instead_of_running_locally(
         shared, runtime, item):
     """The real worker runtimes (ROADMAP ``item``, ported) never fall
     back to the in-process fleet: ``make_worker_pool`` builds their own
-    pool class, and what they do not support — the autotune store of
-    item 11 — raises before any worker spawns instead of being
-    ignored. Their campaigns run in ``tests/test_torch_workers.py`` and
-    ``tests/test_torch_fabric.py``."""
+    pool class, and what they do not support — the simulated speed
+    factors of the local fleet — raises before any worker spawns
+    instead of being ignored, as in the JAX package. Their campaigns
+    run in ``tests/test_torch_workers.py`` and
+    ``tests/test_torch_fabric.py``; their autotune store (item 11) in
+    ``tests/test_torch_autotune.py``."""
     from repro_torch.core.fabric import FabricWorkerPool
 
     jc, jtest, jr, tc, ttest, tr = shared
@@ -561,12 +564,12 @@ def test_real_worker_runtimes_raise_instead_of_running_locally(
            "fabric": FabricWorkerPool}[runtime]
     assert not issubclass(cls, TW.LocalWorkerPool), item
     xcfg = TC.ExecutorConfig(n_nodes=2, runtime=runtime,
-                             tuning_dir="tuning")
+                             node_speed_factors=[1.0, 4.0])
     ex = TC.CampaignExecutor(TE.EngineConfig(batch_size=16), xcfg, tr, tc,
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="simulation-only"):
         ex.run(ttest)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="simulation-only"):
         TW.make_worker_pool(TE.EngineConfig(), ex.xcfg, tr, tc, 2, [0, 1],
                             [0, 1], None, device="cpu")
 

@@ -923,3 +923,134 @@ def test_worker_fleet_campaign_cuda_equals_cpu(dev, runtime):
             n = g[f"kernel.launches.fast_features.n{w}"]
             assert (n > 0) == want_launches, (d, w, n)
         assert ("worker.peak_bytes.n0" in g) == want_launches
+
+
+# -- autotune knobs and the scenario lab on the card ------------------------
+
+
+def _knob_cases(dev):
+    """(name, candidates, default, make) a kernel each: make(c) -> (one
+    launch at knob value c into fresh outputs, the outputs)."""
+    from repro_torch.kernels.budget_route import autotune as bra
+    from repro_torch.kernels.fast_features import autotune as ffa
+    from repro_torch.kernels.ngram_score import autotune as nga
+
+    packed = ff.pack_routing_batch(_pages(300, 7), max_len=512)
+    f_in = [torch.from_numpy(np.asarray(a, np.int32)).to(dev) for a in (
+        packed.tok_matrix, packed.n_tok, packed.first_len, packed.n_pages,
+        packed.n_empty)]
+    n = len(packed.n_tok)
+    kw = dict(max_len=512, ws=2, scramble=3, mangled=4, latex_lo=8010,
+              ident_lo=8510, vocab_size=10000, bos=1)
+
+    def ff_make(c):
+        outs = [torch.full((n, 8), -7.0, device=dev),
+                torch.full((n, 512), -7, dtype=torch.int32, device=dev),
+                torch.full((n, 512), -7.0, device=dev)]
+        err = torch.zeros(1, dtype=torch.int32, device=dev)
+        return (lambda: ff._launch(*f_in, *outs, err, threads=c, **kw)), outs
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    b, L = 200, 300
+    n_in = [torch.randint(0, 40, (b, L), generator=g, dtype=torch.int32,
+                          device=dev) for _ in range(2)]
+    n_in += [torch.randint(0, L + 1, (b,), generator=g, dtype=torch.int32,
+                           device=dev) for _ in range(2)]
+
+    def ng_make(c):
+        out = torch.full((b,), -7.0, device=dev)
+        return (lambda: ng._launch(*n_in, out, max_n=4, threads=c)), [out]
+
+    rn, d = 65536 + 999, 96
+    scores = torch.round(torch.randn(rn, generator=g, device=dev) * 4) / 4
+    tokens = torch.randint(0, 1000, (rn, d), generator=g, dtype=torch.int32,
+                           device=dev)
+    cap = br.capacity_floor(0.05, rn)
+    tau = br.route_tau(scores, cap)
+
+    def br_make(c):
+        outs = [torch.full((cap, d), -7, dtype=torch.int32, device=dev),
+                torch.full((cap,), -7, dtype=torch.int32, device=dev),
+                torch.full((1,), -7, dtype=torch.int32, device=dev)]
+        return (lambda: br._launch(scores, tokens, tau, *outs, capacity=cap,
+                                   block_rows=c)), outs
+
+    return {"fast_features": (ffa.DEFAULT_CANDIDATES, ffa.DEFAULT_THREADS,
+                              ff_make),
+            "ngram_score": (nga.DEFAULT_CANDIDATES, nga.DEFAULT_THREADS,
+                            ng_make),
+            "budget_route": (bra.DEFAULT_CANDIDATES, bra.DEFAULT_BLOCK_ROWS,
+                             br_make)}
+
+
+@pytest.mark.parametrize("name", ["fast_features", "ngram_score",
+                                  "budget_route"])
+def test_autotune_candidates_give_the_default_launchs_bits(dev, name):
+    """Every candidate of a kernel's launch knob writes every output
+    element, bit-equal to the default launch's (fast_features on 300
+    documents at max_len 512, ngram_score on a dense small vocabulary
+    with L = 300, budget_route on a cooperative grid of N = 66,535)."""
+    cands, default, make = _knob_cases(dev)[name]
+    launch, want = make(default)
+    launch()
+    torch.cuda.synchronize()
+    for c in cands:
+        launch, got = make(c)
+        launch()
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (name, c)
+
+
+def test_tuning_dir_fleet_sweeps_cold_then_reads_warm_on_cuda(dev,
+                                                              tmp_path):
+    """A 2-worker process fleet over one tuning_dir on the card: the cold
+    fleet sweeps fast_features (the workers' sweep counts sum above 0)
+    and publishes a ``v1|fast_features|...|<card>|device`` key; a fresh
+    fleet over the same directory sweeps 0 times and leaves the store's
+    bytes as they were; both record sets equal the CPU fleet's."""
+    from repro_torch.core import engine as TE
+    from repro_torch.core.campaign import CampaignExecutor, ExecutorConfig
+    from repro_torch.kernels import tuning_store
+    from repro_torch.launch import serve
+
+    ccfg, docs = _campaign_corpus()
+    router = serve.build_ft_router(docs[:75], ccfg,
+                                   np.random.RandomState(1), device="cpu")
+    ecfg = TE.EngineConfig(alpha=0.1, batch_size=16)
+    tdir = tmp_path / "tuning"
+    xcfg = ExecutorConfig(n_nodes=2, runtime="process", obs=True,
+                          tuning_dir=str(tdir))
+    cpu = CampaignExecutor(ecfg, ExecutorConfig(n_nodes=2, runtime="process"),
+                           router, ccfg, device="cpu").run(docs[75:])
+
+    def files():
+        return {p.name: p.read_bytes() for p in tdir.iterdir()
+                if not p.name.startswith(".")}
+
+    sweeps = []
+    for _ in ("cold", "warm"):
+        res = CampaignExecutor(ecfg, xcfg, router, ccfg,
+                               device="cuda").run(docs[75:])
+        _same_records(res.records, cpu.records)
+        g = res.obs_metrics["gauges"]
+        sweeps.append(sum(g[f"autotune.sweeps.n{w}"] for w in (0, 1)))
+        if len(sweeps) == 1:
+            cold_files = files()
+    assert sweeps[0] > 0 and sweeps[1] == 0, sweeps
+    assert files() == cold_files
+    name = torch.cuda.get_device_name(0)
+    keys = tuning_store.TuningStore(str(tdir)).keys()
+    assert any(k.startswith("v1|fast_features|") and
+               k.endswith(f"|{name}|device") for k in keys), keys
+
+
+def test_elastic_join_leave_on_cuda_joiner_serves(dev):
+    """The elastic fabric scenario on the card: the records equal the
+    single-node engine's (inside ``run_scenario``), the crash re-issues,
+    and the joiner, started mid-campaign, serves documents."""
+    from repro_torch.core.scenarios import SCENARIOS, run_scenario
+
+    res = run_scenario(SCENARIOS["elastic_join_leave"], device="cuda")
+    assert res.records_match and res.reissued >= 1
+    assert res.joiner_docs > 0

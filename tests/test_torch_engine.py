@@ -187,24 +187,30 @@ def test_serve_ft_matches_jax():
 @pytest.mark.parametrize("argv", [
     ["--fabric-workers", "-1"], ["--workers", "-1"],
     ["--heartbeat-timeout", "5"], ["--transport", "pickle"],
-    ["--coordinator", "127.0.0.1:0"], ["--scenario", "list"],
-    ["--status-interval", "1"], ["--tuning-dir", "tuning"],
+    ["--coordinator", "127.0.0.1:0"], ["--scenario", "no_such_scenario"],
+    ["--status-interval", "1"],
+    ["--tuning-dir", "tuning", "--scenario", "bursty_arrivals"],
     ["--device", "tpu"], ["--prefetch-depth", "-1"],
 ])
 def test_serve_rejects_unported_flags(argv, capsys):
-    """The flags still waiting for their ROADMAP item exit 2 and name it
-    (the campaign flags of item 12a run: tests/test_torch_campaign.py).
-    The worker and fabric flags of items 12b and 12c are ported and run
-    (tests/test_torch_workers.py, tests/test_torch_fabric.py); misused
-    — a negative fleet, or a flag without the runtime it needs — they
-    exit 2 with the reference's messages."""
+    """Every flag of ``repro.launch.serve`` is ported (``UNPORTED_FLAGS``
+    is empty; the campaign, worker, fabric, scenario and autotune flags
+    run in tests/test_torch_{campaign,workers,fabric,scenarios,autotune}
+    .py). Misused — a negative fleet, an unknown scenario, a flag
+    without the runtime it needs or beside ``--scenario``, a device the
+    port does not know — each exits 2, with the reference's message
+    wherever the reference has the flag."""
+    assert TS.UNPORTED_FLAGS == {}
     with pytest.raises(SystemExit) as e:
         TS.main(["--docs", "30", "--device", "cpu"] + argv)
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert "error" in err
-    if argv[0] in TS.UNPORTED_FLAGS:
-        assert f"ROADMAP item {TS.UNPORTED_FLAGS[argv[0]]}" in err
+    if argv[0] != "--device":
+        with pytest.raises(SystemExit) as e:
+            JS.main(["--docs", "30"] + argv)
+        assert e.value.code == 2
+        assert err.splitlines()[-1] == capsys.readouterr().err.splitlines()[-1]
 
 
 def test_entry_points_default_to_cuda(corpora, ft_routers):

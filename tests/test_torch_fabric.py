@@ -40,6 +40,7 @@ from repro_torch.core.fabric import (MAX_FRAME_BYTES, MISMATCHED_FINGERPRINT,
 from repro_torch.core.workers import ProcessWorkerPool
 from repro_torch.data.synthetic import CorpusConfig, generate_corpus
 from repro_torch.launch import serve as TS
+from torch_spawn_env import one_thread_workers  # noqa: F401
 
 CPU = "cpu"
 ROOT = Path(__file__).resolve().parents[1]
@@ -293,11 +294,6 @@ def test_fabric_runtime_rejects_bad_config(fleet):
             ecfg, ExecutorConfig(n_nodes=2, runtime="fabric",
                                  fabric=FabricElastic(
                                      join_after=((7, 1),))),
-            tr, tc, device=CPU).run(test)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        CampaignExecutor(
-            ecfg, ExecutorConfig(n_nodes=2, runtime="fabric",
-                                 tuning_dir="tuning"),
             tr, tc, device=CPU).run(test)
 
 

@@ -60,7 +60,13 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.core.specs", "repro_torch.core.shm",
                  "repro_torch.core.fabric",
                  "repro_torch.launch.worker_main",
-                 "repro_torch.launch.fabric_worker"):
+                 "repro_torch.launch.fabric_worker",
+                 "repro_torch.core.scenarios",
+                 "repro_torch.kernels.tuning_store",
+                 "repro_torch.kernels.autotune_common",
+                 "repro_torch.kernels.fast_features.autotune",
+                 "repro_torch.kernels.budget_route.autotune",
+                 "repro_torch.kernels.ngram_score.autotune"):
         assert name in res["modules"]
 
 

@@ -25,6 +25,7 @@ from repro_torch.core.campaign import (CampaignExecutor, ExecutorConfig,
 from repro_torch.core.engine import EngineConfig, ParseRecord
 from repro_torch.data.synthetic import CorpusConfig, Document, generate_corpus
 from repro_torch.launch import serve as TS
+from torch_spawn_env import one_thread_workers  # noqa: F401
 
 CPU = "cpu"
 

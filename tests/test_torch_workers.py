@@ -9,7 +9,7 @@ own local (in-process) run. Also: the coordinator's bookkeeping
 regressions on a bare pool, the router's portable form (its
 fingerprint survives the rebuild on the worker's device), an llm
 forwarded prep that crosses processes as numpy only, a cuda worker on a
-host without a card, the refused autotune store, and ``serve
+host without a card, and ``serve
 --workers`` against the reference's metric dict.
 
 The flap scenario keeps the reference's assertions; its mute slowdown
@@ -19,11 +19,15 @@ inside the 1.0 s deadline a queue depth of one grants).
 """
 import dataclasses
 import io
+import os
 import pickle
 import re
+import subprocess
+import sys
 import time
 from collections import deque
 from contextlib import redirect_stdout
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -47,8 +51,10 @@ from repro_torch.data.synthetic import CorpusConfig, generate_corpus
 from repro_torch.launch import serve as TS
 from repro_torch.launch import worker_main as WM
 from repro_torch.models.encoder import init_encoder
+from torch_spawn_env import one_thread_workers  # noqa: F401
 
 CPU = "cpu"
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def _same_records(a: dict, b: dict):
@@ -319,8 +325,8 @@ def test_straggler_flap_recovers_without_overcommit(port, single_run):
 
 
 def test_process_runtime_rejects_simulation_only_config(port):
-    """Actionable errors before any process spawns; the autotune store
-    (ROADMAP item 11) is refused, never ignored."""
+    """Actionable errors before any process spawns: simulated speed
+    factors and in-memory result stores are local-runtime concepts."""
     tc, td, tr = port
     ecfg = EngineConfig(alpha=0.1, batch_size=16)
     with pytest.raises(ValueError, match="simulation-only"):
@@ -341,12 +347,6 @@ def test_process_runtime_rejects_simulation_only_config(port):
         CampaignExecutor(
             ecfg, ExecutorConfig(n_nodes=2, runtime="threads"),
             tr, tc, device=CPU).run(td[75:])
-    for runtime in ("process", "fabric"):
-        xcfg = ExecutorConfig(n_nodes=2, runtime=runtime,
-                              tuning_dir="tuning")
-        with pytest.raises(NotImplementedError, match="item 11"):
-            TW.make_worker_pool(ecfg, xcfg, tr, tc, 2, [0, 1], [0, 1],
-                                None, device=CPU)
 
 
 def test_reissue_candidates_exclude_precedes_pool_short_circuit():
@@ -522,3 +522,55 @@ def test_serve_workers_matches_reference():
     assert t.pop("throughput_docs_per_node_s") > 0
     j.pop("throughput_docs_per_node_s")
     assert t == j
+
+
+_ORPHANING_COORDINATOR = r"""
+import os, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+from repro_torch.core import workers as TW
+from repro_torch.core.campaign import ExecutorConfig
+from repro_torch.core.engine import EngineConfig
+from repro_torch.data.synthetic import CorpusConfig, generate_corpus
+from repro_torch.launch.serve import build_ft_router
+
+if __name__ == "__main__":
+    tc = CorpusConfig(n_docs=30, seed=0)
+    tr = build_ft_router(generate_corpus(tc)[:10], tc,
+                         np.random.RandomState(1), device="cpu")
+    pool = TW.ProcessWorkerPool(EngineConfig(), ExecutorConfig(
+        n_nodes=2, runtime="process", transport="pickle"), tr, tc, 2,
+        [0, 1], [0, 1], None, device="cpu")
+    print(" ".join(str(p.pid) for p in pool.procs), flush=True)
+    os._exit(0)                       # dies without closing its pool
+"""
+
+
+def _alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    try:                              # a zombie is not alive
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split(") ", 1)[1][0] != "Z"
+    except OSError:
+        return False
+
+
+def test_workers_exit_when_their_coordinator_dies():
+    """A coordinator that dies without closing its pool leaves no worker
+    behind: each worker polls its task queue and takes the death of its
+    coordinator as the shutdown sentinel, where it used to block on the
+    queue for ever (holding its engine, and on a card its CUDA
+    context)."""
+    out = subprocess.run(
+        [sys.executable, "-c", _ORPHANING_COORDINATOR, str(ROOT / "src")],
+        capture_output=True, text=True, timeout=180, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-2000:]
+    pids = [int(p) for p in out.stdout.split()]
+    assert len(pids) == 2
+    deadline = time.time() + 60.0
+    while any(_alive(p) for p in pids) and time.time() < deadline:
+        time.sleep(0.2)
+    assert not any(_alive(p) for p in pids), pids
