@@ -165,7 +165,30 @@ Phases (one JSON line each; any failure raises and exits non-zero):
 12. lm_small_parity: the reduced f32 qwen3-tiny and danube-tiny (window
    32) run ``prefill`` and ``decode_step`` on cuda (the kernel) and on
    cpu (the plain version); the logits must agree within 2e-5.
-13. recsys: ``recsys_scores`` of the full-width bf16 ``dlrm-mlperf``
+13. lm_train: the full-width bf16 ``qwen3-1.7b`` as registered (28
+   layers, d=2048, untied head, remat, ``xla_flash`` attention with
+   chunks of 512 and 1024; random weights from a seeded CUDA generator)
+   trained through ``launch.specs.lm_train_step`` with
+   ``chain_clip(adamw(3e-4, 0.1), 1.0)`` on ``_lm_train_batch`` batches
+   of 2 x 4096 (``train_4k`` is global batch 256 x 4096; cut to one
+   card): one warm-up step and 3 timed steps (seeds 1-4): ms a step,
+   tokens/s, peak GB, the losses, model TFLOP/s (6 x matmul params x
+   tokens plus 3 x the causal attention) against 989 TFLOP/s bf16, and a
+   torch.profiler pass over one step (busy share, top kernels,
+   ``cudaLaunchKernel`` calls). Holds: finite losses, the first within
+   2.0 of ln V and within 1e-2 relative of a no-grad float32 forward of
+   the same params and batch, every parameter leaf moved by the first
+   step, and no flash_attention launch (training attends through
+   ``xla_flash``, as the JAX package trains).
+14. lm_train_small_parity: the reduced f32 qwen3-tiny (chunks 16/32, so
+   ``xla_flash`` and its backward run) from one exported init, 5 steps
+   on cuda and on cpu (losses within rtol 1e-5, params within 1e-4) and
+   twice on cuda (bit-equal); ``launch.train.main`` on cuda, 6 steps
+   against 3, a checkpoint and a resume to 6 (losses and final state
+   bit-equal), the cuda checkpoint restored on the cpu bit for bit;
+   Adafactor and ``compressed_gradients`` (int8, top-k) on cuda against
+   cpu over 20 steps, within 1e-6.
+15. recsys: ``recsys_scores`` of the full-width bf16 ``dlrm-mlperf``
    (the 187,767,808 x 128 table, 48.07 GB, drawn in place from a seeded
    CUDA generator) at ``serve_p99`` (batch 512) and ``serve_bulk`` (batch
    262,144), batches from ``launch.specs._recsys_batch`` (seed 0):
@@ -173,9 +196,9 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    finite scores in (0, 1) bit-equal to a forward whose lookup is a
    plain ``index_select``, peak memory, and a torch.profiler pass over
    one ``serve_bulk`` forward.
-14. recsys_small_parity: the reduced f32 dlrm-tiny on cuda against cpu,
+16. recsys_small_parity: the reduced f32 dlrm-tiny on cuda against cpu,
    scores within 2e-5.
-15. gnn: ``segment_matmul(x, src, dst, w, n_nodes)`` at ``ogb_products``
+17. gnn: ``segment_matmul(x, src, dst, w, n_nodes)`` at ``ogb_products``
    (uniform random edges from a seeded CUDA generator, d_out 128, f32):
    a torch.profiler pass over the first (cold, uncounted) step at full
    size, then wall ms of a warm step and of its argsort, gather and
@@ -2420,12 +2443,18 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def device_profile(fn) -> dict:
+def device_profile(fn, top: int = 5, split: dict | None = None) -> dict:
     """One ``fn()`` under torch.profiler: host-clock wall time, the summed
     device time of the kernels and copies it ran, their share of the wall
-    time (the device's busy share), their count, the five longest, and
+    time (the device's busy share), their count, the ``top`` longest, and
     the four CUDA runtime calls (cudaMalloc, cudaLaunchKernel, ...) with
-    the most host time."""
+    the most host time, and the count of kernel launch calls. ``split``
+    (name -> regex) also sums the device ms of the kernels whose name
+    each regex finds first, the rest under "other". ``trace_stop_s`` and
+    ``aggregate_s``: the host seconds the profiler then took to stop and
+    to aggregate its events."""
+    import re
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2437,10 +2466,23 @@ def device_profile(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        t_stop = time.perf_counter()
+    t_agg = time.perf_counter()
+    averages = prof.key_averages()      # aggregated once: it walks
+    ops = [e for e in averages            # every event of the trace
+           if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in ops) / 1e3
-    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:5]
-    runtime = sorted((e for e in prof.key_averages()
+    by_time = sorted(ops, key=lambda e: -e.self_device_time_total)
+
+    def split_ms(patterns):
+        out = dict.fromkeys([*patterns, "other"], 0.0)
+        for e in ops:
+            name = next((k for k, rx in patterns.items()
+                         if re.search(rx, e.key)), "other")
+            out[name] += e.self_device_time_total / 1e3
+        return out
+
+    runtime = sorted((e for e in averages
                       if e.device_type == DeviceType.CPU
                       and e.key.startswith("cuda")),
                      key=lambda e: -e.self_cpu_time_total)[:4]
@@ -2448,9 +2490,16 @@ def device_profile(fn) -> dict:
             "busy_share": device_ms / wall_ms,
             "device_ops": sum(e.count for e in ops),
             "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
-                    for e in top],
+                    for e in by_time[:top]],
             "host_runtime_top": [[e.key, e.self_cpu_time_total / 1e3,
-                                  e.count] for e in runtime]}
+                                  e.count] for e in runtime],
+            "launch_calls": sum(e.count for e in averages
+                                if e.key in ("cudaLaunchKernel",
+                                             "cudaLaunchKernelExC",
+                                             "cuLaunchKernel")),
+            **({"split_ms": split_ms(split)} if split else {}),
+            "trace_stop_s": t_agg - t_stop,
+            "aggregate_s": time.perf_counter() - t_agg}
 
 
 def phase_lm() -> dict:
@@ -2599,6 +2648,270 @@ def phase_lm_small_parity() -> None:
         out[cfg.name] = max(errs)
     emit({"phase": "lm_small_parity", "prefill_len": 100, "decode_steps": 4,
           "max_abs_err": out})
+
+
+LM_TRAIN_BATCH = 2       # cut from train_4k's 256 (the TPU pod's global
+#                          batch; the port, like the reference, does no
+#                          gradient accumulation)
+LM_TRAIN_STEPS = 3       # timed steps, after one warm-up step
+LM_SMALL_STEPS = 5       # lm_train_small_parity: steps a device
+OPT_SMALL_STEPS = 20     # Adafactor and compression: steps a device
+# the training step's device time by kernel kind (first match wins):
+# float32 GEMMs (xla_flash's score and PV products; TF32 is off), the
+# other GEMMs (bf16), dtype casts and copies, reductions, and the other
+# elementwise kernels
+LM_TRAIN_SPLIT = {"gemm_f32": r"sgemm|f32f32_f32",
+                  "gemm_bf16": r"gemm|nvjet|cutlass",
+                  "copy": r"copy",
+                  "reduce": r"reduce",
+                  "elementwise": r"elementwise"}
+
+
+def lm_train_flops(cfg, b: int, s: int) -> float:
+    """Model FLOPs of one training step: 6 x the matmul params (the
+    untied head included, the embedding gather not) x tokens, plus 3 x
+    the causal attention's 4·B·H·S²·Dh/2 a layer."""
+    d, h, hk, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim, cfg.d_ff)
+    per_layer = d * h * dh + 2 * d * hk * dh + h * dh * d + 3 * d * f
+    matmul = cfg.n_layers * per_layer + d * cfg.vocab_size
+    attn = cfg.n_layers * 4 * b * h * s * s * dh / 2
+    return 6 * matmul * b * s + 3 * attn
+
+
+def phase_lm_train() -> dict:
+    """Full-width bf16 qwen3-1.7b training steps through the port's
+    ``lm_train_step`` (xla_flash attention, remat, chain_clip(AdamW))."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs as S
+    from repro_torch.models import transformer as T
+
+    arch = get_config("qwen3-1.7b")
+    cfg = arch.model
+    assert (cfg.n_layers, cfg.d_model, cfg.param_dtype, cfg.remat,
+            cfg.attention_impl, cfg.q_chunk, cfg.kv_chunk,
+            cfg.tie_embeddings) == (28, 2048, "bfloat16", True,
+                                    "xla_flash", 512, 1024, False), cfg
+    phase_t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    b, s = LM_TRAIN_BATCH, arch.shape("train_4k")["seq_len"]
+    params = T.init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                       dev)
+    leaves = S.lm_param_leaves(params)
+    n_params = sum(p.numel() for p in leaves)
+    assert n_params == cfg.n_params(), (n_params, cfg.n_params())
+    opt, kind = S._optimizer_for(arch)
+    assert kind == "adamw"
+    opt_state = opt.init(leaves)
+    step_fn = S.lm_train_step(cfg, opt)
+    batches = [S._lm_train_batch(cfg, b, s, seed, dev) for seed in
+               range(1, LM_TRAIN_STEPS + 3)]
+    # the first loss against a no-grad float32 forward of the same params
+    with torch.no_grad():
+        f32_loss, f32_s = synced(lambda: float(T.lm_loss(
+            params, dataclasses.replace(cfg, compute_dtype="float32"),
+            batches[0])[0]))
+    free_cuda()
+    before = [p.clone() for p in leaves]
+
+    reset_counts()
+    (_, opt_state, loss), first_s = synced(
+        lambda: step_fn(params, opt_state, 0, batches[0]))
+    losses = [float(loss)]
+    unchanged = [i for i, (p, q) in enumerate(zip(leaves, before))
+                 if torch.equal(p, q)]
+    del before
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for i in range(1, LM_TRAIN_STEPS + 1):
+        (_, opt_state, loss), sec = synced(
+            lambda: step_fn(params, opt_state, i, batches[i]))
+        losses.append(float(loss))
+        step_s.append(sec)
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert all(math.isfinite(x) for x in losses), losses
+    assert abs(losses[0] - math.log(cfg.vocab_size)) <= 2.0, losses
+    rel_f32 = abs(losses[0] - f32_loss) / abs(f32_loss)
+    assert rel_f32 <= 1e-2, (losses[0], f32_loss)
+    assert not unchanged, f"leaves {unchanged} did not move in a step"
+    assert counts["flash_attention"] == 0, counts   # xla_flash, as JAX
+
+    def profiled():
+        nonlocal opt_state
+        _, opt_state, _ = step_fn(params, opt_state, LM_TRAIN_STEPS + 1,
+                                  batches[-1])
+
+    t0 = time.perf_counter()
+    prof = device_profile(profiled, top=25, split=LM_TRAIN_SPLIT)
+    profile_s = time.perf_counter() - t0
+    ms = statistics.median(step_s) * 1e3
+    flops = lm_train_flops(cfg, b, s)
+    emit({"phase": "lm_train", "config": cfg.name, "card": card_line(),
+          "n_params": n_params, "batch": b, "seq_len": s,
+          "optimizer": "chain_clip(adamw(3e-4, weight_decay=0.1), 1.0)",
+          "attention_impl": cfg.attention_impl, "remat": cfg.remat,
+          "reduced": f"batch {b} x {s} where train_4k is global batch "
+                     f"256 x 4096 (no gradient accumulation, as in the "
+                     f"reference); full width and depth; random weights",
+          "launches": counts, "first_step_ms": first_s * 1e3,
+          "step_ms": [x * 1e3 for x in step_s], "ms_per_step": ms,
+          "tokens_per_s": b * s / (ms / 1e3), "peak_gb": peak_gb,
+          "losses": losses, "f32_forward_loss": f32_loss,
+          "first_loss_rel_diff_vs_f32": rel_f32,
+          "f32_forward_s": f32_s, "profile_s": profile_s,
+          "phase_s": time.perf_counter() - phase_t0,
+          "model_tflop_per_step": flops / 1e12,
+          "model_tflops": flops / (ms / 1e3) / 1e12,
+          "share_of_989_bf16": flops / (ms / 1e3) / BF16_OPS_PER_S,
+          "profile": prof})
+    del params, opt_state, leaves, batches
+    free_cuda()
+    return counts
+
+
+def _small_lm_steps(arch, cfg, init, dev, steps):
+    """``steps`` of ``lm_train_step`` from ``init`` (cpu tensors, copied
+    to ``dev``) with the arch's optimizer, on the seed t + 1 batches of
+    the reduced train_4k: (losses, final leaves on the cpu)."""
+    from repro_torch.launch import specs as S
+
+    shape = S._reduce_shape("lm", arch.shape("train_4k"))
+    params = {k: ({n: t.to(dev, copy=True) for n, t in v.items()}
+                  if k == "layers" else v.to(dev, copy=True))
+              for k, v in init.items()}
+    opt = S._optimizer_for(arch)[0]
+    state = opt.init(S.lm_param_leaves(params))
+    step_fn = S.lm_train_step(cfg, opt)
+    losses = []
+    for step in range(steps):
+        batch = S._lm_train_batch(cfg, shape["global_batch"],
+                                  shape["seq_len"], step + 1, dev)
+        _, state, loss = step_fn(params, state, step, batch)
+        losses.append(float(loss))
+    return losses, [p.cpu() for p in S.lm_param_leaves(params)]
+
+
+def _restart_on_cuda(tmp) -> dict:
+    """``launch.train.main`` on cuda: 6 steps against 3, a checkpoint and
+    a resume to 6 (bit-equal losses and final state), and the cuda
+    checkpoint restored on the cpu bit for bit."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.launch import train
+
+    def main(*extra):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return train.main(["--arch", "qwen3-1.7b", "--shape", "train_4k",
+                               "--reduced", "--log-every", "100",
+                               "--device", "cuda", *extra])
+
+    full = main("--steps", "6", "--ckpt-dir", f"{tmp}/full",
+                "--ckpt-every", "100")
+    part = main("--steps", "3", "--ckpt-dir", f"{tmp}/ck", "--ckpt-every",
+                "3")
+    resumed = main("--steps", "6", "--ckpt-dir", f"{tmp}/ck",
+                   "--ckpt-every", "100")
+    assert part == full[:3] and resumed == full[3:], (full, part, resumed)
+    trees = {(d, dev): ckpt._flatten(ckpt.restore(f"{tmp}/{d}",
+                                                  device=dev)[1])
+             for d in ("full", "ck") for dev in ("cuda", "cpu")}
+    ref = trees[("full", "cuda")]
+    for key, leaves in trees.items():
+        assert [p for p, _ in leaves] == [p for p, _ in ref], key
+        for (path, x), (_, y) in zip(leaves, ref):
+            assert x.device.type == key[1], (key, path)
+            assert torch.equal(x.cpu(), y.cpu()), (key, path)
+    return {"losses": full, "leaves": len(ref)}
+
+
+def phase_lm_train_small_parity() -> None:
+    """qwen3-tiny (f32, chunks 16/32: xla_flash and its backward) from one
+    exported init on cuda and cpu; two cuda runs; the train CLI's
+    restart on cuda; Adafactor and compression on cuda against cpu."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import optim as O
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import compression as C
+
+    arch = get_config("qwen3-1.7b").reduced()
+    cfg = dataclasses.replace(arch.model, q_chunk=16, kv_chunk=32)
+    init = T.init_lm(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    runs = [_small_lm_steps(arch, cfg, init, dev, LM_SMALL_STEPS)
+            for dev in ("cuda", "cpu", "cuda")]
+    (lc, pc), (lh, ph), (lc2, pc2) = runs
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    param_diff = max(float((a - b).abs().max()) for a, b in zip(pc, ph))
+    assert loss_rel <= 1e-5 and param_diff <= 1e-4, (loss_rel, param_diff)
+    assert lc == lc2 and all(torch.equal(a, b) for a, b in zip(pc, pc2)), \
+        "two cuda trainings differ"
+    with tempfile.TemporaryDirectory() as tmp:
+        restart = _restart_on_cuda(tmp)
+
+    # Adafactor (factored and unfactored leaves, a schedule, decay) and
+    # int8 / top-k compression with error feedback, cuda against cpu
+    rng = np.random.RandomState(SEED)
+    shapes = [(256, 512), (3, 128, 256), (1000,), (4, 300)]
+    p0 = [(rng.randn(*sh) * 0.1).astype(np.float32) for sh in shapes]
+    grads = [[rng.randn(*sh).astype(np.float32) for sh in shapes]
+             for _ in range(OPT_SMALL_STEPS)]
+
+    def adafactor_run(dev):
+        opt = O.adafactor(O.warmup_cosine(1e-2, 5, OPT_SMALL_STEPS),
+                          weight_decay=0.01)
+        p = [torch.tensor(a, device=dev) for a in p0]
+        st = opt.init(p)
+        for step, g in enumerate(grads):
+            u, st = opt.update([torch.tensor(x, device=dev) for x in g], st,
+                               p, step)
+            O.apply_updates(p, u)
+        assert [set(x) for x in st["v"]] == [{"vr", "vc"}] * 2 + [{"v"}] * 2
+        return [x.cpu() for x in p]
+
+    def compression_run(dev, scheme):
+        st = C.init_compression_state([torch.tensor(a, device=dev)
+                                       for a in p0])
+        outs = []
+        for g in grads:
+            c, st, _ = C.compressed_gradients(
+                [torch.tensor(x, device=dev) for x in g], st, scheme=scheme,
+                topk_ratio=0.05)
+            outs += [x.cpu() for x in c + st]
+        return outs
+
+    opt_diff = {"adafactor": max(float((a - b).abs().max()) for a, b in zip(
+        adafactor_run("cuda"), adafactor_run("cpu")))}
+    for scheme in ("int8", "topk"):
+        opt_diff[scheme] = max(float((a - b).abs().max()) for a, b in zip(
+            compression_run("cuda", scheme), compression_run("cpu", scheme)))
+    assert max(opt_diff.values()) <= 1e-6, opt_diff
+    emit({"phase": "lm_train_small_parity", "config": cfg.name,
+          "steps": LM_SMALL_STEPS, "loss_max_rel_diff": loss_rel,
+          "param_max_abs_diff": param_diff, "losses": {"cuda": lc,
+                                                       "cpu": lh},
+          "tolerance": {"loss_rtol": 1e-5, "param_atol": 1e-4,
+                        "optimizer_atol": 1e-6},
+          "two_cuda_trainings_bit_equal": True,
+          "train_main_restart_bit_equal": True,
+          "cuda_checkpoint_restores_on_cpu_bit_equal": True,
+          "train_main_losses": restart["losses"],
+          "optimizer_steps": OPT_SMALL_STEPS,
+          "optimizer_max_abs_diff": opt_diff})
 
 
 def dlrm_scores_plain_lookup(params, cfg, batch):
@@ -2885,6 +3198,8 @@ def main() -> int:
     free_cuda()
     path_counts.append(phase_lm())
     phase_lm_small_parity()
+    path_counts.append(phase_lm_train())
+    phase_lm_train_small_parity()
     path_counts.append(phase_recsys())
     phase_recsys_small_parity()
     path_counts.append(phase_gnn())

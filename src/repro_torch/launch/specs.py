@@ -1,13 +1,134 @@
-"""Workload batches, the port of ``repro/launch/specs.py``'s seeded
-batch functions (its jitted cells are the JAX package's own lowering and
-are not ported)."""
+"""Workload batches and the LM training step, the port of the seeded
+batch functions and the LM train cell of ``repro/launch/specs.py`` (its
+abstract and sharded cells are the JAX package's own lowering and are
+not ported).
+
+The LM's params are a dict tree; the optimizers take lists of tensors.
+``lm_param_leaves`` gives the leaves in the order
+``jax.tree_util.tree_leaves`` gives the reference's params (sorted keys,
+``layers`` nested), so the optimizer state, the global norm and the
+checkpoint line up with the JAX package's leaf for leaf, and
+``opt_state_from_jax`` carries a JAX run's optimizer state across.
+"""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from repro_torch import device as device_lib
-from repro_torch.configs.base import RecsysConfig
+from repro_torch.configs.base import (ArchConfig, LMConfig, RecsysConfig,
+                                      ShapeConfig)
+from repro_torch.models.layers import from_numpy
+from repro_torch.models.transformer import lm_loss
+from repro_torch.optim import adafactor, adamw, apply_updates, chain_clip
+
+
+def _optimizer_for(arch: ArchConfig):
+    if arch.arch_id.startswith("grok"):
+        return adafactor(1e-4), "adafactor"
+    return chain_clip(adamw(3e-4, weight_decay=0.1), 1.0), "adamw"
+
+
+def _reduce_shape(family: str, shape: ShapeConfig) -> ShapeConfig:
+    """Shrink an LM workload cell for CPU runs (same kind), as the JAX
+    function's LM branch does."""
+    if family != "lm":
+        raise NotImplementedError(f"family {family!r}: only the LM cells "
+                                  f"are ported (ROADMAP.md item 13e)")
+    d = dict(shape.dims)
+    if "seq_len" in d:
+        d["seq_len"] = min(d["seq_len"], 64)
+    if "global_batch" in d:
+        d["global_batch"] = min(d["global_batch"], 4)
+    return ShapeConfig(shape.name, shape.kind, d, shape.note)
+
+
+def _tree_leaves(tree, is_leaf=lambda x: not isinstance(x, dict)):
+    if is_leaf(tree):
+        return [tree]
+    return [x for k in sorted(tree) for x in _tree_leaves(tree[k], is_leaf)]
+
+
+def lm_param_leaves(params: dict) -> list[torch.Tensor]:
+    """The LM's leaves in ``jax.tree_util.tree_leaves`` order."""
+    return _tree_leaves(params)
+
+
+def opt_state_from_jax(raw_state: dict, params: dict, kind: str) -> dict:
+    """The JAX package's optimizer state (numpy leaves) for the LM's
+    params -> the port's: AdamW's ``{"m", "v"}`` trees as lists, or
+    Adafactor's ``{"v": tree of {"vr", "vc"} | {"v"}}`` as a list of
+    dicts, each leaf a float32 tensor on the params' device. Raises on a
+    leaf whose count or shape does not match the params."""
+    leaves = lm_param_leaves(params)
+    dev = leaves[0].device
+
+    def take(states, shapes_of):
+        """Per-leaf dicts of float32 tensors, shapes checked."""
+        if len(states) != len(leaves):
+            raise ValueError(f"{kind} state: {len(states)} leaves for "
+                             f"{len(leaves)} params")
+        out = []
+        for st, p in zip(states, leaves):
+            want = shapes_of(tuple(p.shape), st)
+            got = {k: tuple(np.shape(a)) for k, a in st.items()}
+            if got != want:
+                raise ValueError(f"{kind} state {got} for a param of "
+                                 f"shape {tuple(p.shape)}: want {want}")
+            out.append({k: from_numpy(a).to(device=dev, dtype=torch.float32)
+                        for k, a in st.items()})
+        return out
+
+    if kind == "adamw":
+        states = take([{"m": m, "v": v} for m, v in zip(
+            _tree_leaves(raw_state["m"]), _tree_leaves(raw_state["v"]))],
+            lambda shape, st: {"m": shape, "v": shape})
+        return {name: [st[name] for st in states] for name in ("m", "v")}
+    if kind == "adafactor":
+        states = _tree_leaves(raw_state["v"], lambda x: isinstance(x, dict)
+                              and ("v" in x or "vr" in x))
+        return {"v": take(states, lambda shape, st: (
+            {"vr": shape[:-1], "vc": shape[:-2] + shape[-1:]}
+            if "vr" in st else {"v": shape}))}
+    raise ValueError(f"unknown optimizer kind {kind!r}")
+
+
+def _lm_train_batch(cfg: LMConfig, b: int, s: int, seed: int = 0,
+                    device=None) -> dict:
+    """A copy of the JAX train cell's concrete batch: numpy
+    ``RandomState(seed)`` draws (b, s + 1) int32 tokens, split into
+    tokens and next-token labels. Tensors on ``device`` (cuda unless
+    "cpu")."""
+    dev = device_lib.resolve(device)
+    toks = np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, size=(b, s + 1)).astype(np.int32)
+    return {"tokens": torch.from_numpy(toks[:, :-1].copy()).to(dev),
+            "labels": torch.from_numpy(toks[:, 1:].copy()).to(dev)}
+
+
+def lm_train_step(cfg: LMConfig, opt):
+    """``(params, opt_state, step, batch) -> (params, opt_state, loss)``:
+    the gradient of ``lm_loss`` with respect to every leaf, one optimizer
+    update (``step`` a host int), applied to the params in place. It runs
+    where the params and the batch are (``init_lm`` and
+    ``_lm_train_batch`` put them on cuda unless asked for "cpu")."""
+    def train_step(params, opt_state, step, batch):
+        leaves = lm_param_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            with torch.enable_grad():
+                loss, _ = lm_loss(params, cfg, batch)
+                grads = torch.autograd.grad(loss, leaves)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        updates, opt_state = opt.update(list(grads), opt_state, leaves,
+                                        int(step))
+        apply_updates(leaves, updates)
+        return params, opt_state, loss.detach()
+
+    return train_step
 
 
 def _recsys_batch(cfg: RecsysConfig, b: int, seed: int = 0,

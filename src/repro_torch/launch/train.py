@@ -1,0 +1,144 @@
+"""Fault-tolerant LM training driver, the port of ``repro/launch/train.py``
+on one card.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
+        --shape train_4k [--reduced] [--steps 100] [--ckpt-dir ckpts/qwen] \\
+        [--ckpt-every 50] [--mesh 1x1] [--device cuda|cpu]
+
+As the reference does:
+- restart-from-latest: on launch, restores the newest checkpoint in
+  --ckpt-dir (params, optimizer state and step) and resumes;
+- the batch of step ``t`` is drawn from seed ``t + 1`` (a stateless
+  pipeline), so a resumed run equals an uninterrupted one bit for bit;
+- atomic async checkpoints every --ckpt-every steps (the previous write
+  joined first), and a final save at the end;
+- SIGTERM: checkpoint and exit;
+- step durations go to a ``StragglerDetector``.
+
+On one card: ``--device`` (cuda unless "cpu") places the params, the
+optimizer state and each batch; ``--mesh`` takes only ``1x1`` (one card
+has no mesh). There is no gradient accumulation, as in the reference, so
+the shape's global batch is one step's batch. Params are drawn from a
+seed-0 generator on the device. The final checkpoint is written at the
+step reached; the reference writes it at ``--steps`` even after a
+SIGTERM, so that its resume would skip the steps not taken.
+"""
+from __future__ import annotations
+
+import argparse
+import signal
+import time
+
+import torch
+
+from repro_torch import device as device_lib
+from repro_torch.checkpoint import checkpoint as ckpt_lib
+from repro_torch.configs import get_config
+from repro_torch.distributed.fault import StragglerDetector
+from repro_torch.launch.specs import (_lm_train_batch, _optimizer_for,
+                                      _reduce_shape, lm_param_leaves,
+                                      lm_train_step)
+from repro_torch.models.transformer import init_lm
+
+
+def _check_mesh(spec: str) -> None:
+    dims = tuple(int(x) for x in spec.split("x"))
+    if any(d != 1 for d in dims):
+        raise ValueError(f"--mesh {spec}: the port trains on one card, "
+                         f"which has no mesh; only 1x1 is accepted "
+                         f"(meshes wait for ROADMAP.md item 13e)")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", default="train_4k")
+    ap.add_argument("--reduced", action="store_true",
+                    help="tiny config for CPU runs")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--mesh", default="1x1", help="only 1x1 (one card)")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+    _check_mesh(args.mesh)
+    dev = device_lib.resolve(args.device)
+
+    arch = get_config(args.arch)
+    if args.reduced:
+        arch = arch.reduced()
+        shape = _reduce_shape(arch.family, arch.shape(args.shape))
+    else:
+        shape = arch.shape(args.shape)
+    if args.shape in arch.skips and not args.reduced:
+        raise ValueError(f"{args.arch}/{args.shape} skipped: "
+                         f"{arch.skips[args.shape]}")
+    if arch.family != "lm" or shape.kind != "train":
+        raise NotImplementedError(
+            f"{args.arch}/{args.shape}: the port trains LM train cells "
+            f"only (ROADMAP.md item 13e)")
+    cfg = arch.model
+    b, s = shape["global_batch"], shape["seq_len"]
+    opt, _ = _optimizer_for(arch)
+
+    stop = {"now": False}
+    previous = signal.signal(signal.SIGTERM,
+                             lambda *_: stop.update(now=True))
+    try:
+        params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+        opt_state = opt.init(lm_param_leaves(params))
+        start_step = 0
+        if args.ckpt_dir and ckpt_lib.latest_step(args.ckpt_dir) is not None:
+            start_step, tree, _ = ckpt_lib.restore(args.ckpt_dir,
+                                                   device=dev)
+            params, opt_state = tree["params"], tree["opt_state"]
+            print(f"[train] restored step {start_step} from {args.ckpt_dir}")
+        train_step = lm_train_step(cfg, opt)
+
+        detector = StragglerDetector()
+        losses = []
+        pending = None
+        done = start_step
+        for step in range(start_step, args.steps):
+            if stop["now"]:
+                print("[train] SIGTERM — checkpointing and exiting")
+                break
+            t0 = time.time()
+            batch = _lm_train_batch(cfg, b, s, seed=step + 1, device=dev)
+            params, opt_state, loss = train_step(params, opt_state, step,
+                                                 batch)
+            loss = float(loss)
+            losses.append(loss)
+            done = step + 1
+            detector.record(0, time.time() - t0)
+            if step % args.log_every == 0:
+                print(f"[train] step {step} loss {loss:.4f} "
+                      f"({time.time()-t0:.2f}s)", flush=True)
+            if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+                if pending is not None:
+                    pending.join()
+                pending = ckpt_lib.save_async(
+                    args.ckpt_dir, step + 1,
+                    {"params": params, "opt_state": opt_state},
+                    metadata={"arch": args.arch, "loss": loss})
+        if pending is not None:
+            pending.join()
+        if args.ckpt_dir:
+            ckpt_lib.save(args.ckpt_dir, done,
+                          {"params": params, "opt_state": opt_state},
+                          metadata={"arch": args.arch,
+                                    "loss": losses[-1] if losses else None})
+    finally:
+        signal.signal(signal.SIGTERM, previous)
+    stragglers = detector.stragglers()
+    print(f"[train] done; final loss "
+          f"{losses[-1] if losses else float('nan'):.4f}; "
+          f"stragglers={stragglers}")
+    return losses
+
+
+if __name__ == "__main__":
+    main()

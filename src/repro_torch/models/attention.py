@@ -6,8 +6,9 @@ Three implementations share one interface:
 - ``naive``     : materialises the (Sq, Skv) score matrix. Reference.
 - ``xla_flash`` : block-pair streaming attention (online softmax over the
   visible (q-block, kv-block) pairs, masked pairs pruned ahead of time),
-  in plain PyTorch. Falls back to naive when both sequences fit in one
-  chunk, as the JAX dispatcher does.
+  in plain PyTorch, differentiable (the LM trains through it, as the
+  JAX package's ``lm_loss`` does). Falls back to naive when both
+  sequences fit in one chunk, as the JAX dispatcher does.
 - ``pallas``    : the flash-attention op (``kernels/flash_attention``):
   the hand-written CUDA kernel for CUDA tensors, its plain version for
   CPU tensors.
@@ -120,10 +121,13 @@ def attention_xla_flash(q, k, v, *, causal=True, window=None,
     vb = v.reshape(b, n_k, ck, h, d).permute(1, 0, 3, 2, 4)
     scale = 1.0 / math.sqrt(d)
     dev = q.device
-    acc_o = torch.zeros((n_q, b, h, cq, d), dtype=torch.float32, device=dev)
-    acc_m = torch.full((n_q, b, h, cq), NEG_INF, dtype=torch.float32,
-                       device=dev)
-    acc_l = torch.zeros((n_q, b, h, cq), dtype=torch.float32, device=dev)
+    # each query block's running (o, m, l), rebound on every visible pair
+    # and stacked once at the end: no in-place write, so autograd can
+    # differentiate through the loop
+    acc_o = [torch.zeros((b, h, cq, d), dtype=torch.float32, device=dev)] * n_q
+    acc_m = [torch.full((b, h, cq), NEG_INF, dtype=torch.float32,
+                        device=dev)] * n_q
+    acc_l = [torch.zeros((b, h, cq), dtype=torch.float32, device=dev)] * n_q
     for i, j in _visible_pairs(n_q, n_k, cq, ck, causal, window,
                                q_offset).tolist():
         s = torch.einsum("bhqd,bhkd->bhqk", qb[i].float(),
@@ -136,14 +140,15 @@ def attention_xla_flash(q, k, v, *, causal=True, window=None,
         if window is not None:
             ok = ok & ((qpos[:, None] - kpos[None, :]) < window)
         s = torch.where(ok, s, NEG_INF)
-        m_i, l_i = acc_m[i], acc_l[i]
+        m_i = acc_m[i]
         m_new = torch.maximum(m_i, s.amax(dim=-1))
         alpha = torch.exp(m_i - m_new)
         p = torch.exp(s - m_new[..., None])
-        acc_l[i] = l_i * alpha + p.sum(dim=-1)
+        acc_l[i] = acc_l[i] * alpha + p.sum(dim=-1)
         acc_o[i] = acc_o[i] * alpha[..., None] + _pv(p, vb[j],
                                                      "bhqk,bhkd->bhqd")
         acc_m[i] = m_new
+    acc_o, acc_l = torch.stack(acc_o), torch.stack(acc_l)
     out = acc_o / torch.clamp(acc_l[..., None], min=1e-30)
     out = out.permute(1, 0, 3, 2, 4).reshape(b, n_q * cq, h, d)
     return out[:, :sq].to(q.dtype)

@@ -1,8 +1,9 @@
 """Shared neural layers of the port (the subset of ``repro.models.layers``
 the CLS-III encoder and the dense LM use): layer and RMS norms computed
-in float32, rotary embeddings, tanh-GELU, SwiGLU, the logit soft cap and
-the embedding lookup; plus the dtype-name map and the numpy-to-tensor
-copy that carry the JAX package's params across."""
+in float32, rotary embeddings, tanh-GELU, SwiGLU, the logit soft cap,
+the embedding lookup and the LM's cross-entropy loss; plus the
+dtype-name map and the numpy-to-tensor copy that carry the JAX package's
+params across."""
 from __future__ import annotations
 
 import numpy as np
@@ -80,6 +81,22 @@ def softcap(logits: torch.Tensor, cap: float | None) -> torch.Tensor:
     if cap is None:
         return logits
     return cap * torch.tanh(logits / cap)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token-level cross entropy in float32: ``logsumexp`` minus the
+    gold logit. logits (..., V), labels (...); with a mask, the masked
+    mean ``sum(nll * mask) / max(sum(mask), 1)``."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[..., None].long(),
+                                dim=-1)[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor, *,

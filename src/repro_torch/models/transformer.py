@@ -1,10 +1,12 @@
 """Decoder-only dense transformer LM: GQA/SWA attention, RoPE, qk-norm,
-KV-cache decode. The serve path of ``repro/models/transformer.py``.
+KV-cache decode. The serve and training paths of
+``repro/models/transformer.py``.
 
 Public surface:
     init_lm(cfg, generator, device)         -> params
     lm_from_jax_params(raw, cfg, device)    -> params
     lm_logits(params, cfg, tokens)          -> (B, S, V) logits, aux
+    lm_loss(params, cfg, batch)             -> loss, {"ce", "aux"}
     prefill(params, cfg, tokens)            -> last-position logits, KVCache
     decode_step(params, cfg, tok, cache, pos) -> logits, cache
 
@@ -15,21 +17,26 @@ h, dh)``, ``wk``/``wv (L, d, hk, dh)``, ``wo (L, h, dh, d)``, ``w_gate``/
 ``w_up (L, d, f)``, ``w_down (L, f, d)``, norm scales ``(L, d)``). So
 ``lm_from_jax_params`` is a checked copy and both packages compute the
 same function. ``cfg.attention_impl`` picks the prefill attention
-(``"pallas"`` is the hand-written flash kernel on the card); decode
-attends with ``decode_attention``. Configs with experts (``cfg.moe``)
-are not ported yet, and neither are ``lm_loss`` and training.
+(``"pallas"`` is the hand-written flash kernel on the card, forward
+only); decode attends with ``decode_attention``. ``lm_logits`` and
+``lm_loss`` run under autograd: training attends through
+``"xla_flash"`` (the configs' default), as the JAX package trains, and
+with ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``, the
+counterpart of ``jax.checkpoint(nothing_saveable)``. Configs with experts
+(``cfg.moe``) are not ported yet.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_lib
 from repro_torch.configs.base import LMConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.attention import KVCache
-from repro_torch.models.layers import (apply_rope, embed_lookup, from_numpy,
-                                       rms_norm, softcap, swiglu,
-                                       torch_dtype)
+from repro_torch.models.layers import (apply_rope, cross_entropy_loss,
+                                       embed_lookup, from_numpy, rms_norm,
+                                       softcap, swiglu, torch_dtype)
 
 
 def _check_dense(cfg: LMConfig) -> None:
@@ -134,8 +141,14 @@ def lm_from_jax_params(raw: dict, cfg: LMConfig, device=None) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _layer(params: dict, i: int) -> dict:
-    return {k: v[i] for k, v in params["layers"].items()}
+def _layers(params: dict) -> list[dict]:
+    """Each layer's leaves, the stacked (L, ...) leaves taken apart once
+    with ``unbind``: its backward stacks the L grads once, where indexing
+    ``v[i]`` per layer would allocate a zero tensor of the whole stacked
+    leaf for every layer's grad."""
+    names = list(params["layers"])
+    cols = [params["layers"][k].unbind(0) for k in names]
+    return [dict(zip(names, vals)) for vals in zip(*cols)]
 
 
 def _qkv(x, lp, cfg: LMConfig, positions):
@@ -192,17 +205,32 @@ def _embed(params: dict, cfg: LMConfig, tokens):
 # ---------------------------------------------------------------------------
 
 
-@torch.no_grad()
 def lm_logits(params: dict, cfg: LMConfig, tokens: torch.Tensor):
     """tokens (B, S) -> logits (B, S, V), and the MoE aux loss (a float32
-    zero: dense layers only)."""
+    zero: dense layers only). Differentiable; with ``cfg.remat`` and grad
+    enabled each layer saves only its input and is recomputed in the
+    backward pass."""
     _check_dense(cfg)
     x = _embed(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    for i in range(cfg.n_layers):
-        x, _, _ = _prefill_layer(x, _layer(params, i), cfg, positions)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in _layers(params):
+        if remat:
+            x = checkpoint(_prefill_layer, x, lp, cfg, positions,
+                           use_reentrant=False)[0]
+        else:
+            x = _prefill_layer(x, lp, cfg, positions)[0]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _head(params, cfg, x), aux
+
+
+def lm_loss(params: dict, cfg: LMConfig, batch: dict):
+    """batch: {"tokens": (B, S), "labels": (B, S), optional "mask"} ->
+    (loss, {"ce": ..., "aux": ...}); the loss is the float32 mean token
+    cross entropy plus the (zero) aux loss."""
+    logits, aux = lm_logits(params, cfg, batch["tokens"])
+    ce = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 @torch.no_grad()
@@ -214,8 +242,8 @@ def prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor):
     x = _embed(params, cfg, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        x, k, v = _prefill_layer(x, _layer(params, i), cfg, positions)
+    for lp in _layers(params):
+        x, k, v = _prefill_layer(x, lp, cfg, positions)
         ks.append(k)
         vs.append(v)
     logits = _head(params, cfg, x[:, -1:])[:, 0]
@@ -232,8 +260,7 @@ def decode_step(params: dict, cfg: LMConfig, tokens: torch.Tensor,
     _check_dense(cfg)
     x = _embed(params, cfg, tokens)
     positions = torch.full((tokens.shape[0], 1), int(pos), device=x.device)
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
+    for i, lp in enumerate(_layers(params)):
         q, k, v = _qkv(x, lp, cfg, positions)
         ck, cv = attn_lib.cache_update(cache.k[i], cache.v[i], k, v, pos)
         o = attn_lib.decode_attention(q, ck, cv, pos,

@@ -1,10 +1,14 @@
 """AdamW with float32 moments (params may be bf16), the port of
-``repro.optim.adamw``, term by term. It differs from
-``torch.optim.AdamW``: b2 defaults to 0.95, the moments are float32 for
-any param dtype, and the decay sits inside the lr term,
-``u = -lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``. Every parameter is
-updated, a ``None`` grad taken as zero (it still decays)."""
+``repro.optim.adamw``, term by term. ``lr`` is a float or a callable of
+the step (``optim/schedules.py``), whose value is taken on the host in
+float32. It differs from ``torch.optim.AdamW``: b2 defaults to 0.95,
+the moments are float32 for any param dtype, and the decay sits inside
+the lr term, ``u = -lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``.
+Every parameter is updated, a ``None`` grad taken as zero (it still
+decays)."""
 from __future__ import annotations
+
+from typing import Callable
 
 import numpy as np
 import torch
@@ -23,8 +27,10 @@ def _bias_correction(b: float, t: np.float32) -> float:
     return float(np.float32(1.0) - p)
 
 
-def adamw(lr: float, b1: float = 0.9, b2: float = 0.95,
+def adamw(lr: float | Callable, b1: float = 0.9, b2: float = 0.95,
           eps: float = 1e-8, weight_decay: float = 0.0) -> Optimizer:
+    lr_fn = lr if callable(lr) else (lambda step: lr)
+
     def init(params):
         zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                       device=p.device)
@@ -34,6 +40,7 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.95,
     @torch.no_grad()
     def update(grads, state, params, step):
         t = np.float32(step) + np.float32(1.0)
+        lr_t = float(np.float32(lr_fn(step)))
         # divisors as device tensors: CUDA divides by a host scalar
         # through its reciprocal, which rounds twice
         bc1, bc2 = torch.tensor(
@@ -46,8 +53,8 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.95,
             v = b2 * v + (1 - b2) * g.square()
             mhat = m / bc1
             vhat = v / bc2
-            u = -lr * (mhat / (torch.sqrt(vhat) + eps)
-                       + weight_decay * p.float())
+            u = -lr_t * (mhat / (torch.sqrt(vhat) + eps)
+                         + weight_decay * p.float())
             updates.append(u)
             ms.append(m)
             vs.append(v)

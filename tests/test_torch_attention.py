@@ -248,3 +248,31 @@ def test_cache_update_writes_in_place_and_clamps_like_jax():
                             jnp.ones((1, 1, 1, 2)), jnp.ones((1, 1, 1, 2)),
                             jnp.asarray(9))
     np.testing.assert_array_equal(ck.numpy(), np.asarray(jk))
+
+
+@pytest.mark.parametrize("b,sq,h,hk,d,causal,window", [
+    (1, 40, 4, 2, 8, True, None),       # GQA 2, S not a multiple of 16
+    (2, 37, 4, 2, 8, True, 12),         # window
+    (1, 33, 2, 2, 16, False, None),     # full
+])
+def test_xla_flash_gradients_match_jax(b, sq, h, hk, d, causal, window):
+    """``attention_xla_flash`` is differentiable (the LM trains through
+    it) and its gradients of ``sum(out * ct)`` in float32 are within 2e-5
+    of ``jax.grad`` of the JAX package's, with chunks of 16 (ragged last
+    block, several visible pairs per query block)."""
+    import jax
+
+    (jq, jk, jv), (q, k, v) = _qkv(b, sq, sq, h, hk, d, "float32", seed=8)
+    ct = np.random.RandomState(9).randn(b, sq, h, d).astype(np.float32)
+    kw = dict(causal=causal, window=window, q_chunk=16, kv_chunk=16)
+
+    def j_loss(q, k, v):
+        return (JA.attention_xla_flash(q, k, v, **kw) * ct).sum()
+
+    want = jax.grad(j_loss, argnums=(0, 1, 2))(jq, jk, jv)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = TA.attention_xla_flash(*leaves, **kw)
+    got = torch.autograd.grad((out * torch.from_numpy(ct)).sum(), leaves)
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5,
+                                   rtol=2e-5, err_msg=name)

@@ -18,7 +18,13 @@ bit-identical across runs; the reduced DLRM on cuda against cpu within
 2e-5; one router-tiny SFT or DPO step on cuda against cpu, the loss
 within rtol 1e-5 and the params within 1e-5 (AdamW's first step moves
 each element by about lr, whatever its grad; a grad near eps is where
-the devices' rounding shows), and two cuda trainings bit-equal.
+the devices' rounding shows), and two cuda trainings bit-equal; the
+reduced f32 LM's training (5 steps, through ``xla_flash`` and its
+backward) on cuda against cpu, losses within rtol 1e-5 and params within
+1e-4 (the router training's bar), two cuda runs and the train CLI's
+restart bit-equal, a cuda checkpoint restored on the cpu bit for bit,
+and Adafactor and gradient compression on cuda against cpu within 1e-6
+over 20 steps.
 """
 import dataclasses
 
@@ -1054,3 +1060,122 @@ def test_elastic_join_leave_on_cuda_joiner_serves(dev):
     res = run_scenario(SCENARIOS["elastic_join_leave"], device="cuda")
     assert res.records_match and res.reissued >= 1
     assert res.joiner_docs > 0
+
+
+# -- LM training (ROADMAP 13c) ------------------------------------------
+
+def _tiny_lm_train(dev, steps=5):
+    """qwen3-tiny (f32, chunks 16/32, so xla_flash and its backward run)
+    from one cpu init, ``steps`` of ``lm_train_step`` on ``dev``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs as S
+    from repro_torch.models import transformer as T
+
+    arch = get_config("qwen3-1.7b").reduced()
+    cfg = dataclasses.replace(arch.model, q_chunk=16, kv_chunk=32)
+    init = T.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    params = {k: ({n: t.to(dev, copy=True) for n, t in v.items()}
+                  if k == "layers" else v.to(dev, copy=True))
+              for k, v in init.items()}
+    opt = S._optimizer_for(arch)[0]
+    state = opt.init(S.lm_param_leaves(params))
+    step_fn = S.lm_train_step(cfg, opt)
+    losses = []
+    for step in range(steps):
+        batch = S._lm_train_batch(cfg, 4, 64, step + 1, dev)
+        _, state, loss = step_fn(params, state, step, batch)
+        losses.append(float(loss))
+    return losses, [p.cpu() for p in S.lm_param_leaves(params)]
+
+
+def test_tiny_lm_training_cuda_matches_cpu_and_repeats(dev):
+    """Five steps: losses within rtol 1e-5 and params within 1e-4 of the
+    cpu run; two cuda runs bit-equal."""
+    lc, pc = _tiny_lm_train(dev)
+    lh, ph = _tiny_lm_train("cpu")
+    np.testing.assert_allclose(lc, lh, rtol=1e-5)
+    for a, b in zip(pc, ph):
+        assert (a - b).abs().max().item() <= 1e-4
+    lc2, pc2 = _tiny_lm_train(dev)
+    assert lc == lc2 and all(torch.equal(a, b) for a, b in zip(pc, pc2))
+
+
+def test_xla_flash_gradients_cuda_match_cpu(dev):
+    from repro_torch.models.attention import attention_xla_flash
+
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(s, generator=g) for s in
+               ((2, 70, 4, 16), (2, 70, 2, 16), (2, 70, 2, 16)))
+    ct = torch.randn(2, 70, 4, 16, generator=g)
+    grads = []
+    for d in (dev, "cpu"):
+        leaves = [t.to(d).requires_grad_(True) for t in (q, k, v)]
+        out = attention_xla_flash(*leaves, causal=True, window=40,
+                                  q_chunk=16, kv_chunk=32)
+        grads.append([x.cpu() for x in torch.autograd.grad(
+            (out * ct.to(d)).sum(), leaves)])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
+
+
+def test_train_main_restart_is_bit_exact_on_cuda(dev, tmp_path):
+    """``launch.train.main`` on cuda: 6 steps against 3, a checkpoint and
+    a resume to 6, bit-equal; the cuda checkpoint restores on the cpu
+    bit for bit."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.launch import train
+
+    def main(*extra):
+        return train.main(["--arch", "qwen3-1.7b", "--shape", "train_4k",
+                           "--reduced", "--log-every", "100", "--device",
+                           "cuda", *extra])
+
+    full = main("--steps", "6", "--ckpt-dir", str(tmp_path / "full"),
+                "--ckpt-every", "100")
+    assert main("--steps", "3", "--ckpt-dir", str(tmp_path / "ck"),
+                "--ckpt-every", "3") == full[:3]
+    assert main("--steps", "6", "--ckpt-dir", str(tmp_path / "ck")) == \
+        full[3:]
+    a = ckpt._flatten(ckpt.restore(str(tmp_path / "full"), device="cuda")[1])
+    for d, where in (("ck", "cuda"), ("ck", "cpu"), ("full", "cpu")):
+        b = ckpt._flatten(ckpt.restore(str(tmp_path / d), device=where)[1])
+        assert [p for p, _ in a] == [p for p, _ in b]
+        for (path, x), (_, y) in zip(a, b):
+            assert y.device.type == where and torch.equal(x.cpu(), y.cpu())
+
+
+@pytest.mark.parametrize("what", ["adafactor", "int8", "topk"])
+def test_adafactor_and_compression_cuda_match_cpu(dev, what):
+    """20 steps on factored and unfactored leaves, within 1e-6."""
+    from repro_torch import optim as O
+    from repro_torch.optim import compression as C
+
+    rng = np.random.RandomState(0)
+    shapes = [(256, 512), (3, 128, 256), (1000,), (4, 300)]
+    p0 = [(rng.randn(*sh) * 0.1).astype(np.float32) for sh in shapes]
+    grads = [[rng.randn(*sh).astype(np.float32) for sh in shapes]
+             for _ in range(20)]
+
+    def run(d):
+        p = [torch.tensor(a, device=d) for a in p0]
+        if what == "adafactor":
+            opt = O.adafactor(O.warmup_cosine(1e-2, 5, 20),
+                              weight_decay=0.01)
+            st = opt.init(p)
+        else:
+            st = C.init_compression_state(p)
+        outs = []
+        for step, g in enumerate(grads):
+            g = [torch.tensor(x, device=d) for x in g]
+            if what == "adafactor":
+                u, st = opt.update(g, st, p, step)
+                O.apply_updates(p, u)
+                outs += [x.clone() for x in p]
+            else:
+                c, st, _ = C.compressed_gradients(g, st, scheme=what,
+                                                  topk_ratio=0.05)
+                outs += c + st
+        return [x.cpu() for x in outs]
+
+    for a, b in zip(run(dev), run("cpu")):
+        assert (a - b).abs().max().item() <= 1e-6

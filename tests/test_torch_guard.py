@@ -66,7 +66,13 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.kernels.autotune_common",
                  "repro_torch.kernels.fast_features.autotune",
                  "repro_torch.kernels.budget_route.autotune",
-                 "repro_torch.kernels.ngram_score.autotune"):
+                 "repro_torch.kernels.ngram_score.autotune",
+                 "repro_torch.optim.adafactor",
+                 "repro_torch.optim.schedules",
+                 "repro_torch.optim.compression",
+                 "repro_torch.checkpoint.checkpoint",
+                 "repro_torch.distributed.fault",
+                 "repro_torch.launch.train"):
         assert name in res["modules"]
 
 

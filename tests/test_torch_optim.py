@@ -136,3 +136,205 @@ def test_bias_correction_equals_xla_float32(b):
     want = np.asarray(1 - b ** jnp.asarray(t))
     got = np.array([_bias_correction(b, x) for x in t], np.float32)
     np.testing.assert_array_equal(got, want)
+
+
+# -- Adafactor, schedules, compression ----------------------------------
+
+AF_SHAPES = {"big": (16, 32), "c3": (2, 8, 12), "small": (4,),
+             "thin": (4, 32)}            # factored, factored, -, -
+
+
+def _af_tree(rng, scale=1.0):
+    return {k: (rng.randn(*s) * scale).astype(np.float32)
+            for k, s in AF_SHAPES.items()}
+
+
+def _j_schedules():
+    return [jopt.constant(0.01), jopt.linear_warmup(0.01, 7),
+            jopt.cosine_decay(0.01, 50), jopt.warmup_cosine(0.01, 5, 40)]
+
+
+def _t_schedules():
+    return [topt.constant(0.01), topt.linear_warmup(0.01, 7),
+            topt.cosine_decay(0.01, 50), topt.warmup_cosine(0.01, 5, 40)]
+
+
+def test_schedules_match_jax():
+    """The four schedules over steps 0..79 (warm-up, decay and the
+    clipped tail), as float32 values within 1e-6 relative."""
+    for j, t in zip(_j_schedules(), _t_schedules()):
+        for step in range(80):
+            got = t(step)
+            assert isinstance(got, np.float32)
+            np.testing.assert_allclose(got, float(j(jnp.asarray(step))),
+                                       rtol=1e-6)
+
+
+@pytest.mark.parametrize("weight_decay", [0.0, 0.01])
+@pytest.mark.parametrize("sched", [0, 3])
+def test_adafactor_steps_match_jax(weight_decay, sched):
+    """``adafactor(..., min_dim_factored=8)`` for 8 steps on factored
+    (2-D and batched 3-D) and unfactored (1-D, a 2-D leaf with a dim
+    below 8) leaves, with a constant lr and ``warmup_cosine``: updates,
+    params and the factored state within 1e-6."""
+    rng = np.random.RandomState(3)
+    init = _af_tree(rng)
+    jp = {k: jnp.asarray(v) for k, v in init.items()}
+    tp = [torch.tensor(init[k]) for k in sorted(init)]
+    jo = jopt.adafactor(_j_schedules()[sched], min_dim_factored=8,
+                        weight_decay=weight_decay)
+    to = topt.adafactor(_t_schedules()[sched], min_dim_factored=8,
+                        weight_decay=weight_decay)
+    js, ts = jo.init(jp), to.init(tp)
+    for step in range(8):
+        g = _af_tree(rng, 0.3)
+        ju, js = jo.update({k: jnp.asarray(v) for k, v in g.items()}, js,
+                           jp, jnp.asarray(step))
+        tu, ts = to.update([torch.tensor(g[k]) for k in sorted(g)], ts, tp,
+                           step)
+        _assert_close(ju, tu, bf16=False)
+        jp = jopt.apply_updates(jp, ju)
+        topt.apply_updates(tp, tu)
+        _assert_close(jp, tp, bf16=False)
+        for k, st in zip(sorted(g), ts["v"]):
+            assert set(st) == set(js["v"][k])
+            for name in st:
+                np.testing.assert_allclose(st[name].numpy(),
+                                           np.asarray(js["v"][k][name]),
+                                           rtol=1e-6, atol=1e-9)
+
+
+def test_adafactor_beta2_equals_xla_float32():
+    """``1 - t**(-0.8)`` for the first 5,000 steps: the port's host value
+    has XLA's float32 bits."""
+    from repro_torch.optim.adafactor import _beta2
+
+    t = jnp.arange(5000, dtype=jnp.float32) + 1.0
+    want = np.asarray(1.0 - t ** (-0.8))
+    got = np.array([_beta2(s, 0.8) for s in range(5000)], np.float32)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_adafactor_state_is_factored():
+    """The port of ``tests/test_integration.py``'s test."""
+    opt = topt.adafactor(1e-2, min_dim_factored=8)
+    st = opt.init([torch.zeros(16, 32), torch.zeros(4)])
+    assert set(st["v"][0]) == {"vr", "vc"}
+    assert st["v"][0]["vr"].shape == (16,)
+    assert st["v"][0]["vc"].shape == (32,)
+    assert set(st["v"][1]) == {"v"}
+
+
+def test_adamw_and_adafactor_reduce_quadratic():
+    """The port of ``tests/test_integration.py``'s test: 200 steps of
+    each optimizer take a quadratic below 1e-2."""
+    def loss(p):
+        return (p[0] - 3.0).square().sum() + (p[1] + 1.0).square().sum()
+
+    for opt in (topt.adamw(0.1),
+                topt.adafactor(lambda s: 0.5 / (1.0 + 0.05 * s))):
+        params = [torch.zeros(4, 4), torch.zeros(4)]
+        state = opt.init(params)
+        for step in range(200):
+            leaves = [p.clone().requires_grad_(True) for p in params]
+            g = torch.autograd.grad(loss(leaves), leaves)
+            upd, state = opt.update(list(g), state, params, step)
+            topt.apply_updates(params, upd)
+        assert float(loss(params)) < 1e-2
+
+
+def test_adamw_with_a_schedule_matches_jax():
+    """``chain_clip(adamw(warmup_cosine(...)))``: the callable lr, taken
+    in float32, for 10 steps through warm-up into the decay."""
+    rng = np.random.RandomState(4)
+    init = _tree(rng)
+    jp, tp = _to_jax(init, jnp.float32), _to_torch(init, torch.float32)
+    jo = jopt.chain_clip(jopt.adamw(jopt.warmup_cosine(0.01, 3, 12),
+                                    weight_decay=0.1), 1.0)
+    to = topt.chain_clip(topt.adamw(topt.warmup_cosine(0.01, 3, 12),
+                                    weight_decay=0.1), 1.0)
+    js, ts = jo.init(jp), to.init(tp)
+    for step in range(10):
+        g = _tree(rng, 2.0)
+        ju, js = jo.update(_to_jax(g, jnp.float32), js, jp,
+                           jnp.asarray(step))
+        tu, ts = to.update(_to_torch(g, torch.float32), ts, tp, step)
+        _assert_close(ju, tu, bf16=False)
+        jp = jopt.apply_updates(jp, ju)
+        topt.apply_updates(tp, tu)
+    _assert_close(jp, tp, bf16=False)
+
+
+def test_int8_and_topk_compression_match_jax():
+    from repro.optim import compression as JC
+    from repro_torch.optim import compression as TC
+
+    rng = np.random.RandomState(5)
+    x = rng.randn(7, 9).astype(np.float32)
+    x[0, 0] = 0.5 * np.abs(x).max()      # not a tie at the max
+    jq, js = JC.quantize_int8(jnp.asarray(x))
+    tq, ts = TC.quantize_int8(torch.from_numpy(x))
+    assert tq.dtype == torch.int8
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(
+        TC.dequantize_int8(tq, ts).numpy(),
+        np.asarray(JC.dequantize_int8(jq, js)))
+    # half-way values round to even in both
+    h = torch.tensor([0.5, 1.5, 2.5, -0.5, 127.0])
+    assert TC.quantize_int8(h)[0].tolist() == \
+        np.asarray(JC.quantize_int8(jnp.asarray(h.numpy()))[0]).tolist()
+    r = rng.randn(7, 9).astype(np.float32) * 0.1
+    for ratio in (0.01, 0.1, 0.5):
+        jk, jr = JC.error_feedback_topk(jnp.asarray(x), jnp.asarray(r),
+                                        ratio)
+        tk, tr = TC.error_feedback_topk(torch.from_numpy(x),
+                                        torch.from_numpy(r), ratio)
+        np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+        np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+
+
+@pytest.mark.parametrize("scheme", ["int8", "topk"])
+def test_compressed_gradients_match_jax(scheme):
+    """Five steps of ``compressed_gradients`` with its residual state:
+    the compressed grads, the residuals and the wire estimate."""
+    from repro.optim import compression as JC
+    from repro_torch.optim import compression as TC
+
+    rng = np.random.RandomState(6)
+    keys = sorted(SHAPES)
+    jstate = JC.init_compression_state(_to_jax(_tree(rng), jnp.float32))
+    tstate = TC.init_compression_state(_to_torch(_tree(rng), torch.float32))
+    for _ in range(5):
+        g = _tree(rng)
+        jc, jstate, jw = JC.compressed_gradients(
+            _to_jax(g, jnp.float32), jstate, scheme=scheme, topk_ratio=0.2)
+        tc, tstate, tw = TC.compressed_gradients(
+            _to_torch(g, torch.float32), tstate, scheme=scheme,
+            topk_ratio=0.2)
+        assert tw == jw
+        for k, a, b in zip(keys, tc, tstate):
+            np.testing.assert_allclose(a.numpy(), np.asarray(jc[k]),
+                                       atol=1e-6, rtol=0, err_msg=k)
+            np.testing.assert_allclose(b.numpy(), np.asarray(jstate[k]),
+                                       atol=1e-6, rtol=0, err_msg=k)
+    with pytest.raises(ValueError):
+        TC.compressed_gradients(tc, tstate, scheme="fp4")
+
+
+def test_compressed_allreduce_error_feedback_converges():
+    """The port of ``tests/test_integration.py``'s test: int8-compressed
+    gradients with error feedback track the true sum over 50 steps."""
+    from repro_torch.optim.compression import (compressed_gradients,
+                                               init_compression_state)
+
+    rng = np.random.RandomState(0)
+    g_true = [torch.tensor(rng.randn(64) * 0.01, dtype=torch.float32)]
+    state = init_compression_state(g_true)
+    acc = torch.zeros(64)
+    acc_true = torch.zeros(64)
+    for _ in range(50):
+        comp, state, _ = compressed_gradients(g_true, state, scheme="int8")
+        acc = acc + comp[0]
+        acc_true = acc_true + g_true[0]
+    assert float((acc - acc_true).abs().max() / acc_true.abs().max()) < 0.01
