@@ -22,11 +22,13 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    ``budget_route()`` op at N=256: device launches and time a call),
    ngram_score (B=64 and 256, L=256), flash_attention (the qwen3-1.7b
    prefill shape B=4 S=4096 H=16 Hk=8 D=128 causal in bf16 and in f32,
-   and the h2o-danube-3-4b shape B=1 S=8192 H=32 Hk=8 D=120 window 4096
-   in bf16, each also timed against PyTorch's
+   the h2o-danube-3-4b shape B=1 S=8192 H=32 Hk=8 D=120 window 4096
+   in bf16, and the olmoe-1b-7b (H=Hk=16) and phi3-medium-14b (H=40
+   Hk=10) prefill shapes at B=4 S=4096 D=128 in bf16, each also timed against PyTorch's
    ``scaled_dot_product_attention`` as a yardstick the port never calls;
-   the bf16 rows' max abs error must also stay within 4e-3, which a
-   control that rounds p once to bf16 must exceed),
+   the qwen3 and danube bf16 rows' max abs error must also stay within
+   4e-3, which a control that rounds p once to bf16 must exceed: the
+   design check of the bf16 body, made at those two shapes),
    embedding_bag (the dlrm-mlperf ``serve_bulk`` lookup: 262,144 x 26
    bags of one over the 48.07 GB bf16 table, bit-equal; and a 100,000 x
    64 f32 table, B=4096, L=16, sum and mean; timed beside
@@ -188,7 +190,43 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    bit-equal), the cuda checkpoint restored on the cpu bit for bit;
    Adafactor and ``compressed_gradients`` (int8, top-k) on cuda against
    cpu over 20 steps, within 1e-6.
-15. recsys: ``recsys_scores`` of the full-width bf16 ``dlrm-mlperf``
+15. lm_moe: the full-width bf16 ``olmoe-1b-7b`` as registered (16
+   layers, d=2048, 64 experts top-8, 6,919,100,416 params, random
+   weights drawn on the card) with ``attention_impl="pallas"``:
+   ``prefill`` of B=4 x S=4096 (``prefill_32k`` is 32 x 32768, whose KV
+   cache alone is 137.4 GB), then 16 decode steps. Holds: the param
+   count, 16 flash_attention launches, finite logits, two prefills and
+   two decode runs bit-equal; layer 0's MoE on 1,024 of its real bf16
+   inputs on the card against the port's float32 computation on the
+   cpu from the same weights: equal routing (expert sets, kept slots)
+   but for flips at a float32 probability gap below 1e-4, outputs
+   within 2e-2 relative L2. Reports prefill s, tokens/s and model
+   TFLOP/s (2 x active params x tokens), decode ms a step, peak GB, the
+   share of routed slots dropped by the capacity in each layer, the
+   naive-attention prefill's relative L2 and routing flips per layer,
+   and a torch.profiler split of one prefill's device time: expert
+   products, dispatch and combine (the ``moe.*`` ranges), flash_attention
+   and the rest.
+16. lm_moe_small_parity: the reduced f32 olmoe-tiny and grok-tiny on
+   cuda against cpu: prefill, 4 decode steps and ``lm_logits`` with its
+   aux within 2e-5; 5 ``lm_train_step``s (AdamW for OLMoE, Adafactor
+   for grok) within 2e-5 on the losses and 1e-4 on the params, and two
+   cuda trainings bit-equal; the budget router (duplicated tokens that
+   tie) with equal token choices and outputs within 2e-5.
+17. lm_phi3: the full-width bf16 ``phi3-medium-14b`` (40 layers,
+   d=5120, H 40 / Hk 10, 14,659,507,200 params) with
+   ``attention_impl="pallas"``: prefill of B=4 x S=4096 and 4 decode
+   steps; 40 flash_attention launches; reported: the prefill's
+   relative L2 to a naive-attention prefill (run one sequence at a
+   time: at B=4 its float32 scores do not fit beside the weights) and
+   the first decode step's to ``lm_logits``, the dense phase's two bars,
+   which at 40 layers sit at the bf16 noise of the random-weight model;
+   held, on sequence 0 against the model computed in float32: the
+   kernel's bf16 prefill no further from it than the naive one (within
+   10%), and the float32 first decode step within 1e-3 of the float32
+   full forward; prefill s and peak GB (the init's too: it draws the
+   largest stacked leaf in float32).
+18. recsys: ``recsys_scores`` of the full-width bf16 ``dlrm-mlperf``
    (the 187,767,808 x 128 table, 48.07 GB, drawn in place from a seeded
    CUDA generator) at ``serve_p99`` (batch 512) and ``serve_bulk`` (batch
    262,144), batches from ``launch.specs._recsys_batch`` (seed 0):
@@ -196,9 +234,9 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    finite scores in (0, 1) bit-equal to a forward whose lookup is a
    plain ``index_select``, peak memory, and a torch.profiler pass over
    one ``serve_bulk`` forward.
-16. recsys_small_parity: the reduced f32 dlrm-tiny on cuda against cpu,
+19. recsys_small_parity: the reduced f32 dlrm-tiny on cuda against cpu,
    scores within 2e-5.
-17. gnn: ``segment_matmul(x, src, dst, w, n_nodes)`` at ``ogb_products``
+20. gnn: ``segment_matmul(x, src, dst, w, n_nodes)`` at ``ogb_products``
    (uniform random edges from a seeded CUDA generator, d_out 128, f32):
    a torch.profiler pass over the first (cold, uncounted) step at full
    size, then wall ms of a warm step and of its argsort, gather and
@@ -234,7 +272,14 @@ DEVICE = "cuda"
 GNN_D_OUT = 128                  # equiformer-v2's d_hidden (the repo's GNN)
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries ``t_s``, the seconds
+    since the script started."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -707,10 +752,12 @@ def phase_routing_parity(dev) -> None:
 
 
 # (row name, B, S, H, Hk, D, window, dtype, tolerance, max abs error
-# limit): causal, Sq = Skv. The bf16 rows' limit, 4e-3, is one bf16 ulp
-# at |o| in [0.5, 1): the bf16 rounding of the float32-p result, which
-# the tensor-core body keeps by splitting p; rounding p once to bf16
-# misses it (the control below).
+# limit): causal, Sq = Skv. The qwen3 and danube rows' limit, 4e-3, is
+# one bf16 ulp at |o| in [0.5, 1): the bf16 rounding of the float32-p
+# result, which the tensor-core body keeps by splitting p; rounding p
+# once to bf16 misses it (the control below). Every bf16 row is also
+# held elementwise against the float32 result before its rounding
+# (FLASH_ROUNDING_LIMIT), which scales with |o|.
 FLASH_ROWS = (
     ("qwen3_prefill_bf16", 4, 4096, 16, 8, 128, None, "bfloat16", 2e-2,
      4e-3),
@@ -718,7 +765,38 @@ FLASH_ROWS = (
      4e-3),
     ("qwen3_prefill_f32", 4, 4096, 16, 8, 128, None, "float32", 2e-5,
      None),
+    ("olmoe_prefill_bf16", 4, 4096, 16, 16, 128, None, "bfloat16", 2e-2,
+     None),
+    ("phi3_prefill_bf16", 4, 4096, 40, 10, 128, None, "bfloat16", 2e-2,
+     None),
 )
+
+
+#: The bf16 rows' design limit on |got - o32| / ulp(max(|o32|, 0.5)),
+#: o32 the plain version's float32 result: correct rounding reads at
+#: most 0.5, and 1/16 ulp is left for the body's float32 arithmetic
+#: (split p, another summation order), far above its error (about 1e-5
+#: of |o|) and below what rounding p once to bf16 adds (the control).
+FLASH_ROUNDING_LIMIT = 0.5 + 1 / 16
+
+
+def bf16_ulp(x):
+    """One bf16 ulp at each element of the float32 ``x`` (normal
+    numbers): 2 ** (exponent - 7) with |x| in [2 ** exponent, 2 **
+    (exponent + 1))."""
+    import torch
+
+    _, e = torch.frexp(x)
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def rounding_excess(got, want32) -> float:
+    """max |got - want32| / ulp(max(|want32|, 0.5)) over the elements:
+    how far the bf16 ``got`` is from the float32 ``want32``, in bf16
+    ulps of |want32| floored at 0.5 (one ulp there is 2 ** -8, the
+    absolute floor near o = 0)."""
+    return float(((got.float() - want32).abs()
+                  / bf16_ulp(want32.abs().clamp_min(0.5))).max())
 
 
 def visible_pairs(s: int, window: int | None) -> int:
@@ -769,7 +847,11 @@ def check_flash_attention(dev) -> list[dict]:
                    for shape in ((b, s, h, d), (b, s, hk, d), (b, s, hk, d)))
         kw = dict(causal=True, window=window)
         got = ops.flash_attention(q, k, v, **kw).float()
-        want = ref.flash_attention_ref(q, k, v, **kw).float()
+        # the plain version in float32 (exact from bf16 inputs), and its
+        # rounding to the row's dtype: what the plain version returns
+        want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                         **kw)
+        want = want32.to(dt).float()
         torch.cuda.synchronize()
         # tolerance: atol = rtol = 2e-2 in bf16, 2e-5 in f32 (the JAX
         # kernel's bar, tests/test_kernels.py)
@@ -777,10 +859,18 @@ def check_flash_attention(dev) -> list[dict]:
         assert bool((diff <= tol + tol * want.abs()).all()), \
             f"flash_attention {name}: max err {diff.max().item()}"
         err = diff.max().item()
-        ctl_err = None
+        ctl_err = excess = ctl_excess = None
+        if dt == torch.bfloat16:
+            ctl = flash_bf16_p_control(q, k, v, **kw)
+            ctl_err = (ctl.float() - want).abs().max().item()
+            excess = rounding_excess(got, want32)
+            ctl_excess = rounding_excess(ctl, want32)
+            del ctl
+            assert excess <= FLASH_ROUNDING_LIMIT < ctl_excess, (
+                f"flash_attention {name}: {excess} ulp from the float32 "
+                f"result, limit {FLASH_ROUNDING_LIMIT}, bf16-p control "
+                f"{ctl_excess}")
         if max_err is not None:
-            ctl_err = (flash_bf16_p_control(q, k, v, **kw).float()
-                       - want).abs().max().item()
             assert err <= max_err < ctl_err, (
                 f"flash_attention {name}: max abs err {err}, limit "
                 f"{max_err}, bf16-p control {ctl_err}")
@@ -799,7 +889,7 @@ def check_flash_attention(dev) -> list[dict]:
                                                   **lib_kw)
 
         lib_err = (library().transpose(1, 2).float() - want).abs().max().item()
-        del got, want, diff
+        del got, want, want32, diff
         out = torch.empty_like(q)
         ms = time_ms(lambda: ops._launch(q, k, v, out, **kw), reps=10,
                      warmup=2)
@@ -816,7 +906,12 @@ def check_flash_attention(dev) -> list[dict]:
         rows.append(dict(name="flash_attention", row=name, shape=dict(
             b=b, s=s, h=h, hk=hk, d=d, window=window, dtype=dtype),
             tolerance=tol, max_abs_err=err, max_abs_err_limit=max_err,
-            bf16_p_control_max_abs_err=ctl_err, library_max_abs_err=lib_err,
+            bf16_p_control_max_abs_err=ctl_err,
+            rounding_excess_ulp=excess,
+            rounding_excess_limit=(FLASH_ROUNDING_LIMIT
+                                   if excess is not None else None),
+            bf16_p_control_rounding_excess_ulp=ctl_excess,
+            library_max_abs_err=lib_err,
             ms=ms, ms_device=ms_device, plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=b_ms, bound_by=b_by, ops=n_ops,
             bytes=nbytes))
@@ -2443,16 +2538,19 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def device_profile(fn, top: int = 5, split: dict | None = None) -> dict:
+def device_profile(fn, top: int = 5, split: dict | None = None,
+                   ranges: tuple = ()) -> dict:
     """One ``fn()`` under torch.profiler: host-clock wall time, the summed
     device time of the kernels and copies it ran, their share of the wall
     time (the device's busy share), their count, the ``top`` longest, and
     the four CUDA runtime calls (cudaMalloc, cudaLaunchKernel, ...) with
     the most host time, and the count of kernel launch calls. ``split``
     (name -> regex) also sums the device ms of the kernels whose name
-    each regex finds first, the rest under "other". ``trace_stop_s`` and
-    ``aggregate_s``: the host seconds the profiler then took to stop and
-    to aggregate its events."""
+    each regex finds first, the rest under "other". ``ranges`` names
+    ``record_function`` ranges whose kernels' device ms are summed
+    (``range_ms``; a range's own device-side annotation is not counted
+    as a kernel). ``trace_stop_s`` and ``aggregate_s``: the host seconds
+    the profiler then took to stop and to aggregate its events."""
     import re
 
     import torch
@@ -2470,7 +2568,7 @@ def device_profile(fn, top: int = 5, split: dict | None = None) -> dict:
     t_agg = time.perf_counter()
     averages = prof.key_averages()      # aggregated once: it walks
     ops = [e for e in averages            # every event of the trace
-           if e.device_type == DeviceType.CUDA]
+           if e.device_type == DeviceType.CUDA and e.key not in ranges]
     device_ms = sum(e.self_device_time_total for e in ops) / 1e3
     by_time = sorted(ops, key=lambda e: -e.self_device_time_total)
 
@@ -2498,6 +2596,10 @@ def device_profile(fn, top: int = 5, split: dict | None = None) -> dict:
                                              "cudaLaunchKernelExC",
                                              "cuLaunchKernel")),
             **({"split_ms": split_ms(split)} if split else {}),
+            **({"range_ms": {
+                r: sum(e.device_time_total for e in averages
+                       if e.key == r and e.device_type == DeviceType.CPU)
+                / 1e3 for r in ranges}} if ranges else {}),
             "trace_stop_s": t_agg - t_stop,
             "aggregate_s": time.perf_counter() - t_agg}
 
@@ -2775,17 +2877,38 @@ def phase_lm_train() -> dict:
     return counts
 
 
+class _GradScale:
+    """An optimizer that records, per element, the smallest nonzero
+    |gradient| any step handed it (inf where every one was zero), and
+    the sum over the steps of the largest |update| of any element (the
+    most one element can have moved), and otherwise is ``opt``."""
+
+    def __init__(self, opt):
+        self.opt, self.gmin, self.moved = opt, None, 0.0
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params, step):
+        a = [g.abs().masked_fill(g == 0, float("inf")) for g in grads]
+        self.gmin = a if self.gmin is None else [
+            x.minimum(y) for x, y in zip(self.gmin, a)]
+        updates, state = self.opt.update(grads, state, params, step)
+        self.moved += max(float(u.abs().max()) for u in updates)
+        return updates, state
+
+
 def _small_lm_steps(arch, cfg, init, dev, steps):
     """``steps`` of ``lm_train_step`` from ``init`` (cpu tensors, copied
     to ``dev``) with the arch's optimizer, on the seed t + 1 batches of
-    the reduced train_4k: (losses, final leaves on the cpu)."""
+    the reduced train_4k: (losses, final leaves on the cpu, each leaf's
+    smallest nonzero |gradient| over the steps on the cpu, and the sum
+    over the steps of the largest |update|)."""
     from repro_torch.launch import specs as S
 
     shape = S._reduce_shape("lm", arch.shape("train_4k"))
-    params = {k: ({n: t.to(dev, copy=True) for n, t in v.items()}
-                  if k == "layers" else v.to(dev, copy=True))
-              for k, v in init.items()}
-    opt = S._optimizer_for(arch)[0]
+    params = tree_to(init, dev)
+    opt = _GradScale(S._optimizer_for(arch)[0])
     state = opt.init(S.lm_param_leaves(params))
     step_fn = S.lm_train_step(cfg, opt)
     losses = []
@@ -2794,7 +2917,42 @@ def _small_lm_steps(arch, cfg, init, dev, steps):
                                   shape["seq_len"], step + 1, dev)
         _, state, loss = step_fn(params, state, step, batch)
         losses.append(float(loss))
-    return losses, [p.cpu() for p in S.lm_param_leaves(params)]
+    return (losses, [p.cpu() for p in S.lm_param_leaves(params)],
+            [g.cpu() for g in opt.gmin], opt.moved)
+
+
+#: AdamW's step, m_hat / (sqrt(v_hat) + eps), does not depend on the
+#: gradient's scale above eps (1e-8): a gradient of 1e-7 moves its
+#: element by about lr, as one of 1 does. The rounding of a leaf's
+#: largest gradients (another summation order on another device) puts
+#: an absolute error into every gradient of the leaf, a large share of
+#: a small one, and AdamW turns that share into the same share of lr.
+#: Elements ever handed a nonzero |gradient| below SMALL_GRAD are held
+#: to what the optimizer can move one element in the run; the 1e-4
+#: parameter bar holds every other element.
+SMALL_GRAD = 1e-6
+
+
+def param_gap(a, b, gmin, names, moved) -> dict:
+    """Max |a - b| over the elements whose every nonzero gradient
+    (``gmin``: the smallest) reached ``SMALL_GRAD``; for the rest, the
+    small-gradient elements, their count, max gap, its limit ``moved``
+    (the most one element moved in the run) and their count by leaf
+    (``names``, the leaves' key paths)."""
+    held, rest, by_leaf = 0.0, 0.0, {}
+    for x, y, g, name in zip(a, b, gmin, names):
+        d = (x - y).abs()
+        m = g >= SMALL_GRAD
+        if bool(m.any()):
+            held = max(held, float(d[m].max()))
+        if bool((~m).any()):
+            rest = max(rest, float(d[~m].max()))
+            by_leaf[name] = int((~m).sum())
+    return {"held_max_abs_diff": held,
+            "small_grad_elements": sum(by_leaf.values()),
+            "small_grad_max_abs_diff": rest, "small_grad_limit": moved,
+            "small_grad_by_leaf": by_leaf,
+            "elements": sum(x.numel() for x in a)}
 
 
 def _restart_on_cuda(tmp) -> dict:
@@ -2852,7 +3010,7 @@ def phase_lm_train_small_parity() -> None:
     arch = get_config("qwen3-1.7b").reduced()
     cfg = dataclasses.replace(arch.model, q_chunk=16, kv_chunk=32)
     init = T.init_lm(cfg, torch.Generator().manual_seed(SEED), "cpu")
-    runs = [_small_lm_steps(arch, cfg, init, dev, LM_SMALL_STEPS)
+    runs = [_small_lm_steps(arch, cfg, init, dev, LM_SMALL_STEPS)[:2]
             for dev in ("cuda", "cpu", "cuda")]
     (lc, pc), (lh, ph), (lc2, pc2) = runs
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
@@ -2912,6 +3070,475 @@ def phase_lm_train_small_parity() -> None:
           "train_main_losses": restart["losses"],
           "optimizer_steps": OPT_SMALL_STEPS,
           "optimizer_max_abs_diff": opt_diff})
+
+
+# ------------------------------------------------------- phases 18-20: MoE
+
+
+def tree_to(tree: dict, dev) -> dict:
+    """A copy of a (nested) dict of tensors on ``dev``."""
+    return {k: tree_to(v, dev) if isinstance(v, dict)
+            else v.to(dev, copy=True) for k, v in tree.items()}
+
+
+def lm_param_count(params: dict) -> int:
+    from repro_torch.launch.specs import lm_param_leaves
+
+    return sum(t.numel() for t in lm_param_leaves(params))
+
+
+def kept_by_expert(rec: dict, n_experts: int):
+    """A top-k routing record -> (T, E) bool: token t's slot at expert e
+    was kept (chosen and within the capacity)."""
+    import torch
+
+    eids = rec["eids"].cpu()
+    return torch.zeros((eids.shape[0], n_experts), dtype=torch.bool) \
+        .scatter_(1, eids, rec["keep"].cpu())
+
+
+def routing_flips(a: list, b: list, n_experts: int) -> list[dict]:
+    """Per layer: tokens whose top-k expert set differs between two
+    routing traces, and (token, expert) pairs kept in one and not the
+    other."""
+    out = []
+    for ra, rb in zip(a, b):
+        ea = ra["eids"].sort(-1).values
+        eb = rb["eids"].sort(-1).values
+        out.append({"tokens": int((ea != eb).any(-1).sum()),
+                    "kept_pairs": int((kept_by_expert(ra, n_experts)
+                                       != kept_by_expert(rb, n_experts))
+                                      .sum())})
+    return out
+
+
+def moe_layer0_parity(params, cfg, toks, n_tok: int = 1024) -> dict:
+    """Layer 0's MoE on the first ``n_tok`` of its real bf16 inputs (the
+    prefill's own layer 0 up to the FFN norm): the card's bf16 result
+    against the port's plain float32 computation on the cpu from the
+    same weights. Routing (expert sets and the kept mask) must agree but
+    for flips whose float32 probability gap (between the k-th and the
+    (k+1)-th expert) is below 1e-4, and each flip is counted; the
+    outputs within 2e-2 relative L2."""
+    import torch
+
+    from repro_torch.models import attention as A
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import rms_norm
+
+    lp = T._layers(params)[0]
+    with torch.no_grad():
+        x = T._embed(params, cfg, toks[:1, :n_tok])
+        pos = torch.arange(n_tok, device=x.device)
+        q, k, v = T._qkv(x, lp, cfg, pos)
+        o = A.attention(q, k, v, causal=True, window=cfg.sliding_window,
+                        impl=cfg.attention_impl, q_chunk=cfg.q_chunk,
+                        kv_chunk=cfg.kv_chunk)
+        h = rms_norm(T._attn_out(x, o, lp), lp["ln_ffn"], cfg.norm_eps)
+        xt = h.reshape(n_tok, cfg.d_model)
+        with M.routing_trace() as tr_card:
+            y_card, aux_card = M._moe_local(xt, lp["moe"], cfg.moe)
+        p32 = {n: w.float().cpu() for n, w in lp["moe"].items()}
+        xt32 = xt.float().cpu()
+        with M.routing_trace() as tr_cpu:
+            y_cpu, aux_cpu = M._moe_local(xt32, p32, cfg.moe)
+        probs = M.router_probs(xt32, p32["router"], cfg.moe)
+    kk = cfg.moe.top_k
+    top = probs.sort(-1, descending=True).values
+    gap = (top[:, kk - 1] - top[:, kk])
+    ea = tr_card[0]["eids"].cpu().sort(-1).values
+    eb = tr_cpu[0]["eids"].sort(-1).values
+    flipped = (ea != eb).any(-1)
+    E = cfg.moe.n_experts
+    keep_diff = int((kept_by_expert(tr_card[0], E)
+                     != kept_by_expert(tr_cpu[0], E)).sum())
+    flip_gaps = [float(g) for g in gap[flipped]]
+    err = rel_l2(y_card.cpu(), y_cpu)
+    assert all(g < 1e-4 for g in flip_gaps), \
+        f"layer-0 routing flips at probability gaps {flip_gaps}"
+    assert err <= 2e-2, f"layer-0 MoE cuda bf16 vs cpu f32: rel L2 {err}"
+    return {"tokens": n_tok, "rel_l2_vs_cpu_f32": err,
+            "aux": {"cuda": float(aux_card), "cpu_f32": float(aux_cpu)},
+            "routing_flips": int(flipped.sum()), "flip_prob_gaps": flip_gaps,
+            "kept_pair_diffs": keep_diff,
+            "median_prob_gap": float(gap.median()),
+            "min_prob_gap": float(gap.min())}
+
+
+MOE_RANGES = ("moe.dispatch", "moe.experts", "moe.combine")
+
+
+def phase_lm_moe() -> dict:
+    """OLMoE-1B-7B as registered: 16 layers, d = 2048, 64 experts top-8,
+    bf16, random weights drawn on the card; prefill 4 x 4096 with the
+    flash_attention kernel, then 16 decode steps."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import KVCache
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b").model,
+                              attention_impl="pallas")
+    assert (cfg.n_layers, cfg.d_model, cfg.moe.n_experts, cfg.moe.top_k,
+            cfg.param_dtype) == (16, 2048, 64, 8, "bfloat16"), cfg
+    dev = torch.device("cuda")
+    b, s, n_dec = 4, 4096, 16
+    t0 = time.perf_counter()
+    params = T.init_lm(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                       dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = lm_param_count(params)
+    assert n_params == cfg.n_params() == 6_919_100_416, n_params
+    toks = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                         generator=torch.Generator(device=dev)
+                         .manual_seed(SEED + 1))
+    T.prefill(params, cfg, toks[:, :256])          # warm the GEMM paths
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts()
+    with M.routing_trace() as trace:
+        (logits, cache), prefill_s = synced(
+            lambda: T.prefill(params, cfg, toks))
+    cache = KVCache(*(F.pad(t, (0, 0, 0, 0, 0, n_dec)) for t in cache))
+    cache0 = KVCache(cache.k.clone(), cache.v.clone())
+
+    def decode(c):
+        nxt, out = logits.argmax(-1, keepdim=True), []
+        for i in range(n_dec):
+            lg, c = T.decode_step(params, cfg, nxt, c, s + i)
+            out.append(lg)
+            nxt = lg.argmax(-1, keepdim=True)
+        return out
+
+    dec_logits, decode_s = synced(lambda: decode(cache))
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert counts["flash_attention"] == cfg.n_layers, counts
+    assert bool(torch.isfinite(logits).all()), "non-finite prefill logits"
+    assert all(bool(torch.isfinite(lg).all()) for lg in dec_logits), \
+        "non-finite decode logits"
+    dropped = [float(1.0 - r["keep"].float().mean()) for r in trace]
+
+    # determinism: a second prefill and a second decode run (from the
+    # same cache) equal the first bit for bit
+    logits2, cache2 = T.prefill(params, cfg, toks)
+    assert torch.equal(logits, logits2), "two prefills differ"
+    assert torch.equal(cache2.k, cache0.k[:, :, :s]), "two prefill caches"
+    del cache2
+    dec2 = decode(cache0)
+    assert all(torch.equal(a, c) for a, c in zip(dec_logits, dec2)), \
+        "two decode runs differ"
+    del cache0, dec2
+
+    layer0 = moe_layer0_parity(params, cfg, toks)
+    # the prefill with naive attention: relative L2 of the last
+    # position's logits and each layer's routing flips (reported: a
+    # flipped expert moves a token by far more than bf16 noise)
+    ncfg = dataclasses.replace(cfg, attention_impl="naive")
+    with M.routing_trace() as trace_naive:
+        logits_naive, _ = T.prefill(params, ncfg, toks)
+    flips = routing_flips(trace, trace_naive, cfg.moe.n_experts)
+    err_naive = rel_l2(logits, logits_naive)
+    del logits_naive, trace_naive
+    prof = device_profile(lambda: T.prefill(params, cfg, toks), top=8,
+                          split={"flash_attention": r"flash"},
+                          ranges=MOE_RANGES)
+    rng_ms = prof["range_ms"]
+    other = prof["device_ms"] - sum(rng_ms.values()) \
+        - prof["split_ms"]["flash_attention"]
+    tokens = b * s
+    flops = 2 * cfg.n_active_params() * tokens
+    emit({"phase": "lm_moe", "config": cfg.name, "attention_impl": "pallas",
+          "n_params": n_params, "n_active_params": cfg.n_active_params(),
+          "batch": b, "seq_len": s, "decode_steps": n_dec,
+          "reduced": "batch 4 x 4096 tokens, where prefill_32k is global "
+                     "batch 32 x 32768 (its KV cache alone is 137.4 GB); "
+                     "full width and depth; random weights",
+          "launches": counts, "init_s": init_s, "prefill_s": prefill_s,
+          "prefill_tokens_per_s": tokens / prefill_s,
+          "prefill_model_tflops": flops / prefill_s / 1e12,
+          "model_flops": "2 x active params x tokens",
+          "decode_s": decode_s, "decode_ms_per_step": decode_s / n_dec * 1e3,
+          "decode_tokens_per_s": b * n_dec / decode_s,
+          "max_memory_allocated_gb": peak_gb,
+          "capacity_dropped_share_by_layer": dropped,
+          "two_prefills_bit_equal": True, "two_decodes_bit_equal": True,
+          "layer0_moe_vs_cpu_f32": layer0,
+          "rel_l2_vs_naive_prefill": err_naive,
+          "routing_flips_vs_naive_by_layer": flips,
+          "prefill_device_split_ms": {
+              "expert_products": rng_ms["moe.experts"],
+              "dispatch_combine": rng_ms["moe.dispatch"]
+              + rng_ms["moe.combine"],
+              "flash_attention": prof["split_ms"]["flash_attention"],
+              "other": other},
+          "profile": prof, "phase_s": time.perf_counter() - t_phase})
+    del params, cache, logits
+    free_cuda()
+    return counts
+
+
+def phase_lm_moe_small_parity() -> None:
+    """olmoe-tiny and grok-tiny (f32) on cuda against cpu: prefill,
+    decode and lm_logits within 2e-5; 5 train steps with each config's
+    optimizer (AdamW, Adafactor) within 2e-5 on the losses and 1e-4 on
+    the params (small-gradient elements: within the most one element
+    moved), and two cuda trainings bit-equal; the budget router cuda
+    against cpu."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import KVCache
+
+    t_phase = time.perf_counter()
+    out = {}
+    for arch_id in ("olmoe-1b-7b", "grok-1-314b"):
+        arch = get_config(arch_id).reduced()
+        cfg = dataclasses.replace(arch.model, attention_impl="pallas")
+        host = T.init_lm(cfg, torch.Generator().manual_seed(SEED), "cpu")
+        card = tree_to(host, "cuda")
+        toks = torch.randint(0, cfg.vocab_size, (2, 100),
+                             generator=torch.Generator().manual_seed(SEED))
+        runs = {}
+        for name, p, dev in (("cuda", card, "cuda"), ("cpu", host, "cpu")):
+            lg, cache = T.prefill(p, cfg, toks.to(dev))
+            full, aux = T.lm_logits(p, cfg, toks.to(dev))
+            runs[name] = [lg.cpu(), full.cpu(), aux.cpu()], KVCache(
+                *(F.pad(t, (0, 0, 0, 0, 0, 4)) for t in cache))
+        nxt = runs["cpu"][0][0].argmax(-1, keepdim=True)
+        for i in range(4):
+            for name, p, dev in (("cuda", card, "cuda"), ("cpu", host, "cpu")):
+                lg, _ = T.decode_step(p, cfg, nxt.to(dev), runs[name][1],
+                                      100 + i)
+                runs[name][0].append(lg.cpu())
+            nxt = runs["cpu"][0][-1].argmax(-1, keepdim=True)
+        errs = [float((a - c).abs().max())
+                for a, c in zip(runs["cuda"][0], runs["cpu"][0])]
+        # tolerance: 2e-5 on float32 logits and aux (another summation
+        # order; the routing is equal)
+        assert max(errs) <= 2e-5, f"{cfg.name} cuda vs cpu: {errs}"
+
+        tcfg = dataclasses.replace(arch.model, q_chunk=16, kv_chunk=32)
+        init = T.init_lm(tcfg, torch.Generator().manual_seed(SEED), "cpu")
+        (lc, pc, _, _), (lh, ph, gmin, moved), (lc2, pc2, _, _) = [
+            _small_lm_steps(arch, tcfg, init, dev, LM_SMALL_STEPS)
+            for dev in ("cuda", "cpu", "cuda")]
+        loss_diff = max(abs(a - c) for a, c in zip(lc, lh))
+        names = ["/".join(map(str, path))
+                 for path, _ in ckpt_lib._flatten(init)]
+        gap = param_gap(pc, ph, gmin, names, moved)
+        # params within 1e-4, but at small-gradient elements, which
+        # must be rare (under 1% of the elements) and within what the
+        # optimizer moved one element in the run
+        assert loss_diff <= 2e-5 and gap["held_max_abs_diff"] <= 1e-4 \
+            and gap["small_grad_elements"] <= 1e-2 * gap["elements"] \
+            and gap["small_grad_max_abs_diff"] <= moved, \
+            (cfg.name, loss_diff, gap)
+        assert lc == lc2 and all(torch.equal(a, c)
+                                 for a, c in zip(pc, pc2)), \
+            f"{cfg.name}: two cuda trainings differ"
+        out[cfg.name] = {"forward_max_abs_err": max(errs),
+                         "train_loss_max_abs_diff": loss_diff,
+                         "train_param_gap": gap,
+                         "losses": {"cuda": lc, "cpu": lh}}
+
+    # the budget router (expert choice), with duplicated tokens that tie
+    mcfg = MoEConfig(n_experts=8, top_k=2, d_ff_expert=64, router="budget",
+                     budget_alpha=0.2)
+    g = torch.Generator().manual_seed(SEED)
+    x = torch.randn(2, 64, 128, generator=g)
+    x[:, 1::2] = x[:, ::2]
+    p = M.init_moe(g, 128, mcfg, torch.float32)
+    with M.routing_trace() as tc:
+        yc, ac = M.moe_ffn(x.cuda(), tree_to(p, "cuda"), mcfg)
+    with M.routing_trace() as th:
+        yh, ah = M.moe_ffn(x, p, mcfg)
+    assert torch.equal(tc[0]["tok"].cpu(), th[0]["tok"]), "budget routing"
+    budget_err = max(float((yc.cpu() - yh).abs().max()),
+                     abs(float(ac) - float(ah)))
+    assert budget_err <= 2e-5, budget_err
+    emit({"phase": "lm_moe_small_parity", "prefill_len": 100,
+          "decode_steps": 4, "train_steps": LM_SMALL_STEPS,
+          "optimizers": {"olmoe-tiny": "adamw", "grok-tiny": "adafactor"},
+          "tolerance": {"forward_atol": 2e-5, "loss_atol": 2e-5,
+                        "param_atol": 1e-4,
+                        "param_atol_small_grad": "elements ever handed "
+                                                 "a nonzero |grad| < 1e-6 "
+                                                 "are held to the most "
+                                                 "one element moved: sum "
+                                                 "over steps of max "
+                                                 "|update|"},
+          "two_cuda_trainings_bit_equal": True, "configs": out,
+          "budget_router_max_abs_err": budget_err,
+          "phase_s": time.perf_counter() - t_phase})
+
+
+#: lm_phi3: how much further than the naive bf16 prefill the kernel's
+#: bf16 prefill may lie from the float32 one (rel L2 of the four
+#: sequences' logits). Errors add in quadrature, so 1.02 admits a kernel
+#: error of about a fifth of the model's bf16 noise.
+PHI3_NOISE_MARGIN = 1.02
+TILE = 64                # lm_phi3's control: the KV tile it loses
+
+
+def tile_lost_prefill(params, cfg, toks):
+    """The control of lm_phi3's bar: the bf16 prefill through a
+    flash_attention that loses the first KV tile's values (V of keys 0
+    to TILE - 1 read as zero, their weight kept in the normaliser), as
+    a kernel that skips a tile's P V product would."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import transformer as T
+
+    real = fa_ops.flash_attention
+
+    def lossy(q, k, v, **kw):
+        v = v.clone()
+        v[:, :TILE] = 0
+        return real(q, k, v, **kw)
+
+    fa_ops.flash_attention = lossy
+    try:
+        return T.prefill(params, cfg, toks)[0]
+    finally:
+        fa_ops.flash_attention = real
+
+
+def phase_lm_phi3() -> dict:
+    """phi3-medium-14b as registered (40 layers, d = 5120, H 40 / Hk 10),
+    bf16, random weights drawn on the card: prefill 4 x 4096 with the
+    flash_attention kernel and 4 decode steps, held to the dense bars."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import KVCache
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("phi3-medium-14b").model,
+                              attention_impl="pallas")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.param_dtype) == (40, 5120, 40, 10, "bfloat16"), cfg
+    dev = torch.device("cuda")
+    b, s, n_dec = 4, 4096, 4
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = synced(lambda: T.init_lm(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev))
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = lm_param_count(params)
+    assert n_params == cfg.n_params() == 14_659_507_200, n_params
+    toks = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                         generator=torch.Generator(device=dev)
+                         .manual_seed(SEED + 1))
+    T.prefill(params, cfg, toks[:, :256])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    (logits, cache), prefill_s = synced(lambda: T.prefill(params, cfg, toks))
+    cache = KVCache(*(F.pad(t, (0, 0, 0, 0, 0, n_dec)) for t in cache))
+    nxt = logits.argmax(-1, keepdim=True)
+    first_tok, dec_logits = nxt, []
+    t0 = time.perf_counter()
+    for i in range(n_dec):
+        lg, cache = T.decode_step(params, cfg, nxt, cache, s + i)
+        dec_logits.append(lg)
+        nxt = lg.argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert counts["flash_attention"] == cfg.n_layers, counts
+    assert bool(torch.isfinite(logits).all()), "non-finite prefill logits"
+    assert all(bool(torch.isfinite(lg).all()) for lg in dec_logits)
+    del cache
+    torch.cuda.empty_cache()
+    # the naive prefill one sequence at a time: at B = 4 its float32
+    # (B, H, S, S) scores are 10.7 GB a tensor, and beside 29.3 GB of
+    # weights its einsums do not fit the card
+    ncfg = dataclasses.replace(cfg, attention_impl="naive")
+    logits_naive = torch.cat([T.prefill(params, ncfg, toks[i:i + 1])[0]
+                              for i in range(b)])
+    err_naive = rel_l2(logits, logits_naive)
+    full, _ = T.lm_logits(params, cfg, torch.cat([toks, first_tok], 1))
+    err_full = rel_l2(dec_logits[0], full[:, s])
+    del full
+    # At 40 layers the two bf16 bars above sit at the model's own bf16
+    # noise (random weights: qwen3's two bf16 prefills are equally far,
+    # 0.0177, from its float32 one), so they are reported; held instead,
+    # on all four sequences against the model computed in float32: the
+    # kernel's bf16 prefill no further from it than the naive bf16
+    # prefill (within PHI3_NOISE_MARGIN), where a kernel that loses a KV
+    # tile (the control) lands far past it; and in float32, on sequence
+    # 0, the first decode step within 1e-3 of the full forward (the
+    # cache, off bf16 noise)
+    torch.cuda.empty_cache()
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    logits32, cache32 = T.prefill(params, c32, toks[:1])
+    logits32 = torch.cat([logits32] + [T.prefill(params, c32,
+                                                 toks[i:i + 1])[0]
+                                       for i in range(1, b)])
+    cache32 = KVCache(*(F.pad(t, (0, 0, 0, 0, 0, 1)) for t in cache32))
+    dec32, _ = T.decode_step(params, c32, first_tok[:1], cache32, s)
+    del cache32
+    full32, _ = T.lm_logits(params, c32, torch.cat([toks[:1],
+                                                     first_tok[:1]], 1))
+    err_dec32 = rel_l2(dec32, full32[:, s])
+    del full32
+    torch.cuda.empty_cache()
+    logits_ctl = tile_lost_prefill(params, cfg, toks)
+    vs_f32 = {"pallas_bf16": rel_l2(logits, logits32),
+              "naive_bf16": rel_l2(logits_naive, logits32),
+              "tile_lost_control": rel_l2(logits_ctl, logits32)}
+    vs_f32_seq = {k: [rel_l2(x[i], logits32[i]) for i in range(b)]
+                  for k, x in (("pallas_bf16", logits),
+                               ("naive_bf16", logits_naive),
+                               ("tile_lost_control", logits_ctl))}
+    del logits_naive, logits_ctl
+    bar = PHI3_NOISE_MARGIN * vs_f32["naive_bf16"]
+    assert vs_f32["pallas_bf16"] <= bar < vs_f32["tile_lost_control"], \
+        vs_f32
+    assert err_dec32 <= 1e-3, f"f32 decode vs full forward: {err_dec32}"
+    tokens = b * s
+    emit({"phase": "lm_phi3", "config": cfg.name, "attention_impl": "pallas",
+          "n_params": n_params, "batch": b, "seq_len": s,
+          "decode_steps": n_dec,
+          "reduced": "batch 4 x 4096 tokens, where prefill_32k is global "
+                     "batch 32 x 32768; full width and depth; random "
+                     "weights",
+          "launches": counts, "init_s": init_s,
+          "init_peak_gb": init_peak_gb, "prefill_s": prefill_s,
+          "prefill_tokens_per_s": tokens / prefill_s,
+          "prefill_model_tflops": 2 * n_params * tokens / prefill_s / 1e12,
+          "decode_ms_per_step": decode_s / n_dec * 1e3,
+          "max_memory_allocated_gb": peak_gb,
+          "rel_l2_vs_naive_prefill": err_naive,
+          "rel_l2_decode_vs_full_forward": err_full,
+          "rel_l2_vs_f32_compute_prefill": vs_f32,
+          "rel_l2_vs_f32_compute_prefill_per_seq": vs_f32_seq,
+          "vs_f32_margin": PHI3_NOISE_MARGIN,
+          "rel_l2_f32_decode_vs_full_forward_seq0": err_dec32,
+          "phase_s": time.perf_counter() - t_phase})
+    del params, logits
+    free_cuda()
+    return counts
 
 
 def dlrm_scores_plain_lookup(params, cfg, batch):
@@ -3200,6 +3827,9 @@ def main() -> int:
     phase_lm_small_parity()
     path_counts.append(phase_lm_train())
     phase_lm_train_small_parity()
+    path_counts.append(phase_lm_moe())
+    phase_lm_moe_small_parity()
+    path_counts.append(phase_lm_phi3())
     path_counts.append(phase_recsys())
     phase_recsys_small_parity()
     path_counts.append(phase_gnn())

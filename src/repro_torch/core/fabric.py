@@ -536,6 +536,16 @@ class FabricWorkerPool(ProcessWorkerPool):
         # slots the elastic schedule has launched a joiner for, with its
         # process, until the joiner's ready heartbeat arrives
         self._joining: dict[int, object] = {}
+        # a fleet with a join schedule rebalances queued work over its
+        # live members at every dispatch (_rebalance). A fleet without
+        # one dispatches as the reference's FabricWorkerPool does, each
+        # node its own shard: rebalancing there fails no test either,
+        # but it moves batches between workers, and the fault
+        # injections are keyed to a worker's n-th task (crash_after,
+        # mute_after), so they would fire on other batches than the
+        # reference's run of the same spec. The port diverges from the
+        # reference's dispatch only where the joiner needs it.
+        self._rebalances = bool(self._deferred)
         self._left: set[int] = set()
         self._tx_flushed = 0
         self._rx_flushed = 0
@@ -608,7 +618,21 @@ class FabricWorkerPool(ProcessWorkerPool):
             else:
                 self._on_leave(msg.conn)
             return
+        joiner_ready = (isinstance(msg, Heartbeat)
+                        and msg.worker in self._joining
+                        and msg.worker in self._quiet
+                        and msg.worker not in self._unassigned)
         super()._handle(msg)
+        if joiner_ready and msg.worker not in self._quiet:
+            # the admitted joiner's ready heartbeat: from here the
+            # dispatch loop may hand it work
+            del self._joining[msg.worker]
+            rec = obs.recorder()
+            if rec.enabled:
+                rec.span("join_ready", msg.worker, time.time(), 0.0,
+                         node=msg.worker,
+                         detail=f"joiner node {msg.worker} ready after "
+                                f"{self._batches_done} batches")
         if isinstance(msg, BatchDone):
             self._maybe_spawn_joiners()
 
@@ -688,14 +712,57 @@ class FabricWorkerPool(ProcessWorkerPool):
                 proc = spawn_loopback(self.addr)
                 self._local_procs.append(proc)
                 self._joining[w] = proc
+            rec = obs.recorder()
+            if rec.enabled:
+                rec.span("join_spawn", w, time.time(), 0.0, node=w,
+                         detail=f"joiner for node {w} launched after "
+                                f"{self._batches_done} batches")
 
-    def drain(self, queues: dict[int, list]) -> None:
-        """``ProcessWorkerPool.drain``, after the joiners the elastic
-        schedule has launched are ready (``_await_joiners``): the round
-        is sharded over the nodes that were live at its boundary, and a
-        joiner takes work from it as a peer, by re-issue."""
-        self._await_joiners()
-        super().drain(queues)
+    def _top_up(self, pending: dict[int, deque]) -> None:
+        """``ProcessWorkerPool._top_up``, elastic: while a joiner the
+        schedule has launched is not ready yet and queued work remains,
+        wait for it (``_await_joiners``); after the base top-up, a fleet
+        with a join schedule rebalances the queued batches over its live
+        members (``_rebalance``)."""
+        if self._joining and pending:
+            self._await_joiners()
+        super()._top_up(pending)
+        if self._rebalances and pending:
+            self._rebalance(pending)
+
+    def _rebalance(self, pending: dict[int, deque]) -> None:
+        """Work stealing over the live fleet: in node order, each live
+        ingest node with an empty queue and room in its in-flight window
+        takes the tail batches of the longest queue (ties to the lower
+        node id) until its window is full, and the base top-up sends
+        them. A round's shards are cut over the members live at its
+        boundary; a joiner admitted later, or a member whose shard ran
+        dry, takes queued work this way instead of only by re-issue.
+        Batch keys are global, so who runs a batch never changes its
+        records."""
+        donors = [n for n in pending if pending[n]]
+        moved = False
+        for w in self.live_ingest_nodes():
+            room = self._window - self._effective_load(w)
+            if w in pending or room <= 0:
+                continue
+            while room > 0:
+                donor = max((n for n in donors if pending[n]),
+                            key=lambda n: (len(pending[n]), -n),
+                            default=None)
+                if donor is None:
+                    break
+                batch = pending[donor].pop()
+                pending.setdefault(w, deque()).appendleft(batch)
+                room -= 1
+                moved = True
+                rec = obs.recorder()
+                if rec.enabled:
+                    rec.span("reroute", batch["batch_key"], time.time(),
+                             0.0, node=w,
+                             detail=f"taken from node {donor}'s queue")
+        if moved:
+            super()._top_up(pending)
 
     def _await_joiners(self) -> None:
         """Wait for the joiners the elastic schedule has launched until
@@ -703,9 +770,10 @@ class FabricWorkerPool(ProcessWorkerPool):
         ``worker_start_timeout_s``), handling every message meanwhile as
         the drain loop would. A worker's start (a fresh interpreter,
         torch, on a card its CUDA context) can outlast what is left of a
-        short campaign; waiting before the next round's dispatch makes
-        the join happen inside it. Records do not depend on placement,
-        so the wait changes who computes a batch, never a record."""
+        short campaign; waiting before the next dispatch of queued work
+        makes the join happen while there is work for it. Records do
+        not depend on placement, so the wait changes who computes a
+        batch, never a record."""
         deadline = time.time() + self.xcfg.worker_start_timeout_s
         while True:
             for w, proc in list(self._joining.items()):

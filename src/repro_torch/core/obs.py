@@ -40,7 +40,8 @@ from pathlib import Path
 #: attempts may emit extras.
 SPAN_STAGES = ("prepare", "route", "complete", "reparse", "probe",
                "cache_lookup", "forward", "reissue", "dedup", "round",
-               "scenario", "join", "leave", "admission_rejected")
+               "scenario", "join", "leave", "admission_rejected",
+               "join_spawn", "join_ready", "reroute")
 
 #: chrome://tracing reserved color names per stage
 _CNAME = {
@@ -62,6 +63,13 @@ _CNAME = {
     "join": "cq_build_attempt_passed",
     "leave": "cq_build_attempt_failed",
     "admission_rejected": "cq_build_failed",
+    # an elastic joiner's launch and its ready heartbeat (the span
+    # between them is its start), and a queued batch moved to another
+    # node (off an unhealthy one, or taken by a live one with room):
+    # the moments that place a join against the work
+    "join_spawn": "startup",
+    "join_ready": "cq_build_passed",
+    "reroute": "bad",
 }
 
 #: chrome trace thread ids must be non-negative; the coordinator

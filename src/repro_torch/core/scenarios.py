@@ -353,14 +353,16 @@ def run_scenario(spec: ScenarioSpec,
             res = CampaignExecutor(ecfg, xcfg, router, ccfg,
                                    device=device).run(test, cache=store)
         _assert_records_match(spec.name, reference, res.records)
+        if trace_dir is not None:
+            # before the join check: a run whose joiner served nothing
+            # is the one whose timeline is wanted
+            _write_scenario_trace(spec, res, t_run0, trace_dir)
         joiner_docs = _joiner_docs(spec, res)
         if joiner_docs == 0:
             raise JoinNotExercised(
                 f"scenario {spec.name}: the join was not exercised — the "
                 f"scheduled joiners {[w for w, _ in spec.fabric.join_after]}"
                 f" served no batch before the campaign ended")
-        if trace_dir is not None:
-            _write_scenario_trace(spec, res, t_run0, trace_dir)
 
         warm_hits = warm_misses = 0
         if spec.warm_replay:

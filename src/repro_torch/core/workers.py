@@ -1132,6 +1132,12 @@ class ProcessWorkerPool:
                                 f"cannot complete")
                         break               # peers busy/quiet: wait
                     target = scheduler.least_loaded(peers, self.clocks)
+                    rec = obs.recorder()
+                    if rec.enabled:
+                        rec.span("reroute", q[0]["batch_key"],
+                                 time.time(), 0.0, node=target,
+                                 detail=f"queued on unhealthy node "
+                                        f"{node}")
                 batch = q.popleft()
                 tid = self._next_task_id
                 self._next_task_id += 1

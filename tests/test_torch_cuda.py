@@ -24,7 +24,11 @@ backward) on cuda against cpu, losses within rtol 1e-5 and params within
 1e-4 (the router training's bar), two cuda runs and the train CLI's
 restart bit-equal, a cuda checkpoint restored on the cpu bit for bit,
 and Adafactor and gradient compression on cuda against cpu within 1e-6
-over 20 steps.
+over 20 steps; the reduced f32 MoE LMs (olmoe-tiny, grok-tiny) on cuda
+against cpu within 2e-5 with equal routing, their training with the
+configs' own optimizers (losses within 2e-5, params within 1e-4, two
+cuda runs bit-equal), and a bf16 MoE layer's forward and backward
+bit-equal across two cuda runs.
 """
 import dataclasses
 
@@ -1179,3 +1183,152 @@ def test_adafactor_and_compression_cuda_match_cpu(dev, what):
 
     for a, b in zip(run(dev), run("cpu")):
         assert (a - b).abs().max().item() <= 1e-6
+
+
+# -- mixture-of-experts LMs (ROADMAP 13d) -------------------------------
+
+def _tree_to(tree, d):
+    return {k: _tree_to(v, d) if isinstance(v, dict) else v.to(d, copy=True)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "grok-1-314b"])
+def test_tiny_moe_lm_cuda_matches_cpu(dev, arch):
+    """olmoe-tiny and grok-tiny (f32, the flash kernel in prefill):
+    prefill, 3 decode steps and ``lm_logits`` with its aux within 2e-5
+    of the cpu; the routing of every layer equal."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import KVCache
+
+    cfg = dataclasses.replace(get_config(arch).reduced().model,
+                              attention_impl="pallas")
+    host = T.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 90),
+                         generator=torch.Generator().manual_seed(1))
+    outs, traces = [], []
+    for d, p in ((dev, _tree_to(host, dev)), ("cpu", host)):
+        with M.routing_trace() as tr:
+            full, aux = T.lm_logits(p, cfg, toks.to(d))
+            lg, cache = T.prefill(p, cfg, toks[:, :-3].to(d))
+        got = [full, aux, lg]
+        cache = KVCache(*(F.pad(t, (0, 0, 0, 0, 0, 3)) for t in cache))
+        for i in range(3):
+            lg, cache = T.decode_step(p, cfg, toks[:, 87 + i:88 + i].to(d),
+                                      cache, 87 + i)
+            got.append(lg)
+        outs.append([x.cpu() for x in got])
+        traces.append([r["eids"].cpu() for r in tr])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=0)
+    assert all(torch.equal(a, b) for a, b in zip(*traces))
+
+
+def _tiny_moe_train(dev, arch, steps=5):
+    """(losses, final leaves, each element's smallest nonzero |grad|
+    over the steps), all on the cpu, and the sum over the steps of the
+    largest |update| (the most one element moved)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs as S
+    from repro_torch.models import transformer as T
+
+    a = get_config(arch).reduced()
+    cfg = dataclasses.replace(a.model, q_chunk=16, kv_chunk=32)
+    params = _tree_to(T.init_lm(cfg, torch.Generator().manual_seed(0),
+                                "cpu"), dev)
+    opt = S._optimizer_for(a)[0]
+    gmin, moved = [], []
+
+    class Recording:
+        init = staticmethod(opt.init)
+
+        @staticmethod
+        def update(grads, state, params, step):
+            a = [g.abs().masked_fill(g == 0, float("inf")).cpu()
+                 for g in grads]
+            gmin[:] = a if not gmin else [x.minimum(y)
+                                          for x, y in zip(gmin, a)]
+            updates, state = opt.update(grads, state, params, step)
+            moved.append(max(u.abs().max().item() for u in updates))
+            return updates, state
+
+    state = opt.init(S.lm_param_leaves(params))
+    step_fn = S.lm_train_step(cfg, Recording)
+    losses = []
+    for step in range(steps):
+        batch = S._lm_train_batch(cfg, 4, 64, step + 1, dev)
+        _, state, loss = step_fn(params, state, step, batch)
+        losses.append(float(loss))
+    return (losses, [p.cpu() for p in S.lm_param_leaves(params)], gmin,
+            sum(moved))
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "grok-1-314b"])
+def test_tiny_moe_training_cuda_matches_cpu_and_repeats(dev, arch):
+    """Five steps with the config's own optimizer (AdamW for OLMoE,
+    Adafactor for grok): losses within 2e-5 of the cpu run, and params
+    within 1e-4 at every element whose nonzero gradients all reached
+    1e-6. The optimizers' steps do not scale with the gradient, so the
+    rounding of a leaf's large gradients, a large share of its small
+    ones, moves those elements by a share of lr a step: they are held
+    to the most one element moved in the run, and must be under 1% of
+    all; two cuda runs bit-equal
+    (the combine adds in a fixed order, and every gather's backward
+    sums in a fixed order)."""
+    lc, pc, _, _ = _tiny_moe_train(dev, arch)
+    lh, ph, gmin, moved = _tiny_moe_train("cpu", arch)
+    np.testing.assert_allclose(lc, lh, atol=2e-5, rtol=0)
+    n_small = 0
+    for a, b, g in zip(pc, ph, gmin):
+        held = g >= 1e-6
+        n_small += int((~held).sum())
+        if held.any():
+            assert (a - b).abs()[held].max().item() <= 1e-4
+        if (~held).any():
+            assert (a - b).abs()[~held].max().item() <= moved
+    assert n_small <= 1e-2 * sum(p.numel() for p in ph)
+    lc2, pc2, _, _ = _tiny_moe_train(dev, arch)
+    assert lc == lc2 and all(torch.equal(a, b) for a, b in zip(pc, pc2))
+
+
+@pytest.mark.parametrize("router", ["topk", "budget"])
+def test_moe_ffn_bf16_cuda_is_deterministic_and_matches_cpu(dev, router):
+    """A bf16 layer at a width where atomics would show: two cuda runs
+    bit-equal, forward and backward, and the routing equal to the cpu's
+    on the same probabilities; outputs within 2e-2."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe as M
+
+    cfg = MoEConfig(n_experts=16, top_k=4, d_ff_expert=256, router=router,
+                    budget_alpha=0.2, capacity_factor=1.0)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(4, 512, 512, generator=g).bfloat16()
+    x[:, 1::4] = x[:, ::4]                        # tied tokens
+    p = M.init_moe(g, 512, cfg, torch.bfloat16)
+
+    def run(d):
+        xd = x.to(d).requires_grad_(True)
+        pd = {k: v.to(d).requires_grad_(True) for k, v in p.items()}
+        with M.routing_trace() as tr:
+            y, aux = M.moe_ffn(xd, pd, cfg)
+        (y.float().square().mean() + aux).backward()
+        key = "eids" if router == "topk" else "tok"
+        return [y.detach().cpu(), xd.grad.cpu(),
+                *(v.grad.cpu() for v in pd.values())], tr[0][key].cpu()
+
+    a, ra = run(dev)
+    b, _ = run(dev)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    xt = x.reshape(-1, 512).to(dev)
+    probs = M.router_probs(xt, p["router"].to(dev), cfg)
+    got = (M.topk_dispatch(probs, cfg)["eids"] if router == "topk"
+           else M.budget_select(probs, cfg)[1])
+    want = (M.topk_dispatch(probs.cpu(), cfg)["eids"] if router == "topk"
+            else M.budget_select(probs.cpu(), cfg)[1])
+    assert torch.equal(got.cpu(), want) and torch.equal(ra, want)
+    c, _ = run("cpu")
+    torch.testing.assert_close(a[0].float(), c[0].float(), atol=2e-2,
+                               rtol=2e-2)

@@ -15,7 +15,7 @@ import struct
 import subprocess
 import sys
 import time
-from collections import Counter
+from collections import Counter, deque
 from contextlib import redirect_stdout
 from pathlib import Path
 
@@ -279,6 +279,53 @@ def test_elastic_join_crash_campaign_matches_single_node(fleet):
     assert "kernel.launches.fast_features.n0" in gauges
     assert all(v == 0 for k, v in gauges.items()
                if k.startswith("kernel.launches."))
+
+
+def test_joiner_launched_mid_drain_takes_queued_work(fleet):
+    """A one-shot fabric campaign (one drain, no round boundary) whose
+    joiner is launched after 2 batches while every peer stays healthy:
+    the drain waits for it, and it takes queued batches from its peers'
+    queues, so it serves documents; the records equal single node."""
+    tc, test, tr, ecfg, single = fleet
+    xcfg = ExecutorConfig(
+        n_nodes=3, runtime="fabric", obs=True,
+        heartbeat_timeout_s=5.0, heartbeat_interval_s=0.1,
+        fabric=FabricElastic(join_after=((2, 2),)))
+    res = CampaignExecutor(ecfg, xcfg, tr, tc, device=CPU).run(test)
+    _same_records(single, res.records)
+    assert res.reissued == 0
+    assert res.node_stats[2].n_docs > 0
+    by = Counter(s.name for s in res.spans)
+    assert by["join_spawn"] == by["join_ready"] == 1
+    assert set(by) <= set(obs.SPAN_STAGES)
+
+
+@pytest.mark.parametrize("queues, loads, want", [
+    # the elastic scenario's last round sharded 3:1 over nodes 0 and 1
+    # (node 0 holds two in flight): node 1's free slot takes the tail
+    # batch before the idle joiner, node 2
+    ({0: [9]}, [2, 1, 0], {1: [9]}),
+    # 4:0: node 1 fills its window from node 0's tail, the joiner takes
+    # what is left
+    ({0: [7, 8, 9]}, [2, 0, 0], {1: [8, 9], 2: [7]}),
+    ({0: [5, 6, 7, 8, 9]}, [2, 2, 0], {0: [5, 6, 7], 2: [8, 9]}),
+    # windows full or nothing queued: nothing moves
+    ({0: [9]}, [2, 2, 2], {0: [9]}),
+    ({}, [0, 0, 0], {}),
+])
+def test_rebalance_takes_tail_batches_in_node_order(monkeypatch, queues,
+                                                    loads, want):
+    pool = FabricWorkerPool.__new__(FabricWorkerPool)
+    pool._window = 2
+    pool._effective_load = lambda w: loads[w]
+    pool.live_ingest_nodes = lambda: [0, 1, 2]
+    monkeypatch.setattr(ProcessWorkerPool, "_top_up",
+                        lambda self, pending: None)
+    pending = {n: deque({"batch_key": b} for b in q)
+               for n, q in queues.items()}
+    pool._rebalance(pending)
+    got = {n: [b["batch_key"] for b in q] for n, q in pending.items() if q}
+    assert got == want
 
 
 def test_fabric_runtime_rejects_bad_config(fleet):

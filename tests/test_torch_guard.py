@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: importing every ``repro_torch`` module
-and ``chip_smoke.py`` loads no JAX and nothing of the JAX package
+"""The PyTorch port stands alone: importing every ``repro_torch`` module,
+the diagnostics in ``scripts/`` and ``chip_smoke.py`` loads no JAX and nothing of the JAX package
 ``repro`` (whose name ``repro_torch`` shares as a prefix)."""
 import json
 import os
@@ -10,7 +10,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 _PROBE = r"""
-import importlib, json, pkgutil, sys
+import importlib, importlib.util, json, pathlib, pkgutil, sys
 sys.path.insert(0, sys.argv[1])
 sys.path.insert(0, sys.argv[2])
 import repro_torch
@@ -18,11 +18,16 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+scripts = sorted(pathlib.Path(sys.argv[2], "scripts").glob("*.py"))
+for path in scripts:
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
-print(json.dumps({"modules": names, "bad": bad}))
+print(json.dumps({"modules": names, "scripts": [p.stem for p in scripts],
+                  "bad": bad}))
 """
 
 
@@ -72,8 +77,13 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.optim.compression",
                  "repro_torch.checkpoint.checkpoint",
                  "repro_torch.distributed.fault",
-                 "repro_torch.launch.train"):
+                 "repro_torch.launch.train",
+                 "repro_torch.models.moe",
+                 "repro_torch.configs.olmoe_1b_7b",
+                 "repro_torch.configs.grok_1_314b",
+                 "repro_torch.configs.phi3_medium_14b"):
         assert name in res["modules"]
+    assert "join_timeline" in res["scripts"]
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

@@ -293,15 +293,3 @@ def test_mesh_and_device_are_checked():
         train.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1"])
     with pytest.raises(NotImplementedError, match="13e"):
         _main("--steps", "1", "--shape", "prefill_32k")
-
-
-def test_lm_loss_refuses_moe():
-    from repro_torch.configs.base import MoEConfig
-
-    _, tcfg = _cfgs()
-    params = TT.init_lm(tcfg, torch.Generator().manual_seed(0), "cpu")
-    cfg = dataclasses.replace(tcfg, moe=MoEConfig(n_experts=4, top_k=2,
-                                                  d_ff_expert=32))
-    toks = torch.zeros(1, 4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TT.lm_loss(params, cfg, {"tokens": toks, "labels": toks})

@@ -25,7 +25,6 @@ from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro.models.attention import KVCache as JKVCache
 from repro_torch.configs import get_config
-from repro_torch.configs.base import MoEConfig
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 from repro_torch.models.attention import KVCache
@@ -182,15 +181,3 @@ def test_lm_from_jax_params_copies_bf16_bit_for_bit_and_checks_shapes():
     with pytest.raises(ValueError, match="keys"):
         TT.lm_from_jax_params({k: v for k, v in raw.items()
                                if k != "lm_head"}, tcfg, "cpu")
-
-
-def test_moe_config_raises():
-    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced().model,
-                              moe=MoEConfig(n_experts=4, top_k=2,
-                                            d_ff_expert=32))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TT.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
-    params = TT.init_lm(get_config("qwen3-1.7b").reduced().model,
-                        torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TT.prefill(params, cfg, torch.zeros(1, 4, dtype=torch.long))
