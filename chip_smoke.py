@@ -32,7 +32,12 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    embedding_bag (the dlrm-mlperf ``serve_bulk`` lookup: 262,144 x 26
    bags of one over the 48.07 GB bf16 table, bit-equal; and a 100,000 x
    64 f32 table, B=4096, L=16, sum and mean; timed beside
-   ``torch.nn.functional.embedding_bag``), segment_mm (``ogb_products``:
+   ``torch.nn.functional.embedding_bag``; and bags of one at the
+   train_batch lookups of DeepFM, D = 10 and D = 1 on the scalar path,
+   and of AutoInt, D = 16), embedding_bag_backward (the table gradient
+   of bags of one, bit-equal to its plain version, at DeepFM's, AutoInt's
+   and DIEN's train_batch lookups, beside
+   ``torch.ops.aten.embedding_dense_backward``), segment_mm (``ogb_products``:
    N=2,449,029, E=61,859,140, 100 -> 128, f32; timed beside
    ``torch.matmul`` then ``index_add_``). ``ms`` is the CUDA-event median
    of one launch (host time included for a small kernel: the first event
@@ -233,9 +238,38 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    wall ms per forward, exactly one embedding_bag launch per forward,
    finite scores in (0, 1) bit-equal to a forward whose lookup is a
    plain ``index_select``, peak memory, and a torch.profiler pass over
-   one ``serve_bulk`` forward.
+   one ``serve_bulk`` forward; then ``retrieval_cand`` (1 query against
+   the first 1,000,000 rows, top 100) while the table is resident.
 19. recsys_small_parity: the reduced f32 dlrm-tiny on cuda against cpu,
    scores within 2e-5.
+19b. recsys_zoo: DeepFM (D = 10), AutoInt (D = 16) and DIEN (D = 18,
+   f32, T = 100) at full width with random weights (the 33,764,352-row
+   Criteo-Kaggle tables and DIEN's 369,664 rows drawn on the card)
+   through ``recsys_scores`` at serve_p99 and serve_bulk (DIEN's cut to
+   the largest power of two whose peak, reckoned from a probe forward,
+   stays under 60 GB: the reference's reckons ~84 GB at 262,144; the
+   cut and the reckoning are in ``reduced``), and ``recsys_retrieval``
+   at retrieval_cand (n_cand = min(1M, rows): DIEN's 369,584): wall ms,
+   samples/s, peak GB, one embedding_bag launch per table a forward and
+   no other, finite scores in [0, 1] (DeepFM's random logits pass +-17,
+   where the float32 sigmoid saturates), serve_p99 bit-equal to a
+   forward through the plain lookup, a torch.profiler split of a bulk
+   forward; retrieval's ids in range and its scores the gathered row
+   scores, none of the rest above the 100th.
+19c. recsys_train: one warm-up and 3 timed ``recsys_train_step``s
+   (``chain_clip(adamw(3e-4, 0.1), 1.0)``, batches from seeds 1-4) of
+   DeepFM and AutoInt at train_batch (65,536) and DIEN at the largest
+   batch that fits (reckoned as above; train_batch reckons ~69 GB):
+   ms a step, samples/s, peak GB, finite losses, one embedding_bag and
+   one embedding_bag_backward launch per table a step, every leaf a
+   gradient reached moved (the share of its elements that did), and a
+   torch.profiler split of one step. dlrm-mlperf is not trained: its
+   table and the table's dense gradient (48.07 GB each) exceed the card.
+19d. recsys_zoo_small_parity: deepfm-tiny, autoint-tiny, dien-tiny and
+   dlrm-tiny (f32) from one cpu init on cuda against cpu: scores within
+   2e-5; 5 train steps, losses within 1e-4 and params within 1e-4 (the
+   elements a gradient below 1e-6 reached held to the most one element
+   moved), two cuda trainings bit-equal.
 20. gnn: ``segment_matmul(x, src, dst, w, n_nodes)`` at ``ogb_products``
    (uniform random edges from a seeded CUDA generator, d_out 128, f32):
    a torch.profiler pass over the first (cold, uncounted) step at full
@@ -270,6 +304,10 @@ ALPHA = 0.05
 SEED = 0
 DEVICE = "cuda"
 GNN_D_OUT = 128                  # equiformer-v2's d_hidden (the repo's GNN)
+#: DIEN's lookup for kernel row 6c at the batch phase ``recsys_train``
+#: trains it at (train_batch is 65,536, which does not fit one card: the
+#: two 100-step GRU scans keep ~1 MB a sample for the backward)
+DIEN_TRAIN_BATCH = 32768
 
 
 T_START = time.perf_counter()
@@ -929,9 +967,9 @@ def free_cuda() -> None:
     torch.cuda.empty_cache()
 
 
-def dlrm_lookup_ids(cfg, b: int, dev):
-    """The serve batch's concatenated-table ids as ``lookup_fields``
-    hands them to the kernel: (b * 26, 1) int32 bags of one."""
+def lookup_ids(cfg, b: int, dev):
+    """A seeded batch's concatenated-table ids as ``lookup_fields`` hands
+    them to the kernel: (b * n_sparse, 1) int32 bags of one."""
     import torch
 
     from repro_torch.launch.specs import _recsys_batch
@@ -953,20 +991,33 @@ def check_embedding_bag(dev) -> list[dict]:
     from repro_torch.models.recsys import embedding as E
 
     rows = []
-    arch = get_config("dlrm-mlperf")
-    cfg = arch.model
-    bulk = arch.shape("serve_bulk")["batch"]
-    # (row, table rows, D, dtype, bags, bag length, combiner, tolerance)
-    shapes = (("dlrm_serve_bulk", None, cfg.embed_dim, "bfloat16",
-               bulk * cfg.n_sparse, 1, "sum", 0.0),
-              ("bench_sum", 100_000, 64, "float32", 4096, 16, "sum", 2e-5),
-              ("bench_mean", 100_000, 64, "float32", 4096, 16, "mean", 2e-5))
-    for name, r, d, dtype, b, bag, comb, tol in shapes:
+    # (row, arch whose table and batch are used, its shape, D (None: the
+    # config's), dtype, table rows, bags, bag length, combiner, tolerance);
+    # a row with an arch looks up one seeded batch of that shape in the
+    # full table drawn on the card, bags of one: dlrm-mlperf's serve_bulk
+    # lookup, and DeepFM's and AutoInt's train_batch lookups (DeepFM's
+    # D = 10 and D = 1 rows, 20 and 2 bytes, take the scalar path)
+    shapes = (("dlrm_serve_bulk", "dlrm-mlperf", "serve_bulk", None,
+               "bfloat16", None, None, 1, "sum", 0.0),
+              ("deepfm_train_batch", "deepfm", "train_batch", None,
+               "bfloat16", None, None, 1, "sum", 0.0),
+              ("deepfm_lin_train_batch", "deepfm", "train_batch", 1,
+               "bfloat16", None, None, 1, "sum", 0.0),
+              ("autoint_train_batch", "autoint", "train_batch", None,
+               "bfloat16", None, None, 1, "sum", 0.0),
+              ("bench_sum", None, None, 64, "float32", 100_000, 4096, 16,
+               "sum", 2e-5),
+              ("bench_mean", None, None, 64, "float32", 100_000, 4096, 16,
+               "mean", 2e-5))
+    for name, arch_id, shape, d, dtype, r, b, bag, comb, tol in shapes:
         dt = getattr(torch, dtype)
         g = torch.Generator(device=dev).manual_seed(SEED)
-        if r is None:       # the full 48.07 GB bf16 DLRM table
+        if arch_id is not None:     # the full table, drawn on the card
+            arch = get_config(arch_id)
+            cfg = arch.model
+            d = d or cfg.embed_dim
             table, _ = E.init_table(cfg.vocab_sizes, d, dt, g, dev)
-            ids = dlrm_lookup_ids(cfg, bulk, dev)
+            ids = lookup_ids(cfg, arch.shape(shape)["batch"], dev)
             weights = None
             w_plain = torch.ones(ids.shape, dtype=torch.float32, device=dev)
         else:
@@ -1015,11 +1066,118 @@ def check_embedding_bag(dev) -> list[dict]:
         b_ms, b_by = bound(nbytes)
         rows.append(dict(name="embedding_bag", row=name, shape=dict(
             table_rows=table.shape[0], d=d, dtype=dtype, bags=ids.shape[0],
-            bag=ids.shape[1], combiner=comb), tolerance=tol,
+            bag=ids.shape[1], combiner=comb, table=arch_id), tolerance=tol,
             max_abs_err=err, ms=ms, ms_device=ms_device, plain_ms=plain_ms,
             library_ms=lib_ms,
             bound_ms=b_ms, bound_by=b_by, bytes=nbytes))
         del table, ids, weights, w_plain, out
+        free_cuda()
+    return rows
+
+
+def backward_ids(arch_id: str, dev):
+    """The ids whose table gradient a train_batch step of ``arch_id``
+    takes, flat as ``take_rows`` hands them to ``lookup``: the field
+    lookup's (B * n_sparse,) int32, or DIEN's history and target pairs
+    (B * (2T + 2),) int32 at DIEN_TRAIN_BATCH."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import _recsys_batch
+
+    arch = get_config(arch_id)
+    cfg = arch.model
+    if cfg.kind != "dien":
+        return lookup_ids(cfg, arch.shape("train_batch")["batch"],
+                          dev).reshape(-1)
+    bt = _recsys_batch(cfg, DIEN_TRAIN_BATCH, seed=SEED, device=dev)
+    pairs = [torch.stack([bt["hist"], bt["hist_cat"]], -1),
+             torch.stack([bt["target"], bt["target_cat"]], -1)]
+    return torch.cat([x.reshape(-1) for x in pairs])
+
+
+def check_embedding_bag_backward(dev) -> list[dict]:
+    """Row 6c: ``embedding_bag_backward`` (the table gradient of bags of
+    one) against its plain version on the card, bit-equal, at the
+    train_batch lookups of DeepFM (D = 10, bf16: the scalar path), AutoInt
+    (D = 16, bf16: 16-byte vectors) and DIEN (D = 18, f32, its reduced
+    train batch), with a seeded normal gradient. ``ms`` is the wrapper
+    (the ids' wrap, stable sort and cut into runs, then the entry),
+    ``kernel_ms`` the C entry alone (the zeroing memset and the run-sum
+    kernel) on the runs, ``ms_device`` the entry back to back; ``aten.embedding_dense_backward`` (float32 accumulation,
+    one rounding) is timed beside it as the yardstick the port never
+    calls."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.embedding_bag import ops, ref
+    from repro_torch.launch.kernel_timing import device_ms
+    from repro_torch.models.recsys import embedding as E
+
+    rows = []
+    for arch_id in ("deepfm", "autoint", "dien"):
+        cfg = get_config(arch_id).model
+        dt = getattr(torch, cfg.param_dtype)
+        r = E.table_offsets(cfg.vocab_sizes, 512)[1]
+        d = cfg.embed_dim
+        ids = backward_ids(arch_id, dev)
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        grad = torch.randn((ids.numel(), d), generator=g, device=dev).to(dt)
+        before = ops.BACKWARD.launches
+        got = ops.embedding_bag_backward(grad, ids, r)
+        assert ops.BACKWARD.launches == before + 1
+        want = ref.embedding_bag_backward_ref(grad, ids, r)
+        torch.cuda.synchronize()
+        # tolerance: none. The kernel adds each row's grads in the plain
+        # version's order with the same rounding, so the bits must agree
+        assert torch.equal(got, want), \
+            f"embedding_bag_backward {arch_id}: max err " \
+            f"{(got.float() - want.float()).abs().max().item()}"
+        run_key, run_start, perm = ops.sorted_runs(ids, r)
+        lengths = run_start[1:] - run_start[:-1]
+        max_run, touched = int(lengths.max()), int(run_key.numel())
+        del got, want, lengths
+        out = torch.empty((r, d), dtype=dt, device=dev)
+        vec16 = int((d * grad.element_size()) % 16 == 0)
+
+        def entry():
+            ops.BACKWARD(grad.data_ptr(), ops._TABLE_DTYPES[dt], r, d,
+                         run_key.data_ptr(), run_start.data_ptr(),
+                         perm.data_ptr(), touched, vec16, out.data_ptr(),
+                         cuda_lib.stream_of(dev))
+
+        def wrapper():
+            ops.embedding_bag_backward(grad, ids, r)
+
+        ms = time_ms(wrapper, reps=10, warmup=2)
+        kernel_ms = time_ms(entry, reps=10, warmup=2)
+        # back to back: the entry alone (the wrapper's sort cannot be
+        # queued ahead of the card)
+        ms_device = device_ms(entry)
+        plain_ms = time_ms(lambda: ref.embedding_bag_backward_ref(
+            grad, ids, r), reps=1, warmup=0)
+        ids64 = ids.long()
+        lib_ms = time_ms(lambda: torch.ops.aten.embedding_dense_backward(
+            grad, ids64, r, -1, False), reps=10, warmup=2)
+        # the grad rows read once, the ids read once, the dense (R, D)
+        # gradient written once
+        nbytes = (grad.numel() * grad.element_size()
+                  + ids.numel() * ids.element_size()
+                  + r * d * grad.element_size())
+        b_ms, b_by = bound(nbytes)
+        rows.append(dict(
+            name="embedding_bag_backward", row=f"{arch_id}_train_batch",
+            shape=dict(table=arch_id, table_rows=r, d=d,
+                       dtype=cfg.param_dtype, ids=ids.numel(),
+                       id_dtype=str(ids.dtype).split(".")[-1],
+                       vec16=bool(vec16), touched_rows=touched,
+                       longest_run=max_run),
+            tolerance=0.0, max_abs_err=0.0, ms=ms, kernel_ms=kernel_ms,
+            ms_device=ms_device, plain_ms=plain_ms, library_ms=lib_ms,
+            library="torch.ops.aten.embedding_dense_backward",
+            bound_ms=b_ms, bound_by=b_by, bytes=nbytes))
+        del grad, ids, ids64, run_key, run_start, perm, out
         free_cuda()
     return rows
 
@@ -1132,7 +1290,8 @@ def kernels():
 
     return {"fast_features": ff.KERNEL, "budget_route": br.KERNEL,
             "ngram_score": ng.KERNEL, "flash_attention": fa.KERNEL,
-            "embedding_bag": eb.KERNEL, "segment_mm": sm.KERNEL}
+            "embedding_bag": eb.KERNEL,
+            "embedding_bag_backward": eb.BACKWARD, "segment_mm": sm.KERNEL}
 
 
 def reset_counts() -> None:
@@ -3075,10 +3234,13 @@ def phase_lm_train_small_parity() -> None:
 # ------------------------------------------------------- phases 18-20: MoE
 
 
-def tree_to(tree: dict, dev) -> dict:
-    """A copy of a (nested) dict of tensors on ``dev``."""
-    return {k: tree_to(v, dev) if isinstance(v, dict)
-            else v.to(dev, copy=True) for k, v in tree.items()}
+def tree_to(tree, dev):
+    """A copy of a tree (nested dicts and lists) of tensors on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, dev) for v in tree]
+    return tree.to(dev, copy=True)
 
 
 def lm_param_count(params: dict) -> int:
@@ -3541,29 +3703,10 @@ def phase_lm_phi3() -> dict:
     return counts
 
 
-def dlrm_scores_plain_lookup(params, cfg, batch):
-    """``recsys_scores`` itself, with only ``emb.lookup_fields`` swapped
-    for a plain ``index_select`` on the same table for this one call."""
-    from repro_torch.models.recsys import embedding as E
-    from repro_torch.models.recsys import models as M
-
-    def plain_lookup(table, offsets, ids):
-        flat = (ids + offsets[None, :].to(ids.dtype)).reshape(-1)
-        return table.index_select(0, flat).view(*ids.shape, table.shape[1])
-
-    kernel_lookup = E.lookup_fields
-    E.lookup_fields = plain_lookup
-    try:
-        return M.recsys_scores(params, cfg, batch)
-    finally:
-        E.lookup_fields = kernel_lookup
-
-
 def phase_recsys() -> dict:
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.launch.specs import _recsys_batch
     from repro_torch.models.recsys import embedding as E
     from repro_torch.models.recsys import models as M
 
@@ -3580,9 +3723,8 @@ def phase_recsys() -> dict:
     table_gb = params["table"].numel() * params["table"].element_size() / 1e9
     assert params["table"].shape == (E.table_offsets(cfg.vocab_sizes, 512)[1],
                                      cfg.embed_dim), params["table"].shape
-    batches = {s.name: {k: v for k, v in _recsys_batch(
-        cfg, s["batch"], seed=SEED, device=dev).items() if k != "labels"}
-        for s in arch.shapes if s.name in ("serve_p99", "serve_bulk")}
+    batches = {s.name: serve_batch(cfg, s["batch"], dev)
+               for s in arch.shapes if s.name in ("serve_p99", "serve_bulk")}
     reps = {"serve_p99": 20, "serve_bulk": 5}
     res = {}
     torch.cuda.reset_peak_memory_stats()
@@ -3614,7 +3756,7 @@ def phase_recsys() -> dict:
             assert s.shape == (r["batch"],) and s.dtype == torch.float32
             assert bool(torch.isfinite(s).all()), f"{name}: non-finite"
             assert bool(((s > 0) & (s < 1)).all()), f"{name}: outside (0, 1)"
-            plain = dlrm_scores_plain_lookup(params, cfg, batches[name])
+            plain = plain_lookup_scores(params, cfg, batches[name])
             # the kernel's lookup equals the gather bit for bit, so the
             # scores must too
             assert torch.equal(s, plain), f"{name}: differs from the " \
@@ -3624,6 +3766,10 @@ def phase_recsys() -> dict:
                      score_mean=float(s.mean()), score_std=float(s.std()))
         prof = device_profile(lambda: M.recsys_scores(
             params, cfg, batches["serve_bulk"]))
+    # retrieval_cand while the 48 GB table is resident: no kernel
+    before = read_counts()
+    retrieval = check_retrieval(params, cfg, arch, dev)
+    assert read_counts() == before, "retrieval launched a kernel"
     emit({"phase": "recsys", "config": cfg.name,
           "table": {"rows": params["table"].shape[0], "gb": table_gb,
                     "dtype": cfg.param_dtype},
@@ -3632,7 +3778,7 @@ def phase_recsys() -> dict:
           "launches": counts, "shapes": res,
           "max_memory_allocated_gb": peak_gb,
           "max_memory_beyond_table_gb": peak_gb - table_gb,
-          "profile_serve_bulk": prof})
+          "profile_serve_bulk": prof, "retrieval_cand": retrieval})
     del params, batches
     free_cuda()
     return counts
@@ -3664,6 +3810,364 @@ def phase_recsys_small_parity() -> None:
     assert err <= 2e-5, f"{cfg.name} cuda vs cpu: {err}"
     emit({"phase": "recsys_small_parity", "config": cfg.name, "batch": 256,
           "max_abs_err": err})
+
+
+#: the split of a recsys step's device time by kernel (first match wins)
+RECSYS_SPLIT = {"embedding_bag_backward": r"bag_backward_kernel",
+                "embedding_bag": r"bag_kernel",
+                "sort": r"[Ss]ort|[Rr]adix",
+                "gemm": r"gemm|xmma|cutlass|sm90|Kernel2|cublas",
+                "memset": r"[Mm]emset"}
+#: device memory a cut cell may plan for, of the card's 80 GB
+CUT_BUDGET_GB = 60.0
+
+
+def serve_batch(cfg, b: int, dev) -> dict:
+    from repro_torch.launch.specs import _recsys_batch
+
+    return {k: v for k, v in _recsys_batch(cfg, b, seed=SEED,
+                                           device=dev).items()
+            if k != "labels"}
+
+
+def largest_fitting_batch(run, want: int, probe: int) -> tuple[int, dict]:
+    """The largest power of two <= ``want`` whose peak, reckoned from one
+    ``run(probe)`` (peak allocated beyond what was resident before it,
+    linear in the batch), fits ``CUT_BUDGET_GB`` beside what is
+    resident: (batch, the reckoning)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run(probe)
+    torch.cuda.synchronize()
+    per_sample = (torch.cuda.max_memory_allocated() - base) / probe
+    free_cuda()
+    b = want
+    while b > probe and (base + per_sample * b) / 1e9 > CUT_BUDGET_GB:
+        b //= 2
+    return b, {"probe_batch": probe, "bytes_a_sample": per_sample,
+               "resident_gb": base / 1e9,
+               "reckoned_peak_gb_at_full": (base + per_sample * want) / 1e9,
+               "reckoned_peak_gb_at_cut": (base + per_sample * b) / 1e9}
+
+
+def plain_lookup_scores(params, cfg, batch):
+    """``recsys_scores`` with ``take_rows`` (every table lookup of the
+    four models) swapped for the plain ``embed_lookup`` for this call."""
+    from repro_torch.models.layers import embed_lookup
+    from repro_torch.models.recsys import embedding as E
+    from repro_torch.models.recsys import models as M
+
+    kernel_take = E.take_rows
+    E.take_rows = embed_lookup
+    try:
+        return M.recsys_scores(params, cfg, batch)
+    finally:
+        E.take_rows = kernel_take
+
+
+def check_retrieval(params, cfg, arch, dev) -> dict:
+    """The retrieval_cand cell (one seeded query against n_cand = min(1M,
+    rows) table rows, top 100): ms, candidates/s, peak GB; the ids in
+    range, the scores the gathered row scores and none of the rest
+    above the 100th."""
+    import torch
+
+    from repro_torch.launch import specs as S
+    from repro_torch.models.layers import torch_dtype
+
+    step, n_cand = S.recsys_retrieval_step(cfg, arch.shape("retrieval_cand"))
+    batch = S._retrieval_query(cfg, arch.shape("retrieval_cand")["batch"],
+                               SEED, dev)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        step(params, batch)
+        walls = []
+        for _ in range(5):
+            (vals, ids), wall = synced(lambda: step(params, batch))
+            walls.append(wall * 1e3)
+        cdt = torch_dtype(cfg.compute_dtype)
+        full = torch.einsum("bd,nd->bn", batch["user_query"].to(cdt),
+                            params["table"][:n_cand].to(cdt))
+    k = min(100, n_cand)
+    assert vals.shape == ids.shape == (1, k), (vals.shape, ids.shape)
+    assert bool(((ids >= 0) & (ids < n_cand)).all())
+    assert torch.equal(vals, torch.gather(full, 1, ids))
+    assert bool((vals[:, :-1] >= vals[:, 1:]).all()), "not descending"
+    rest = full.clone()
+    rest[0, ids[0]] = -float("inf")
+    assert float(rest.max()) <= float(vals.min())
+    ms = statistics.median(walls)
+    return {"n_candidates": n_cand, "k": k, "ms": ms,
+            "candidates_per_s": n_cand / ms * 1e3,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "top_score": float(vals[0, 0]),
+            "tied_in_top": int(k - torch.unique(vals).numel())}
+
+
+def phase_recsys_zoo() -> dict:
+    """DeepFM, AutoInt and DIEN at full width (random weights from a
+    seeded CUDA generator, the tables drawn in place) through
+    ``recsys_scores`` at serve_p99 and serve_bulk, and
+    ``recsys_retrieval`` at retrieval_cand."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import recsys_param_leaves
+    from repro_torch.models.recsys import models as M
+
+    dev = torch.device(DEVICE)
+    total = dict.fromkeys(kernels(), 0)
+    out = {}
+    for arch_id in ("deepfm", "autoint", "dien"):
+        arch = get_config(arch_id)
+        cfg = arch.model
+        params, init_s = synced(lambda: M.init_recsys(
+            cfg, torch.Generator(device=dev).manual_seed(SEED), dev))
+        leaves = recsys_param_leaves(params)
+        rec = {"params": sum(t.numel() for t in leaves),
+               "param_gb": sum(t.numel() * t.element_size()
+                               for t in leaves) / 1e9,
+               "table_rows": params["table"].shape[0], "init_s": init_s,
+               "dtype": cfg.param_dtype, "reduced": {}}
+        for shape in ("serve_p99", "serve_bulk"):
+            b = arch.shape(shape)["batch"]
+            if cfg.kind == "dien" and shape == "serve_bulk":
+                def probe(n):
+                    with torch.inference_mode():
+                        M.recsys_scores(params, cfg, serve_batch(cfg, n, dev))
+                b, reckon = largest_fitting_batch(probe, b, 8192)
+                rec["reduced"][shape] = dict(
+                    reckon, batch=b, why=f"serve_bulk is 262,144: the "
+                    f"reference's forward (the [h, t, h*t, h-t] attention "
+                    f"features and their temporaries) reckons "
+                    f"{reckon['reckoned_peak_gb_at_full']:.1f} GB there; "
+                    f"cut to the largest power of two under "
+                    f"{CUT_BUDGET_GB:.0f} GB")
+            batch = serve_batch(cfg, b, dev)
+            reps = 10 if b <= 4096 else 3
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            with torch.inference_mode():
+                M.recsys_scores(params, cfg, batch)
+                walls = []
+                for _ in range(reps):
+                    scores, wall = synced(
+                        lambda: M.recsys_scores(params, cfg, batch))
+                    walls.append(wall * 1e3)
+            counts = read_counts()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            n_tables = 2 if cfg.kind == "deepfm" else 1
+            # one embedding_bag launch per table a forward, and nothing else
+            assert counts["embedding_bag"] == n_tables * (reps + 1), counts
+            assert all(v == 0 for k, v in counts.items()
+                       if k != "embedding_bag"), counts
+            for k, v in counts.items():
+                total[k] += v
+            assert scores.shape == (b,) and scores.dtype == torch.float32
+            assert bool(torch.isfinite(scores).all()), f"{arch_id} {shape}"
+            # random weights give DeepFM logits past +-17, whose float32
+            # sigmoid rounds to 1.0 or 0.0: the closed interval holds
+            assert bool(((scores >= 0) & (scores <= 1)).all())
+            entry = {"batch": b, "forwards": reps + 1,
+                     "wall_ms": statistics.median(walls),
+                     "wall_ms_min": min(walls),
+                     "samples_per_s": b / statistics.median(walls) * 1e3,
+                     "max_memory_allocated_gb": peak,
+                     "embedding_bag_launches_a_forward": n_tables,
+                     "score_mean": float(scores.mean()),
+                     "saturated_share": float(((scores == 0) | (scores == 1))
+                                              .float().mean())}
+            if shape == "serve_p99":
+                with torch.inference_mode():
+                    plain = plain_lookup_scores(params, cfg, batch)
+                # the kernel's lookup equals the gather bit for bit
+                assert torch.equal(scores, plain), f"{arch_id}: differs " \
+                    f"from the plain-lookup forward"
+                entry["equal_to_plain_lookup"] = True
+            else:
+                with torch.inference_mode():
+                    entry["profile"] = device_profile(
+                        lambda: M.recsys_scores(params, cfg, batch),
+                        split=RECSYS_SPLIT)
+            rec[shape] = entry
+            del batch, scores
+            free_cuda()
+        rec["retrieval_cand"] = check_retrieval(params, cfg, arch, dev)
+        out[arch_id] = rec
+        del params, leaves
+        free_cuda()
+    emit({"phase": "recsys_zoo", "configs": out, "launches": total,
+          "reduced": {k: v["reduced"] for k, v in out.items()
+                      if v["reduced"]} or "none"})
+    return total
+
+
+def recsys_train_run(arch, cfg, b: int, steps: int, dev) -> tuple:
+    """``steps`` + 1 train steps (the first a warm-up) of the full-width
+    config at batch ``b``, seeds 1.. as the train CLI draws them, from a
+    seeded init on the card, with the config's optimizer (recording each
+    element's smallest nonzero |gradient|): (per-step ms, losses, peak
+    GB, launches of the timed steps, params before and after, gmin)."""
+    import torch
+
+    from repro_torch.launch import specs as S
+    from repro_torch.models.recsys import models as M
+
+    params = M.init_recsys(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                           dev)
+    before = [t.clone() for t in S.recsys_param_leaves(params)]
+    opt = _GradScale(S._optimizer_for(arch)[0])
+    state = opt.init(S.recsys_param_leaves(params))
+    step_fn = S.recsys_train_step(cfg, opt)
+    walls, losses = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(steps + 1):
+        batch = S._recsys_batch(cfg, b, step + 1, dev)
+        if step == 1:
+            reset_counts()
+        (_, state, loss), wall = synced(
+            lambda: step_fn(params, state, step, batch))
+        losses.append(float(loss))
+        if step:
+            walls.append(wall * 1e3)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    return (walls, losses, peak, counts, params, before, opt.gmin, state,
+            step_fn)
+
+
+def phase_recsys_train() -> dict:
+    """One warm-up and 3 timed training steps of DeepFM and AutoInt at
+    train_batch (65,536) at full width, and of DIEN at the largest batch
+    that fits: ms a step, samples/s, peak GB, finite losses, launches a
+    step, every leaf that a gradient reached moved, and a profiled
+    step's split."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs as S
+
+    dev = torch.device(DEVICE)
+    total = dict.fromkeys(kernels(), 0)
+    out, reduced = {}, {}
+    steps = 3
+    for arch_id in ("deepfm", "autoint", "dien"):
+        arch = get_config(arch_id)
+        cfg = arch.model
+        b = arch.shape("train_batch")["batch"]
+        if cfg.kind == "dien":
+            def probe(n):
+                recsys_train_run(arch, cfg, n, 0, dev)
+            b, reckon = largest_fitting_batch(probe, b, 2048)
+            reduced[arch_id] = dict(
+                reckon, batch=b, why=f"train_batch is 65,536: the two "
+                f"100-step GRU scans keep their activations for the "
+                f"backward, reckoned {reckon['reckoned_peak_gb_at_full']:.1f}"
+                f" GB there; cut to the largest power of two under "
+                f"{CUT_BUDGET_GB:.0f} GB")
+        (walls, losses, peak, counts, params, before, gmin, state,
+         step_fn) = recsys_train_run(arch, cfg, b, steps, dev)
+        n_tables = 2 if cfg.kind == "deepfm" else 1
+        assert all(math.isfinite(x) for x in losses), losses
+        # one forward and one backward launch per table a step
+        assert counts["embedding_bag"] == n_tables * steps, counts
+        assert counts["embedding_bag_backward"] == n_tables * steps, counts
+        for k, v in counts.items():
+            total[k] += v
+        after = S.recsys_param_leaves(params)
+        moved = {}
+        for i, (x, y, g) in enumerate(zip(before, after, gmin)):
+            reached = torch.isfinite(g)
+            if bool(reached.any()):
+                changed = (x != y) & reached
+                assert bool(changed.any()), f"{arch_id} leaf {i} reached " \
+                    f"by a gradient did not move"
+                moved[i] = float(changed.sum()) / float(reached.sum())
+        del before, gmin
+        ms = statistics.median(walls)
+        batch = S._recsys_batch(cfg, b, steps + 2, dev)
+        prof = device_profile(lambda: step_fn(params, state, steps + 1,
+                                              batch), split=RECSYS_SPLIT)
+        out[arch_id] = {"batch": b, "steps": steps, "ms_a_step": ms,
+                        "ms_steps": walls, "samples_per_s": b / ms * 1e3,
+                        "losses": losses, "max_memory_allocated_gb": peak,
+                        "launches_a_step": {k: v // steps
+                                            for k, v in counts.items() if v},
+                        "moved_share_by_leaf": moved, "profile": prof}
+        del params, state, step_fn, batch
+        free_cuda()
+    reduced["dlrm-mlperf"] = (
+        "not trained: its 48.07 GB bf16 table and the table's dense "
+        "gradient (48.07 GB) exceed one 80 GB card before AdamW's float32 "
+        "moments (192 GB); the reference has no sparse gradient")
+    emit({"phase": "recsys_train", "configs": out, "launches": total,
+          "reduced": reduced})
+    return total
+
+
+def phase_recsys_zoo_small_parity() -> None:
+    """The reduced f32 zoo (deepfm-tiny, autoint-tiny, dien-tiny and
+    dlrm-tiny) from one cpu init: scores on cuda against cpu within 2e-5;
+    5 train steps on cuda and on cpu, losses within 1e-4 and params
+    within 1e-4 (``param_gap``: elements a gradient below SMALL_GRAD
+    reached are held to what AdamW moved one element), two cuda runs
+    bit-equal."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs as S
+    from repro_torch.models.recsys import models as M
+
+    out = {}
+    for arch_id in ("deepfm", "autoint", "dien", "dlrm-mlperf"):
+        arch = get_config(arch_id).reduced()
+        cfg = arch.model
+        shape = S._reduce_shape("recsys", arch.shape("train_batch"))
+        init = M.init_recsys(cfg, torch.Generator().manual_seed(SEED), "cpu")
+        batch = serve_batch(cfg, 256, "cpu")
+        got = M.recsys_scores(tree_to(init, DEVICE), cfg,
+                              {k: v.to(DEVICE) for k, v in batch.items()})
+        err = (got.cpu() - M.recsys_scores(init, cfg, batch)).abs().max()
+        # tolerance: 2e-5 on float32 scores (another summation order)
+        assert float(err) <= 2e-5, f"{cfg.name} scores: {float(err)}"
+
+        def run(dev):
+            params = tree_to(init, dev)
+            opt = _GradScale(S._optimizer_for(arch)[0])
+            state = opt.init(S.recsys_param_leaves(params))
+            step_fn = S.recsys_train_step(cfg, opt)
+            losses = []
+            for step in range(5):
+                b = S._recsys_batch(cfg, shape["batch"], step + 1, dev)
+                _, state, loss = step_fn(params, state, step, b)
+                losses.append(float(loss))
+            return (losses, [p.cpu() for p in S.recsys_param_leaves(params)],
+                    [g.cpu() for g in opt.gmin], opt.moved)
+
+        n0 = read_counts()["embedding_bag_backward"]
+        lc, pc, _, _ = run(DEVICE)
+        n_bwd = read_counts()["embedding_bag_backward"] - n0
+        lh, ph, gmin, moved = run("cpu")
+        loss_diff = max(abs(a - c) for a, c in zip(lc, lh))
+        names = [str(i) for i in range(len(ph))]
+        gap = param_gap(pc, ph, gmin, names, moved)
+        assert loss_diff <= 1e-4, (cfg.name, lc, lh)
+        assert gap["held_max_abs_diff"] <= 1e-4, (cfg.name, gap)
+        assert gap["small_grad_max_abs_diff"] <= moved, (cfg.name, gap)
+        lc2, pc2, _, _ = run(DEVICE)
+        assert lc == lc2 and all(torch.equal(a, c) for a, c in
+                                 zip(pc, pc2)), f"{cfg.name}: two cuda " \
+            f"trainings differ"
+        out[cfg.name] = {"scores_max_abs_err": float(err),
+                         "loss_max_abs_diff": loss_diff,
+                         "embedding_bag_backward_launches": n_bwd,
+                         "two_cuda_trainings_bit_equal": True, **gap}
+    emit({"phase": "recsys_zoo_small_parity", "steps": 5, "configs": out,
+          "tolerance": {"scores_atol": 2e-5, "loss_atol": 1e-4,
+                        "param_atol": 1e-4}})
 
 
 def phase_gnn() -> dict:
@@ -3799,7 +4303,7 @@ def main() -> int:
     rows = (check_fast_features(ccfg, pages, dev) + check_budget_route(dev)
             + check_ngram_score(docs, [pages, exp_pages], dev)
             + check_flash_attention(dev) + check_embedding_bag(dev)
-            + check_segment_mm(dev))
+            + check_embedding_bag_backward(dev) + check_segment_mm(dev))
     torch.cuda.synchronize()
     for r in rows:
         # the function's operations over the kernel's time (rows whose
@@ -3832,35 +4336,49 @@ def main() -> int:
     path_counts.append(phase_lm_phi3())
     path_counts.append(phase_recsys())
     phase_recsys_small_parity()
+    path_counts.append(phase_recsys_zoo())
+    path_counts.append(phase_recsys_train())
+    phase_recsys_zoo_small_parity()
     path_counts.append(phase_gnn())
 
+    # name -> (the directory of its source, the TPU kernel it replaces)
     replaces = {
-        "fast_features": "src/repro/kernels/fast_features/kernel.py:94",
-        "budget_route": "src/repro/kernels/budget_route/kernel.py:76",
-        "ngram_score": "src/repro/kernels/ngram_score/kernel.py:93",
-        "flash_attention": "src/repro/kernels/flash_attention/kernel.py:94",
-        "embedding_bag": "src/repro/kernels/embedding_bag/kernel.py:47",
-        "segment_mm": "src/repro/kernels/segment_mm/kernel.py:59",
+        "fast_features": ("fast_features",
+                          "src/repro/kernels/fast_features/kernel.py:94"),
+        "budget_route": ("budget_route",
+                         "src/repro/kernels/budget_route/kernel.py:76"),
+        "ngram_score": ("ngram_score",
+                        "src/repro/kernels/ngram_score/kernel.py:93"),
+        "flash_attention": ("flash_attention",
+                            "src/repro/kernels/flash_attention/kernel.py:94"),
+        "embedding_bag": ("embedding_bag",
+                          "src/repro/kernels/embedding_bag/kernel.py:47"),
+        # XLA's scatter-add, the transpose of jnp.take: no Pallas kernel
+        "embedding_bag_backward": ("embedding_bag", None),
+        "segment_mm": ("segment_mm",
+                       "src/repro/kernels/segment_mm/kernel.py:59"),
     }
     main_shape = {"fast_features": dict(max_len=512),
                   "budget_route": dict(n=256),
                   "ngram_score": dict(b=256),
                   "flash_attention": dict(d=128, dtype="bfloat16"),
                   "embedding_bag": dict(bag=1),
+                  "embedding_bag_backward": dict(table="deepfm"),
                   "segment_mm": dict(d_out=GNN_D_OUT)}
     summary = []
-    for name, src in replaces.items():
+    for name, (src_dir, src) in replaces.items():
         row = next(r for r in rows if r["name"] == name and all(
             r["shape"][k] == v for k, v in main_shape[name].items()))
         summary.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
+            "source": f"src/repro_torch/kernels/{src_dir}/csrc/{src_dir}.cu",
             "replaces": src,
-            "launches": sum(c[name] for c in path_counts),
+            "launches": sum(c.get(name, 0) for c in path_counts),
             "max_abs_err": max(r["max_abs_err"] for r in rows
                                if r["name"] == name),
             "ms": row["ms"], "ms_device": row["ms_device"],
-            **{k: row[k] for k in ("profiler_ms", "empty_launch_ms")
+            **{k: row[k] for k in ("profiler_ms", "empty_launch_ms",
+                                   "kernel_ms")
                if k in row},
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

@@ -72,7 +72,8 @@ from collections import deque
 from repro_torch.core import obs
 from repro_torch.core import specs as spec_lib
 from repro_torch.core.workers import (BatchDone, Heartbeat,
-                                      ProcessWorkerPool, _prebuild_kernels)
+                                      ProcessWorkerPool, _prebuild_kernels,
+                                      reap)
 
 _LEN = struct.Struct("!Q")
 #: refuse absurd frames instead of allocating unbounded buffers from a
@@ -846,10 +847,5 @@ class FabricWorkerPool(ProcessWorkerPool):
         if self._hub is not None:
             self._hub.close()
             self._hub = None
-        for p in self._local_procs:
-            p.join(timeout=3.0)
-        for p in self._local_procs:
-            if p.is_alive():
-                p.terminate()
-                p.join(timeout=1.0)
+        reap(self._local_procs)
         self._local_procs = []

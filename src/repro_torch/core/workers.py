@@ -688,6 +688,12 @@ class ProcessWorkerPool:
     single-node in-process run byte-for-byte."""
 
     _POLL_S = 0.05
+    #: a drain with work open that hears no ``BatchDone`` and sends no
+    #: task for this long raises instead of waiting on (a worker whose
+    #: heartbeat thread beats while its engine never returns is never
+    #: quieted, so no re-issue ends the wait). The port's own limit:
+    #: the reference's drain waits without one.
+    DRAIN_STALL_S = 600.0
     #: heartbeat ``sent_mono`` stamps are comparable with the
     #: coordinator's monotonic clock only when every worker shares its
     #: host (true for spawned processes; the cross-machine fabric
@@ -829,6 +835,7 @@ class ProcessWorkerPool:
         self.payloads_inline = 0
         self._has_cache = has_cache
         self._wall_s = 0.0
+        self._progress_t = time.time()   # last BatchDone heard, task sent
         self._tasks: dict[int, _TaskState] = {}
         self._open: set[int] = set()     # not-yet-done task ids
         # (task_id, worker) results a live straggler still owes after a
@@ -978,12 +985,7 @@ class ProcessWorkerPool:
                 q.put_nowait(None)          # shutdown sentinel
             except (ValueError, OSError, queue_lib.Full):
                 pass
-        for p in self.procs:
-            p.join(timeout=3.0)
-        for p in self.procs:
-            if p.is_alive():
-                p.terminate()
-                p.join(timeout=1.0)
+        reap(self.procs)
         for q in [self.result_q, *self.task_qs]:
             try:
                 q.cancel_join_thread()
@@ -1006,6 +1008,7 @@ class ProcessWorkerPool:
         t0 = time.perf_counter()
         if self._status_every:
             self._status_next = t0 + self._status_every
+        self._progress_t = time.time()
         try:
             while True:
                 self._top_up(pending)
@@ -1015,6 +1018,7 @@ class ProcessWorkerPool:
                 self._pump()
                 self._police()
                 self._status_tick(t0)
+                self._check_stall()
         finally:
             # the settle window below is bookkeeping, not batch work —
             # wall_s measures time-to-last-record
@@ -1031,6 +1035,19 @@ class ProcessWorkerPool:
         for i in range(self.n_nodes):
             obs.metrics().gauge(f"pool.load.n{i}", self._load[i])
         obs.metrics().gauge("pool.window", self._window)
+
+    def _check_stall(self) -> None:
+        idle = time.time() - self._progress_t
+        if idle > self.DRAIN_STALL_S:
+            owed = {tid: sorted(self._tasks[tid].current)
+                    for tid in sorted(self._open)}
+            beats = {w: round(time.time() - self._beat[w], 1)
+                     for w in range(self.n_nodes)}
+            raise RuntimeError(
+                f"drain made no progress for {idle:.0f} s "
+                f"(DRAIN_STALL_S): open tasks and their workers {owed}, "
+                f"seconds since each worker's heartbeat {beats}, dead "
+                f"{sorted(self._dead)}, quiet {sorted(self._quiet)}")
 
     def _status_tick(self, t0: float) -> None:
         """serve.py --status-interval: a periodic one-line stderr pulse
@@ -1093,6 +1110,7 @@ class ProcessWorkerPool:
                                task.alpha, payload=task.comp_ref,
                                attempt=task.attempt)
         self._count_payload(msg.payload is not None)
+        self._progress_t = time.time()
         task.attempt += 1
         task.current.add(w)
         self._load[w] += 1
@@ -1241,6 +1259,7 @@ class ProcessWorkerPool:
             return
         if not isinstance(msg, BatchDone):
             return
+        self._progress_t = time.time()
         self._absorb_obs(msg.worker, msg.spans, msg.metrics)
         if msg.error is None:
             self._count_payload(msg.payload is not None)
@@ -1442,6 +1461,30 @@ class ProcessWorkerPool:
                 rec.span("reissue", t.batch_key, time.time(), 0.0,
                          node=g, attempt=t.attempt,
                          detail=f"{cause} worker {w}, {t.stage} stage")
+
+
+#: seconds a closing pool gives its workers, all together, to exit
+#: after the shutdown sentinel (a worker joins its heartbeat thread and
+#: tears torch down; on a loaded host that has taken over 3 s)
+EXIT_WAIT_S = 10.0
+
+
+def reap(procs, wait_s: float = EXIT_WAIT_S) -> None:
+    """Join ``procs`` within one shared deadline of ``wait_s``, then
+    terminate any still alive and kill any that outlive that, each step
+    with a limit of its own: no worker outlives its pool's ``close``
+    (``multiprocessing`` joins its children without a limit at
+    interpreter exit)."""
+    deadline = time.time() + wait_s
+    for p in procs:
+        p.join(timeout=max(0.0, deadline - time.time()))
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+            p.join(timeout=2.0)
+        if p.is_alive():
+            p.kill()
+            p.join(timeout=5.0)
 
 
 def _portable_router(router):

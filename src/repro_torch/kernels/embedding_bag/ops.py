@@ -11,6 +11,12 @@ a NaN bag.
 The recsys forward's field lookup is this op with bags of one, weight 1
 and ``sum`` (FBGEMM's table-batched-embedding pattern at pooling factor
 1), which equals the plain gather bit for bit.
+
+``lookup(table, ids)`` is that lookup as an ``autograd.Function``: the
+forward is ``embedding_bag``, the backward ``embedding_bag_backward``,
+the table gradient of bags of one (``csrc/embedding_bag.cu``'s second
+kernel on CUDA tensors, ``ref.embedding_bag_backward_ref`` on CPU ones),
+added in the table's dtype in position order as XLA's scatter-add adds.
 """
 from __future__ import annotations
 
@@ -18,7 +24,8 @@ import torch
 
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.cuda_lib import I, L, P
-from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.kernels.embedding_bag.ref import (
+    embedding_bag_backward_ref, embedding_bag_ref, sorted_rows)
 
 COMBINERS = ("sum", "mean")
 _TABLE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -27,6 +34,9 @@ _ID_DTYPES = (torch.int32, torch.int64)
 KERNEL = cuda_lib.CudaKernel(
     "embedding_bag", "adaparse_embedding_bag",
     [P, I, L, L, I, P, I, P, L, I, I, I, P, P])
+BACKWARD = cuda_lib.CudaKernel(
+    "embedding_bag_backward", "adaparse_embedding_bag_backward",
+    [P, I, L, I, P, P, P, L, I, P, P])
 
 
 def _check(table, ids, weights, combiner) -> None:
@@ -88,3 +98,83 @@ def embedding_bag(table, ids, weights=None, *, combiner: str = "sum"):
     if out.numel():
         _launch(table, ids, weights, out, combiner=combiner)
     return out
+
+
+def embedding_bag_backward(grad, ids, rows: int):
+    """grad (N, D) f32/bf16; ids (N,) int32/int64 -> the (rows, D)
+    table gradient of ``embedding_bag`` with bags of one, in grad's
+    dtype: ids wrap from the end, ids outside [-rows, rows) add nothing,
+    and each row's adds are rounded to the dtype in ascending position
+    order."""
+    if grad.dim() != 2 or grad.dtype not in _TABLE_DTYPES:
+        raise ValueError(f"embedding_bag_backward: grad must be (N, D) "
+                         f"float32 or bfloat16 (got {tuple(grad.shape)} "
+                         f"{grad.dtype})")
+    if ids.dim() != 1 or ids.dtype not in _ID_DTYPES \
+            or ids.shape[0] != grad.shape[0]:
+        raise ValueError(f"embedding_bag_backward: ids must be (N,) int32 "
+                         f"or int64 with N = {grad.shape[0]} (got "
+                         f"{tuple(ids.shape)} {ids.dtype})")
+    if grad.device != ids.device:
+        raise ValueError("embedding_bag_backward: grad and ids must share "
+                         "one device")
+    if grad.device.type == "cpu":
+        return embedding_bag_backward_ref(grad, ids, rows)
+    if grad.device.type != "cuda":
+        raise ValueError(f"embedding_bag_backward: unsupported device "
+                         f"{grad.device}")
+    grad = grad.contiguous()
+    run_key, run_start, perm = sorted_runs(ids, rows)
+    out = torch.empty((rows, grad.shape[1]), dtype=grad.dtype,
+                      device=grad.device)
+    if out.numel():
+        el = grad.element_size()
+        vec16 = int((grad.shape[1] * el) % 16 == 0
+                    and grad.data_ptr() % 16 == 0
+                    and out.data_ptr() % 16 == 0)
+        BACKWARD(grad.data_ptr(), _TABLE_DTYPES[grad.dtype], rows,
+                 grad.shape[1], run_key.data_ptr(), run_start.data_ptr(),
+                 perm.data_ptr(), run_key.numel(), vec16, out.data_ptr(),
+                 cuda_lib.stream_of(grad.device))
+    return out
+
+
+def sorted_runs(ids, rows: int):
+    """The backward kernel's plumbing: the valid ids (wrapped into [0,
+    rows), ``sorted_rows``) cut into runs of one row each: (run_key
+    (n_runs,) the run's row, run_start (n_runs + 1,) each run's first
+    sorted position and the end, perm the sorted positions' source
+    positions), all int64."""
+    keys, perm = sorted_rows(ids, rows)
+    n_valid = int((keys < rows).sum())          # the dropped sort last
+    run_key, counts = torch.unique_consecutive(keys[:n_valid],
+                                               return_counts=True)
+    run_start = torch.zeros(run_key.numel() + 1, dtype=torch.int64,
+                            device=keys.device)
+    torch.cumsum(counts, 0, out=run_start[1:])
+    return run_key, run_start, perm[:n_valid]
+
+
+class _Lookup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape[0]
+        return embedding_bag(table, ids.view(-1, 1), None, combiner="sum")
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        return embedding_bag_backward(grad, ids, ctx.rows), None
+
+
+def lookup(table, ids):
+    """table (R, D); ids (N,) int32/int64 contiguous -> (N, D) rows in
+    the table's dtype (``jnp.take``: wrapped ids, a NaN row outside
+    [-R, R)), differentiable with respect to the table through
+    ``embedding_bag_backward``. One forward and one backward launch on
+    the card."""
+    if ids.dim() != 1:
+        raise ValueError(f"lookup: ids must be (N,) (got "
+                         f"{tuple(ids.shape)})")
+    return _Lookup.apply(table, ids)

@@ -1,12 +1,13 @@
-"""Workload batches and the LM training step, the port of the seeded
-batch functions and the LM train cell of ``repro/launch/specs.py`` (its
-abstract and sharded cells are the JAX package's own lowering and are
-not ported).
+"""Workload batches and the training and retrieval steps, the port of
+the seeded batch functions and of the LM and recsys cells of
+``repro/launch/specs.py`` (its abstract and sharded cells are the JAX
+package's own lowering and are not ported).
 
-The LM's params are a dict tree; the optimizers take lists of tensors.
-``lm_param_leaves`` gives the leaves in the order
+Params are dict trees (a recsys MLP is a list of layer dicts); the
+optimizers take lists of tensors. ``lm_param_leaves`` and
+``recsys_param_leaves`` give the leaves in the order
 ``jax.tree_util.tree_leaves`` gives the reference's params (sorted keys,
-``layers`` nested), so the optimizer state, the global norm and the
+lists in index order), so the optimizer state, the global norm and the
 checkpoint line up with the JAX package's leaf for leaf, and
 ``opt_state_from_jax`` carries a JAX run's optimizer state across.
 """
@@ -19,6 +20,7 @@ from repro_torch import device as device_lib
 from repro_torch.configs.base import (ArchConfig, LMConfig, RecsysConfig,
                                       ShapeConfig)
 from repro_torch.models.layers import from_numpy
+from repro_torch.models.recsys.models import recsys_loss, recsys_retrieval
 from repro_torch.models.transformer import lm_loss
 from repro_torch.optim import adafactor, adamw, apply_updates, chain_clip
 
@@ -30,23 +32,37 @@ def _optimizer_for(arch: ArchConfig):
 
 
 def _reduce_shape(family: str, shape: ShapeConfig) -> ShapeConfig:
-    """Shrink an LM workload cell for CPU runs (same kind), as the JAX
-    function's LM branch does."""
-    if family != "lm":
-        raise NotImplementedError(f"family {family!r}: only the LM cells "
-                                  f"are ported (ROADMAP.md item 13e)")
+    """Shrink an LM or recsys workload cell for CPU runs (same kind), as
+    the JAX function's LM and recsys branches do."""
     d = dict(shape.dims)
-    if "seq_len" in d:
-        d["seq_len"] = min(d["seq_len"], 64)
-    if "global_batch" in d:
-        d["global_batch"] = min(d["global_batch"], 4)
+    if family == "lm":
+        if "seq_len" in d:
+            d["seq_len"] = min(d["seq_len"], 64)
+        if "global_batch" in d:
+            d["global_batch"] = min(d["global_batch"], 4)
+    elif family == "recsys":
+        if "batch" in d:
+            d["batch"] = min(d["batch"], 16)
+        if "n_candidates" in d:
+            d["n_candidates"] = min(d["n_candidates"], 64)
+    else:
+        raise NotImplementedError(f"family {family!r}: only the LM and "
+                                  f"recsys cells are ported (ROADMAP.md "
+                                  f"item 13e)")
     return ShapeConfig(shape.name, shape.kind, d, shape.note)
 
 
-def _tree_leaves(tree, is_leaf=lambda x: not isinstance(x, dict)):
+def _tree_leaves(tree, is_leaf=lambda x: False):
+    """``jax.tree_util.tree_leaves``' order: dict keys sorted, lists and
+    tuples in index order."""
     if is_leaf(tree):
         return [tree]
-    return [x for k in sorted(tree) for x in _tree_leaves(tree[k], is_leaf)]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k],
+                                                             is_leaf)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _tree_leaves(v, is_leaf)]
+    return [tree]
 
 
 def lm_param_leaves(params: dict) -> list[torch.Tensor]:
@@ -54,13 +70,19 @@ def lm_param_leaves(params: dict) -> list[torch.Tensor]:
     return _tree_leaves(params)
 
 
+def recsys_param_leaves(params: dict) -> list[torch.Tensor]:
+    """A recsys model's leaves in ``jax.tree_util.tree_leaves`` order:
+    sorted keys, an MLP's layers in index order."""
+    return _tree_leaves(params)
+
+
 def opt_state_from_jax(raw_state: dict, params: dict, kind: str) -> dict:
-    """The JAX package's optimizer state (numpy leaves) for the LM's
-    params -> the port's: AdamW's ``{"m", "v"}`` trees as lists, or
-    Adafactor's ``{"v": tree of {"vr", "vc"} | {"v"}}`` as a list of
-    dicts, each leaf a float32 tensor on the params' device. Raises on a
-    leaf whose count or shape does not match the params."""
-    leaves = lm_param_leaves(params)
+    """The JAX package's optimizer state (numpy leaves) for an LM's or a
+    recsys model's params -> the port's: AdamW's ``{"m", "v"}`` trees as
+    lists, or Adafactor's ``{"v": tree of {"vr", "vc"} | {"v"}}`` as a
+    list of dicts, each leaf a float32 tensor on the params' device.
+    Raises on a leaf whose count or shape does not match the params."""
+    leaves = _tree_leaves(params)
     dev = leaves[0].device
 
     def take(states, shapes_of):
@@ -106,19 +128,14 @@ def _lm_train_batch(cfg: LMConfig, b: int, s: int, seed: int = 0,
             "labels": torch.from_numpy(toks[:, 1:].copy()).to(dev)}
 
 
-def lm_train_step(cfg: LMConfig, opt):
-    """``(params, opt_state, step, batch) -> (params, opt_state, loss)``:
-    the gradient of ``lm_loss`` with respect to every leaf, one optimizer
-    update (``step`` a host int), applied to the params in place. It runs
-    where the params and the batch are (``init_lm`` and
-    ``_lm_train_batch`` put them on cuda unless asked for "cpu")."""
+def _train_step(loss_fn, leaves_of, opt):
     def train_step(params, opt_state, step, batch):
-        leaves = lm_param_leaves(params)
+        leaves = leaves_of(params)
         for p in leaves:
             p.requires_grad_(True)
         try:
             with torch.enable_grad():
-                loss, _ = lm_loss(params, cfg, batch)
+                loss, _ = loss_fn(params, batch)
                 grads = torch.autograd.grad(loss, leaves)
         finally:
             for p in leaves:
@@ -129,6 +146,48 @@ def lm_train_step(cfg: LMConfig, opt):
         return params, opt_state, loss.detach()
 
     return train_step
+
+
+def lm_train_step(cfg: LMConfig, opt):
+    """``(params, opt_state, step, batch) -> (params, opt_state, loss)``:
+    the gradient of ``lm_loss`` with respect to every leaf, one optimizer
+    update (``step`` a host int), applied to the params in place. It runs
+    where the params and the batch are (``init_lm`` and
+    ``_lm_train_batch`` put them on cuda unless asked for "cpu")."""
+    return _train_step(lambda p, b: lm_loss(p, cfg, b), lm_param_leaves, opt)
+
+
+def recsys_train_step(cfg: RecsysConfig, opt):
+    """The recsys train cell's step, as ``lm_train_step`` is the LM's:
+    the gradient of ``recsys_loss`` with respect to every leaf (the
+    tables' through ``embedding_bag_backward`` on the card), one update
+    of ``opt`` (``_optimizer_for``: ``chain_clip(adamw(3e-4, wd 0.1),
+    1.0)``), applied in place."""
+    return _train_step(lambda p, b: recsys_loss(p, cfg, b),
+                       recsys_param_leaves, opt)
+
+
+def recsys_retrieval_step(cfg: RecsysConfig, shape: ShapeConfig):
+    """The retrieval cell's step ``(params, batch) -> (scores, ids)``,
+    with the cell's ``n_cand = min(n_candidates, rows)`` (unpadded
+    rows) and ``k = min(100, n_cand)``; returns (step, n_cand)."""
+    n_cand = min(shape["n_candidates"], int(sum(cfg.vocab_sizes)))
+    k_top = min(100, n_cand)
+
+    def retrieval_step(params, batch):
+        return recsys_retrieval(params, cfg, dict(batch, n_candidates=n_cand),
+                                k=k_top)
+
+    return retrieval_step, n_cand
+
+
+def _retrieval_query(cfg: RecsysConfig, b: int, seed: int = 0,
+                     device=None) -> dict:
+    """The retrieval cell's batch: ``user_query`` (b, D) float32 from
+    numpy ``RandomState(seed).randn``."""
+    q = np.random.RandomState(seed).randn(b, cfg.embed_dim).astype(
+        np.float32)
+    return {"user_query": torch.from_numpy(q).to(device_lib.resolve(device))}
 
 
 def _recsys_batch(cfg: RecsysConfig, b: int, seed: int = 0,

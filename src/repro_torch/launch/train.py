@@ -1,9 +1,11 @@
-"""Fault-tolerant LM training driver, the port of ``repro/launch/train.py``
-on one card.
+"""Fault-tolerant training driver, the port of ``repro/launch/train.py``
+on one card: the LM train cells and the recsys ``train_batch`` cell.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
         --shape train_4k [--reduced] [--steps 100] [--ckpt-dir ckpts/qwen] \\
         [--ckpt-every 50] [--mesh 1x1] [--device cuda|cpu]
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch deepfm|autoint|dien|dlrm-mlperf --shape train_batch [--reduced]
 
 As the reference does:
 - restart-from-latest: on launch, restores the newest checkpoint in
@@ -36,8 +38,10 @@ from repro_torch.checkpoint import checkpoint as ckpt_lib
 from repro_torch.configs import get_config
 from repro_torch.distributed.fault import StragglerDetector
 from repro_torch.launch.specs import (_lm_train_batch, _optimizer_for,
-                                      _reduce_shape, lm_param_leaves,
-                                      lm_train_step)
+                                      _recsys_batch, _reduce_shape,
+                                      lm_param_leaves, lm_train_step,
+                                      recsys_param_leaves, recsys_train_step)
+from repro_torch.models.recsys.models import init_recsys
 from repro_torch.models.transformer import init_lm
 
 
@@ -75,28 +79,38 @@ def main(argv=None):
     if args.shape in arch.skips and not args.reduced:
         raise ValueError(f"{args.arch}/{args.shape} skipped: "
                          f"{arch.skips[args.shape]}")
-    if arch.family != "lm" or shape.kind != "train":
+    if arch.family not in ("lm", "recsys") or shape.kind != "train":
         raise NotImplementedError(
-            f"{args.arch}/{args.shape}: the port trains LM train cells "
-            f"only (ROADMAP.md item 13e)")
+            f"{args.arch}/{args.shape}: the port trains the LM and recsys "
+            f"train cells only (ROADMAP.md item 13e)")
     cfg = arch.model
-    b, s = shape["global_batch"], shape["seq_len"]
     opt, _ = _optimizer_for(arch)
+    if arch.family == "lm":
+        b, s = shape["global_batch"], shape["seq_len"]
+        init, leaves_of = init_lm, lm_param_leaves
+        train_step = lm_train_step(cfg, opt)
+
+        def make_batch(seed):
+            return _lm_train_batch(cfg, b, s, seed=seed, device=dev)
+    else:
+        init, leaves_of = init_recsys, recsys_param_leaves
+        train_step = recsys_train_step(cfg, opt)
+
+        def make_batch(seed):
+            return _recsys_batch(cfg, shape["batch"], seed, device=dev)
 
     stop = {"now": False}
     previous = signal.signal(signal.SIGTERM,
                              lambda *_: stop.update(now=True))
     try:
-        params = init_lm(cfg, torch.Generator(device=dev).manual_seed(0),
-                         dev)
-        opt_state = opt.init(lm_param_leaves(params))
+        params = init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        opt_state = opt.init(leaves_of(params))
         start_step = 0
         if args.ckpt_dir and ckpt_lib.latest_step(args.ckpt_dir) is not None:
             start_step, tree, _ = ckpt_lib.restore(args.ckpt_dir,
                                                    device=dev)
             params, opt_state = tree["params"], tree["opt_state"]
             print(f"[train] restored step {start_step} from {args.ckpt_dir}")
-        train_step = lm_train_step(cfg, opt)
 
         detector = StragglerDetector()
         losses = []
@@ -107,7 +121,7 @@ def main(argv=None):
                 print("[train] SIGTERM — checkpointing and exiting")
                 break
             t0 = time.time()
-            batch = _lm_train_batch(cfg, b, s, seed=step + 1, device=dev)
+            batch = make_batch(step + 1)
             params, opt_state, loss = train_step(params, opt_state, step,
                                                  batch)
             loss = float(loss)

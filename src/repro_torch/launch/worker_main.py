@@ -241,6 +241,32 @@ def _next_item(task_q):
                 return None
 
 
+#: how long an injected crash waits for the result queue's feeder to
+#: write out what it holds before the hard exit
+CRASH_FLUSH_S = 30.0
+
+
+def _crash_exit(result_q, stop, beat_t) -> None:
+    """The injected crash's hard exit (no reply, no more heartbeats),
+    taken only once the heartbeat thread has stopped and the result
+    queue's feeder thread has written out what it held. Every worker
+    writes to the one result queue under one write lock, a semaphore
+    the feeder holds while it writes; a process that exits while its
+    feeder holds it leaves the lock taken for ever, so every other
+    worker's replies and heartbeats stop as well, the coordinator sees
+    the whole fleet quiet, and its drain waits (fault 3i: the
+    ``crash_storm`` scenario on the card, 610 s with no message from any
+    worker; the reference's worker exits at once). Each wait has a limit
+    of its own; the exit follows either way."""
+    stop.set()
+    beat_t.join(timeout=10.0)
+    result_q.close()
+    flush = threading.Thread(target=result_q.join_thread, daemon=True)
+    flush.start()
+    flush.join(timeout=CRASH_FLUSH_S)
+    os._exit(3)
+
+
 def worker_loop(task_q, result_q) -> None:
     """Process main: take the ``WorkerSpec`` (the first item on the task
     queue), build the engine, heartbeat, serve tasks until the shutdown
@@ -318,7 +344,7 @@ def worker_loop(task_q, result_q) -> None:
             # injected crash: hard exit with the batch in flight (no
             # reply, no more heartbeats — the coordinator's liveness
             # check must recover it)
-            os._exit(3)
+            _crash_exit(result_q, stop, beat_t)
         current[0] = task.task_id
         try:
             if shm_t is not None:

@@ -2,9 +2,12 @@
 ``repro/models/recsys/embedding.py``.
 
 All field tables are concatenated into ONE table, so a batch lookup is a
-single gather. ``lookup_fields`` runs that gather through the
-hand-written ``embedding_bag`` kernel on the card (bags of one, weight
-1, ``sum``: one launch per forward, bit-equal to the plain gather).
+single gather. ``take_rows`` (``lookup_fields``' and DIEN's gathers)
+runs it through the hand-written ``embedding_bag`` kernel on the card
+(bags of one, weight 1, ``sum``: one launch per forward, bit-equal to
+the plain gather), and its table gradient through the hand-written
+``embedding_bag_backward`` kernel (one launch per backward, XLA's
+scatter-add order bit for bit).
 ``embedding_bag``, ``embedding_bag_ragged`` and ``retrieval_topk`` are
 plain mirrors of the JAX functions, whose semantics differ from the
 kernel's (products in the table's dtype, ``max(denom, 1.0)``, a ``max``
@@ -47,14 +50,19 @@ def init_table(vocab_sizes, dim: int, dtype: torch.dtype,
     return table, torch.from_numpy(offs).to(dev)
 
 
+def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(table, ids, axis=0)`` for ids of any shape ->
+    ids.shape + (D,), differentiable with respect to the table: one
+    ``embedding_bag`` call over bags of one id each, and one
+    ``embedding_bag_backward`` call for its gradient."""
+    rows = bag_ops.lookup(table, ids.reshape(-1).contiguous())
+    return rows.view(tuple(ids.shape) + (table.shape[1],))
+
+
 def lookup_fields(table: torch.Tensor, offsets: torch.Tensor,
                   ids: torch.Tensor) -> torch.Tensor:
-    """ids (B, F) per-field local ids -> (B, F, D) embeddings: one
-    ``embedding_bag`` call over B*F bags of one id each."""
-    b, f = ids.shape
-    flat = (ids + offsets[None, :].to(ids.dtype)).reshape(b * f, 1)
-    return bag_ops.embedding_bag(table, flat, None, combiner="sum") \
-        .view(b, f, table.shape[1])
+    """ids (B, F) per-field local ids -> (B, F, D) embeddings."""
+    return take_rows(table, ids + offsets[None, :].to(ids.dtype))
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor,

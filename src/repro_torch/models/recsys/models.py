@@ -1,21 +1,26 @@
-"""Recsys models, the port of ``repro/models/recsys/models.py``: DLRM
-(MLPerf) serving. DeepFM, AutoInt and DIEN are not ported yet (ROADMAP.md
-queue 1, item 13e), nor are training (``recsys_loss``) and
-``recsys_retrieval``.
+"""Recsys model zoo, the port of ``repro/models/recsys/models.py``: DLRM
+(MLPerf), DeepFM, AutoInt, DIEN.
 
 Public surface:
     init_recsys(cfg, generator, device)        -> params
     recsys_from_jax_params(raw, cfg, device)   -> params
     recsys_logits(params, cfg, batch)          -> (B,) logits
+    recsys_loss(params, cfg, batch)            -> BCE loss, metrics
     recsys_scores(params, cfg, batch)          -> (B,) sigmoid CTR scores
+    recsys_retrieval(params, cfg, batch, k)    -> top-k (scores, ids)
 
-Params are a plain dict in the JAX package's raw layout: ``table (rows
-padded to 512, D)``, ``bot`` and ``top`` lists of ``{"w": (a, b), "b":
-(b,)}``. ``batch`` holds ``dense (B, n_dense)`` floats and ``sparse (B,
-n_sparse)`` field-local ids (``launch.specs._recsys_batch``). The field
-lookup is the hand-written ``embedding_bag`` kernel on the card; the MLPs
-and the dot interaction are plain matmuls, as the JAX package leaves them
-to XLA.
+Params are a plain dict in the JAX package's raw layout (``_shapes``
+lists every leaf): ``table (rows padded to 512, D)`` for every kind;
+DLRM adds ``bot`` and ``top``, DeepFM ``lin_table``, ``bias`` and
+``deep``, AutoInt ``attn`` and ``out``, DIEN ``gru``, ``augru``, ``att``,
+``hist_proj`` and ``mlp``; an MLP is a list of ``{"w": (a, b), "b":
+(b,)}``. ``batch`` holds ``sparse (B, n_sparse)`` field-local ids, DLRM
+adds ``dense``, DIEN ``hist``, ``hist_cat``, ``hist_mask``, ``target``
+and ``target_cat`` (``launch.specs._recsys_batch``). Every table lookup
+is the hand-written ``embedding_bag`` kernel on the card, and its
+gradient the hand-written ``embedding_bag_backward``; the MLPs,
+interactions and GRUs are plain torch products, as the JAX package
+leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -28,27 +33,53 @@ from repro_torch.models.layers import from_numpy, torch_dtype
 from repro_torch.models.recsys import embedding as emb
 from repro_torch.models.recsys import interactions as inter
 
-
-def _check_dlrm(cfg: RecsysConfig) -> None:
-    if cfg.kind != "dlrm":
-        raise NotImplementedError(
-            f"{cfg.name}: recsys kind {cfg.kind!r} is not ported yet "
-            f"(ROADMAP.md queue 1, item 13e)")
+#: leaves drawn in place by ``emb.init_table`` (normal(0, dim^-0.5))
+_TABLES = ("table", "lin_table")
 
 
-def _mlp_dims(cfg: RecsysConfig) -> dict:
-    f = cfg.n_sparse + 1
-    d_int = f * (f - 1) // 2 + cfg.bot_mlp[-1]
-    return {"bot": (cfg.n_dense,) + cfg.bot_mlp,
-            "top": (d_int,) + cfg.top_mlp}
-
-
-def _mk_mlp(dims, dtype, generator, device) -> list[dict]:
-    """Weights normal(0, fan_in^-0.5) drawn in float32, zero biases."""
-    return [{"w": (torch.randn((a, b), generator=generator, device=device)
-                   * a ** -0.5).to(dtype),
-             "b": torch.zeros((b,), dtype=dtype, device=device)}
+def _mlp_shapes(dims) -> list[dict]:
+    return [{"w": ((a, b), a ** -0.5), "b": ((b,), None)}
             for a, b in zip(dims[:-1], dims[1:])]
+
+
+def _shapes(cfg: RecsysConfig) -> dict:
+    """The params tree of ``cfg.kind`` with each leaf's (shape, std):
+    weights normal(0, std), std None for a zero bias. The JAX
+    ``init_recsys``'s leaves, shapes and scales."""
+    d = cfg.embed_dim
+    rows = emb.table_offsets(cfg.vocab_sizes, 512)[1]
+    p: dict = {"table": ((rows, d), d ** -0.5)}
+    if cfg.kind == "dlrm":
+        f = cfg.n_sparse + 1
+        d_int = f * (f - 1) // 2 + cfg.bot_mlp[-1]
+        p["bot"] = _mlp_shapes((cfg.n_dense,) + cfg.bot_mlp)
+        p["top"] = _mlp_shapes((d_int,) + cfg.top_mlp)
+    elif cfg.kind == "deepfm":
+        p["lin_table"] = ((rows, 1), 1.0)
+        p["bias"] = ((1,), None)
+        p["deep"] = _mlp_shapes((cfg.n_sparse * d,) + cfg.mlp + (1,))
+    elif cfg.kind == "autoint":
+        dh = cfg.d_attn // cfg.n_attn_heads
+        p["attn"] = []
+        d_in = d
+        for _ in range(cfg.n_attn_layers):
+            w = ((d_in, cfg.n_attn_heads, dh), d_in ** -0.5)
+            p["attn"].append({"wq": w, "wk": w, "wv": w,
+                              "w_res": ((d_in, cfg.d_attn), d_in ** -0.5)})
+            d_in = cfg.d_attn
+        p["out"] = _mlp_shapes((cfg.n_sparse * cfg.d_attn, 1))
+    elif cfg.kind == "dien":
+        d_item = 2 * d                      # item + category embeddings
+        g = cfg.gru_dim
+        p["gru"] = inter.gru_shapes(d_item, g)
+        p["augru"] = inter.gru_shapes(g, g)
+        p["att"] = {"w1": ((4 * g, 64), (4 * g) ** -0.5), "b1": ((64,), None),
+                    "w2": ((64, 1), 64 ** -0.5), "b2": ((1,), None)}
+        p["hist_proj"] = ((d_item, g), d_item ** -0.5)
+        p["mlp"] = _mlp_shapes((g + d_item,) + cfg.mlp + (1,))
+    else:
+        raise ValueError(f"{cfg.name}: unknown recsys kind {cfg.kind!r}")
+    return p
 
 
 def _mlp(x, layers, act=F.relu, final_act=None):
@@ -61,74 +92,159 @@ def _mlp(x, layers, act=F.relu, final_act=None):
     return x
 
 
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
 @torch.no_grad()
 def init_recsys(cfg: RecsysConfig, generator: torch.Generator | None = None,
                 device=None) -> dict:
     """Random params in ``cfg.param_dtype`` on ``device`` (cuda unless
     "cpu"), drawn from ``generator``, which must live there (default:
-    seed 0 there). The table is drawn in place (``init_table``)."""
-    _check_dlrm(cfg)
+    seed 0 there). The tables are drawn in place (``init_table``)."""
     dev = device_lib.resolve(device)
     g = generator if generator is not None else \
         torch.Generator(device=dev).manual_seed(0)
     dtype = torch_dtype(cfg.param_dtype)
-    table, _ = emb.init_table(cfg.vocab_sizes, cfg.embed_dim, dtype, g, dev)
-    return {"table": table,
-            **{k: _mk_mlp(dims, dtype, g, dev)
-               for k, dims in _mlp_dims(cfg).items()}}
+
+    def build(spec, name):
+        if isinstance(spec, dict):
+            return {k: build(v, k) for k, v in spec.items()}
+        if isinstance(spec, list):
+            return [build(v, name) for v in spec]
+        shape, std = spec
+        if name in _TABLES:
+            return emb.init_table(cfg.vocab_sizes, shape[1], dtype, g,
+                                  dev)[0]
+        return inter.draw(shape, std, dtype, g)
+
+    return build(_shapes(cfg), None)
 
 
 @torch.no_grad()
 def recsys_from_jax_params(raw: dict, cfg: RecsysConfig, device=None) -> dict:
-    """The JAX package's raw DLRM params (numpy leaves, ``unwrap``-ed
-    ``init_recsys``) -> the port's params with the same values, bf16 bit
-    for bit. Raises on a missing, extra or misshapen leaf."""
-    _check_dlrm(cfg)
+    """The JAX package's raw params of any recsys kind (numpy leaves,
+    ``unwrap``-ed ``init_recsys``) -> the port's params with the same
+    values, bf16 bit for bit. Raises on a missing, extra or misshapen
+    leaf."""
     dev = device_lib.resolve(device)
     dtype = torch_dtype(cfg.param_dtype)
-    dims = _mlp_dims(cfg)
-    if set(raw) != {"table"} | set(dims):
-        raise ValueError(f"recsys params: keys {sorted(raw)} != "
-                         f"{sorted({'table'} | set(dims))}")
 
-    def take(a, shape, where):
-        t = from_numpy(a)
-        if tuple(t.shape) != shape:
+    def take(spec, node, where):
+        if isinstance(spec, dict):
+            if not isinstance(node, dict) or set(node) != set(spec):
+                got = sorted(node) if isinstance(node, dict) else type(node)
+                raise ValueError(f"recsys params{where}: keys {got} != "
+                                 f"{sorted(spec)}")
+            return {k: take(v, node[k], f"{where}[{k!r}]")
+                    for k, v in spec.items()}
+        if isinstance(spec, list):
+            if not isinstance(node, (list, tuple)) or \
+                    len(node) != len(spec):
+                n = len(node) if isinstance(node, (list, tuple)) else node
+                raise ValueError(f"recsys params{where}: {n} layers != "
+                                 f"{len(spec)}")
+            return [take(v, x, f"{where}[{i}]")
+                    for i, (v, x) in enumerate(zip(spec, node))]
+        t = from_numpy(node)
+        if tuple(t.shape) != spec[0]:
             raise ValueError(f"recsys param{where}: shape {tuple(t.shape)} "
-                             f"!= {shape}")
+                             f"!= {spec[0]}")
         return t.to(device=dev, dtype=dtype)
 
-    rows = emb.table_offsets(cfg.vocab_sizes, 512)[1]
-    out = {"table": take(raw["table"], (rows, cfg.embed_dim), "['table']")}
-    for name, ds in dims.items():
-        if len(raw[name]) != len(ds) - 1:
-            raise ValueError(f"recsys params[{name!r}]: {len(raw[name])} "
-                             f"layers != {len(ds) - 1}")
-        out[name] = []
-        for i, (layer, a, b) in enumerate(zip(raw[name], ds[:-1], ds[1:])):
-            if set(layer) != {"w", "b"}:
-                raise ValueError(f"recsys params[{name!r}][{i}]: keys "
-                                 f"{sorted(layer)} != ['b', 'w']")
-            where = f"[{name!r}][{i}]"
-            out[name].append({"w": take(layer["w"], (a, b), where + "['w']"),
-                              "b": take(layer["b"], (b,), where + "['b']")})
-    return out
+    return take(_shapes(cfg), raw, "")
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
 
 
 def recsys_logits(params: dict, cfg: RecsysConfig, batch: dict) -> torch.Tensor:
-    _check_dlrm(cfg)
     cdt = torch_dtype(cfg.compute_dtype)
     table = params["table"].to(cdt)             # no copy when already cdt
     offsets = torch.from_numpy(emb.table_offsets(cfg.vocab_sizes)[0]
                                .astype("int32")).to(table.device)
-    dense = batch["dense"].to(cdt)
-    bot = _mlp(dense, params["bot"], final_act=F.relu)
-    vecs = emb.lookup_fields(table, offsets, batch["sparse"])
-    z = inter.dot_interaction(torch.cat([bot[:, None, :], vecs], dim=1))
-    z = torch.cat([bot, z], dim=-1)
-    return _mlp(z, params["top"])[:, 0]
+
+    if cfg.kind == "dlrm":
+        dense = batch["dense"].to(cdt)
+        bot = _mlp(dense, params["bot"], final_act=F.relu)
+        vecs = emb.lookup_fields(table, offsets, batch["sparse"])
+        z = inter.dot_interaction(torch.cat([bot[:, None, :], vecs], dim=1))
+        z = torch.cat([bot, z], dim=-1)
+        return _mlp(z, params["top"])[:, 0]
+
+    if cfg.kind == "deepfm":
+        vecs = emb.lookup_fields(table, offsets, batch["sparse"])
+        lin = emb.lookup_fields(params["lin_table"].to(cdt), offsets,
+                                batch["sparse"])[..., 0].sum(-1)
+        fm = inter.fm_interaction(vecs)
+        deep = _mlp(vecs.reshape(vecs.shape[0], -1), params["deep"])[:, 0]
+        return lin + fm + deep + params["bias"].to(cdt)[0]
+
+    if cfg.kind == "autoint":
+        x = emb.lookup_fields(table, offsets, batch["sparse"])
+        for lp in params["attn"]:
+            x = inter.autoint_layer(x, lp, cfg.n_attn_heads)
+        return _mlp(x.reshape(x.shape[0], -1), params["out"])[:, 0]
+
+    if cfg.kind == "dien":
+        # the reference's four takes (item and category of the history
+        # and of the target) as one lookup: ids paired on a last axis
+        # give the concatenation [item, category] of each row pair
+        b, t = batch["hist"].shape
+        pairs = [torch.stack([batch["hist"], batch["hist_cat"]], -1),
+                 torch.stack([batch["target"], batch["target_cat"]], -1)]
+        rows = emb.take_rows(table, torch.cat([x.reshape(-1)
+                                               for x in pairs]))
+        hist = rows[:2 * b * t].reshape(b, t, -1)             # (B, T, 2D)
+        tgt = rows[2 * b * t:].reshape(b, -1)                 # (B, 2D)
+        hs = inter.gru_scan(hist, params["gru"],
+                            unroll=cfg.unroll_gru)            # (B, T, H)
+        tgt_h = tgt @ params["hist_proj"].to(cdt)
+        att = inter.attention_scores(hs, tgt_h, params["att"])
+        mask = batch.get("hist_mask")
+        if mask is not None:
+            att = torch.where(mask > 0, att, -1e30)
+        att = torch.softmax(att.float(), dim=-1).to(cdt)
+        h_final = inter.augru_scan(hs, att, params["augru"],
+                                   unroll=cfg.unroll_gru)
+        z = torch.cat([h_final, tgt], dim=-1)
+        return _mlp(z, params["mlp"])[:, 0]
+
+    raise ValueError(f"{cfg.name}: unknown recsys kind {cfg.kind!r}")
+
+
+def recsys_loss(params: dict, cfg: RecsysConfig, batch: dict):
+    """The reference's stable binary cross-entropy on the logits, in
+    float32: ``max(l, 0) - l * y + log1p(exp(-|l|))``, averaged."""
+    logits = recsys_logits(params, cfg, batch).float()
+    y = batch["labels"].float()
+    loss = torch.mean(torch.maximum(logits, torch.zeros_like(logits))
+                      - logits * y + torch.log1p(torch.exp(-logits.abs())))
+    return loss, {"bce": loss}
 
 
 def recsys_scores(params: dict, cfg: RecsysConfig, batch: dict) -> torch.Tensor:
     """Serving: sigmoid CTR scores in float32."""
     return torch.sigmoid(recsys_logits(params, cfg, batch).float())
+
+
+def recsys_retrieval(params: dict, cfg: RecsysConfig, batch: dict,
+                     k: int = 100):
+    """retrieval_cand cell: one user context scored against
+    ``n_candidates`` rows of the table from ``cand_offset`` (default 0)
+    with one batched dot, the top k as (scores, ids) in ``lax.top_k``'s
+    order (``retrieval_topk``). The start is clamped into [0, R -
+    n_candidates], as ``lax.dynamic_slice_in_dim`` clamps it."""
+    cdt = torch_dtype(cfg.compute_dtype)
+    table = params["table"].to(cdt)
+    n = int(batch["n_candidates"])
+    r = table.shape[0]
+    if not 0 < n <= r:
+        raise ValueError(f"recsys_retrieval: n_candidates {n} not in "
+                         f"[1, {r}] (the table's rows)")
+    start = min(max(int(batch.get("cand_offset", 0)), 0), r - n)
+    return emb.retrieval_topk(batch["user_query"].to(cdt),
+                              table[start:start + n], k)

@@ -154,7 +154,8 @@ def test_concurrent_handles_interleave_safely(tmp_path):
     for t in threads:
         t.start()
     for t in threads:
-        t.join()
+        t.join(timeout=120)
+        assert not t.is_alive(), "a store writer did not finish in 120 s"
     assert not errs
     fresh = TS.TuningStore(d)
     assert len(fresh) == 90

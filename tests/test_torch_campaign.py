@@ -624,5 +624,6 @@ def test_launch_counts_are_exact_under_threads():
     for th in threads:
         th.start()
     for th in threads:
-        th.join()
+        th.join(timeout=120)
+        assert not th.is_alive(), "a launching thread did not finish"
     assert k.launches == n * per

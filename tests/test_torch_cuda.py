@@ -28,7 +28,12 @@ over 20 steps; the reduced f32 MoE LMs (olmoe-tiny, grok-tiny) on cuda
 against cpu within 2e-5 with equal routing, their training with the
 configs' own optimizers (losses within 2e-5, params within 1e-4, two
 cuda runs bit-equal), and a bf16 MoE layer's forward and backward
-bit-equal across two cuda runs.
+bit-equal across two cuda runs; ``embedding_bag_backward`` bit-equal to
+its plain version (the same adds in the same order, each rounded to the
+dtype), the reduced recsys zoo's scores on cuda against cpu within
+2e-5, and its training (5 steps, AdamW) within 1e-4 (losses, and params
+as the MoE LMs': every element whose nonzero gradients all reached
+1e-6), two cuda runs and the train CLI's restart bit-equal.
 """
 import dataclasses
 
@@ -1188,8 +1193,32 @@ def test_adafactor_and_compression_cuda_match_cpu(dev, what):
 # -- mixture-of-experts LMs (ROADMAP 13d) -------------------------------
 
 def _tree_to(tree, d):
-    return {k: _tree_to(v, d) if isinstance(v, dict) else v.to(d, copy=True)
-            for k, v in tree.items()}
+    """A copy of a tree (nested dicts and lists) of tensors on ``d``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, d) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, d) for v in tree]
+    return tree.to(d, copy=True)
+
+
+def _recording(opt, gmin: list, moved: list):
+    """``opt``, recording into ``gmin`` each element's smallest nonzero
+    |grad| over the steps (on the cpu) and into ``moved`` each step's
+    largest |update|."""
+    class Recording:
+        init = staticmethod(opt.init)
+
+        @staticmethod
+        def update(grads, state, params, step):
+            a = [g.abs().masked_fill(g == 0, float("inf")).cpu()
+                 for g in grads]
+            gmin[:] = a if not gmin else [x.minimum(y)
+                                          for x, y in zip(gmin, a)]
+            updates, state = opt.update(grads, state, params, step)
+            moved.append(max(u.abs().max().item() for u in updates))
+            return updates, state
+
+    return Recording
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "grok-1-314b"])
@@ -1241,22 +1270,8 @@ def _tiny_moe_train(dev, arch, steps=5):
                                 "cpu"), dev)
     opt = S._optimizer_for(a)[0]
     gmin, moved = [], []
-
-    class Recording:
-        init = staticmethod(opt.init)
-
-        @staticmethod
-        def update(grads, state, params, step):
-            a = [g.abs().masked_fill(g == 0, float("inf")).cpu()
-                 for g in grads]
-            gmin[:] = a if not gmin else [x.minimum(y)
-                                          for x, y in zip(gmin, a)]
-            updates, state = opt.update(grads, state, params, step)
-            moved.append(max(u.abs().max().item() for u in updates))
-            return updates, state
-
     state = opt.init(S.lm_param_leaves(params))
-    step_fn = S.lm_train_step(cfg, Recording)
+    step_fn = S.lm_train_step(cfg, _recording(opt, gmin, moved))
     losses = []
     for step in range(steps):
         batch = S._lm_train_batch(cfg, 4, 64, step + 1, dev)
@@ -1332,3 +1347,171 @@ def test_moe_ffn_bf16_cuda_is_deterministic_and_matches_cpu(dev, router):
     c, _ = run("cpu")
     torch.testing.assert_close(a[0].float(), c[0].float(), atol=2e-2,
                                rtol=2e-2)
+
+
+# -- the recsys zoo and its training (ROADMAP 13e) --------------------------
+
+
+def _bwd_case(dev, r, d, n, dtype, id_dtype, seed):
+    """ids over [-r - 3, r + 3): wrapped and out-of-range ones, and a
+    hot row (row 1) taking about half of them; a normal gradient."""
+    from repro_torch.kernels.embedding_bag.ref import (
+        embedding_bag_backward_ref)
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(-r - 3, r + 3, (n,), generator=g, device=dev)
+    hot = torch.rand((n,), generator=g, device=dev) < 0.5
+    ids = torch.where(hot, torch.ones_like(ids), ids).to(id_dtype)
+    grad = torch.randn((n, d), generator=g, device=dev).to(dtype)
+    before = eb.BACKWARD.launches
+    got = eb.embedding_bag_backward(grad, ids, r)
+    assert eb.BACKWARD.launches == before + 1
+    want = embedding_bag_backward_ref(grad, ids, r)
+    assert got.dtype == dtype and got.shape == (r, d)
+    return got, want
+
+
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 10, 16, 18, 128])
+def test_embedding_bag_backward_kernel_vs_plain(dev, d, dtype, id_dtype):
+    """Bit-equal to the plain version (the same adds in the same order,
+    rounded to the dtype after each), on the scalar and the 16-byte
+    paths, with wrapped, dropped and hot ids."""
+    for r, n, seed in ((37, 500, 0), (5000, 40_000, 1)):
+        got, want = _bwd_case(dev, r, d, n, dtype, id_dtype, seed)
+        assert torch.equal(got, want), (r, n)
+
+
+def test_embedding_bag_backward_kernel_edges(dev):
+    """No ids (the memset alone), every id dropped, a run longer than a
+    chunk of every width, and the bits equal across two launches."""
+    z = eb.embedding_bag_backward(torch.randn((0, 8), device=dev),
+                                  torch.zeros(0, dtype=torch.int64,
+                                              device=dev), 6)
+    assert z.shape == (6, 8) and not z.any()
+    drop = eb.embedding_bag_backward(
+        torch.randn((3, 8), device=dev),
+        torch.tensor([9, -9, 6], device=dev), 6)
+    assert not drop.any()
+    ids = torch.zeros(100_000, dtype=torch.int32, device=dev)
+    ids[::7] = 3
+    grad = torch.randn((100_000, 10), device=dev).to(torch.bfloat16)
+    a = eb.embedding_bag_backward(grad, ids, 4)
+    b = eb.embedding_bag_backward(grad, ids, 4)
+    from repro_torch.kernels.embedding_bag.ref import (
+        embedding_bag_backward_ref)
+    assert torch.equal(a, b)
+    assert torch.equal(a, embedding_bag_backward_ref(grad, ids, 4))
+    with pytest.raises(ValueError, match="one device"):
+        eb.embedding_bag_backward(grad, ids.cpu(), 4)
+
+
+def test_lookup_autograd_launches_both_kernels(dev):
+    """``lookup`` on the card: one forward and one backward launch, the
+    rows equal to the gather and the table gradient to the plain
+    backward's."""
+    from repro_torch.kernels.embedding_bag.ref import (
+        embedding_bag_backward_ref)
+
+    table = torch.randn((300, 16), device=dev).to(torch.bfloat16)
+    table.requires_grad_(True)
+    ids = torch.randint(0, 300, (5000,), device=dev, dtype=torch.int32)
+    w = torch.randn((5000, 16), device=dev).to(torch.bfloat16)
+    f0, b0 = eb.KERNEL.launches, eb.BACKWARD.launches
+    rows = eb.lookup(table, ids)
+    (g,) = torch.autograd.grad(rows, table, w)
+    assert (eb.KERNEL.launches, eb.BACKWARD.launches) == (f0 + 1, b0 + 1)
+    assert torch.equal(rows, table.detach()[ids.long()])
+    assert torch.equal(g, embedding_bag_backward_ref(w, ids, 300))
+
+
+def _tiny_recsys_train(dev, arch, steps=5):
+    """The reduced f32 config from one cpu init, ``steps`` of
+    ``recsys_train_step`` with its optimizer on ``dev``: (losses, final
+    leaves, each element's smallest nonzero |grad|, all on the cpu, and
+    the sum over the steps of the largest |update|)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs as S
+    from repro_torch.models.recsys import models as M
+
+    a = get_config(arch).reduced()
+    cfg = a.model
+    params = _tree_to(M.init_recsys(cfg, torch.Generator().manual_seed(0),
+                                    "cpu"), dev)
+    opt = S._optimizer_for(a)[0]
+    gmin, moved = [], []
+    state = opt.init(S.recsys_param_leaves(params))
+    step_fn = S.recsys_train_step(cfg, _recording(opt, gmin, moved))
+    losses = []
+    for step in range(steps):
+        batch = S._recsys_batch(cfg, 64, step + 1, dev)
+        _, state, loss = step_fn(params, state, step, batch)
+        losses.append(float(loss))
+    return (losses, [p.cpu() for p in S.recsys_param_leaves(params)], gmin,
+            sum(moved))
+
+
+@pytest.mark.parametrize("arch", ["deepfm", "autoint", "dien",
+                                  "dlrm-mlperf"])
+def test_tiny_recsys_training_cuda_matches_cpu_and_repeats(dev, arch):
+    """Five steps of the reduced f32 config: losses within 1e-4 of the
+    cpu run and params within 1e-4 at every element whose nonzero
+    gradients all reached 1e-6 (AdamW's step does not scale with the
+    gradient, so the rest are held to the most one element moved); one
+    backward launch per table a step; two cuda runs bit-equal (both
+    table kernels add in a fixed order)."""
+    b0 = eb.BACKWARD.launches
+    lc, pc, _, _ = _tiny_recsys_train(dev, arch)
+    n_tables = 2 if arch == "deepfm" else 1
+    assert eb.BACKWARD.launches == b0 + 5 * n_tables
+    lh, ph, gmin, moved = _tiny_recsys_train("cpu", arch)
+    np.testing.assert_allclose(lc, lh, atol=1e-4, rtol=0)
+    for a, b, g in zip(pc, ph, gmin):
+        held = g >= 1e-6
+        if held.any():
+            assert (a - b).abs()[held].max().item() <= 1e-4
+        if (~held).any():
+            assert (a - b).abs()[~held].max().item() <= moved
+    lc2, pc2, _, _ = _tiny_recsys_train(dev, arch)
+    assert lc == lc2 and all(torch.equal(a, b) for a, b in zip(pc, pc2))
+
+
+@pytest.mark.parametrize("arch", ["deepfm", "autoint", "dien"])
+def test_small_zoo_scores_cuda_match_cpu(dev, arch):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import _recsys_batch
+    from repro_torch.models.recsys import models as M
+
+    cfg = get_config(arch).reduced().model
+    host = M.init_recsys(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = _recsys_batch(cfg, 300, 1, device="cpu")
+    before = eb.KERNEL.launches
+    got = M.recsys_scores(_tree_to(host, dev), cfg,
+                          {k: v.to(dev) for k, v in batch.items()})
+    assert eb.KERNEL.launches == before + (2 if arch == "deepfm" else 1)
+    want = M.recsys_scores(host, cfg, batch)
+    torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=0)
+
+
+def test_recsys_train_main_restart_is_bit_exact_on_cuda(dev, tmp_path):
+    """``launch.train.main --arch deepfm --reduced`` on cuda: 6 steps
+    against 3, a checkpoint and a resume to 6, bit-equal."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.launch import train
+
+    def main(*extra):
+        return train.main(["--arch", "deepfm", "--shape", "train_batch",
+                           "--reduced", "--log-every", "100", "--device",
+                           "cuda", *extra])
+
+    full = main("--steps", "6", "--ckpt-dir", str(tmp_path / "full"),
+                "--ckpt-every", "100")
+    assert main("--steps", "3", "--ckpt-dir", str(tmp_path / "ck"),
+                "--ckpt-every", "3") == full[:3]
+    assert main("--steps", "6", "--ckpt-dir", str(tmp_path / "ck")) == \
+        full[3:]
+    a = ckpt._flatten(ckpt.restore(str(tmp_path / "full"), device="cpu")[1])
+    b = ckpt._flatten(ckpt.restore(str(tmp_path / "ck"), device="cpu")[1])
+    assert [p for p, _ in a] == [p for p, _ in b]
+    assert all(torch.equal(x, y) for (_, x), (_, y) in zip(a, b))

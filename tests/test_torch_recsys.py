@@ -1,5 +1,6 @@
 """The port's DLRM serve path (``repro_torch.models.recsys``) and its
-``embedding_bag`` op against the JAX package on the CPU.
+``embedding_bag`` op (the other recsys kinds, training and retrieval are
+in ``tests/test_torch_recsys_zoo.py``) against the JAX package on the CPU.
 
 The JAX DLRM's params (``init_recsys``, unwrapped to numpy) are carried
 across with ``recsys_from_jax_params``; batches come from the JAX
@@ -106,11 +107,12 @@ def test_recsys_batch_copy_equals_jax(arch, b, seed):
 
 
 def test_recsys_batch_copy_equals_jax_for_dien():
-    """The history branch, on the JAX package's DIEN config (the port
-    has no DIEN config yet; the function reads only its fields)."""
+    """The history branch, on each package's own DIEN config."""
     cfg = j_get_config("dien").reduced().model
+    tcfg = get_config("dien").reduced().model
+    assert repr(cfg) == repr(tcfg)
     want = j_recsys_batch(cfg, 24, False, 2)
-    got = _recsys_batch(cfg, 24, 2, device="cpu")
+    got = _recsys_batch(tcfg, 24, 2, device="cpu")
     assert set(got) == set(want) and "hist_cat" in got
     for k in want:
         assert got[k].numpy().dtype == np.asarray(want[k]).dtype, k
@@ -339,8 +341,8 @@ def test_dlrm_init_and_param_checks():
     bad = dict(raw, table=raw["table"][:-1])
     with pytest.raises(ValueError, match="table"):
         TM.recsys_from_jax_params(bad, tcfg, "cpu")
-    deepfm = RecsysConfig(name="deepfm", kind="deepfm", n_dense=0,
-                          n_sparse=2, embed_dim=4, vocab_sizes=(5, 6),
-                          mlp=(8,))
-    with pytest.raises(NotImplementedError, match="13e"):
-        TM.init_recsys(deepfm, torch.Generator(), "cpu")
+    wide = RecsysConfig(name="wide", kind="wide-and-deep", n_dense=0,
+                        n_sparse=2, embed_dim=4, vocab_sizes=(5, 6),
+                        mlp=(8,))
+    with pytest.raises(ValueError, match="unknown recsys kind"):
+        TM.init_recsys(wide, torch.Generator(), "cpu")

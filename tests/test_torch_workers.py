@@ -51,6 +51,7 @@ from repro_torch.data.synthetic import CorpusConfig, generate_corpus
 from repro_torch.launch import serve as TS
 from repro_torch.launch import worker_main as WM
 from repro_torch.models.encoder import init_encoder
+from torch_spawn_env import ignore_sigterm_then_sleep
 from torch_spawn_env import one_thread_workers  # noqa: F401
 
 CPU = "cpu"
@@ -574,3 +575,82 @@ def test_workers_exit_when_their_coordinator_dies():
     while any(_alive(p) for p in pids) and time.time() < deadline:
         time.sleep(0.2)
     assert not any(_alive(p) for p in pids), pids
+
+
+def test_drain_raises_when_no_task_moves(monkeypatch):
+    """A drain whose open task never returns while its worker keeps
+    beating (never quieted, so never re-issued) fails with the open
+    tasks, their workers and the heartbeat ages once ``DRAIN_STALL_S``
+    passes without a ``BatchDone`` or a sent task, instead of waiting
+    for ever."""
+    pool = TW.ProcessWorkerPool.__new__(TW.ProcessWorkerPool)
+    task = TW._TaskState.__new__(TW._TaskState)
+    task.current = {1}
+    pool._tasks, pool._open = {7: task}, {7}
+    pool.n_nodes, pool._beat = 2, [time.time()] * 2
+    pool._dead, pool._quiet = set(), set()
+    monkeypatch.setattr(TW.ProcessWorkerPool, "DRAIN_STALL_S", 0.05)
+    pool._progress_t = time.time()
+    pool._check_stall()                     # within the limit: nothing
+    time.sleep(0.1)
+    with pytest.raises(RuntimeError, match=r"no progress.*\{7: \[1\]\}"):
+        pool._check_stall()
+
+
+def test_reap_terminates_then_kills_what_outlives_its_close():
+    """``reap`` joins within one deadline, then terminates, then kills a
+    worker that ignores SIGTERM: none outlives its pool's ``close``."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    ready = ctx.Event()
+    done = ctx.Process(target=time.sleep, args=(0,))
+    stubborn = ctx.Process(target=ignore_sigterm_then_sleep, args=(ready,))
+    done.start()
+    stubborn.start()
+    assert ready.wait(timeout=120), "the child did not start in 120 s"
+    t0 = time.time()
+    TW.reap([done, stubborn], wait_s=0.5)
+    assert time.time() - t0 < 30
+    assert not done.is_alive() and not stubborn.is_alive()
+    assert done.exitcode == 0 and stubborn.exitcode == -9
+
+
+def test_injected_crash_frees_the_shared_result_queue(monkeypatch):
+    """An injected crash exits only after its heartbeat thread has
+    stopped and the result queue's feeder has written out what it held,
+    so the queue's write lock, which every worker shares, is free: a
+    worker that exits with it held stops every other worker's replies
+    and heartbeats, and the drain waits (fault 3i)."""
+    import multiprocessing as mp
+    import queue as queue_lib
+    import threading
+
+    q = mp.get_context("spawn").Queue()
+    stop, done = threading.Event(), threading.Event()
+
+    def beat():
+        while not stop.wait(0.0005):
+            q.put(b"x" * 4096)
+
+    def read():                              # the coordinator's reads
+        while not done.is_set():
+            try:
+                q.get(timeout=0.1)
+            except queue_lib.Empty:
+                pass
+
+    beat_t = threading.Thread(target=beat, daemon=True)
+    reader = threading.Thread(target=read, daemon=True)
+    beat_t.start()
+    reader.start()
+    time.sleep(0.3)
+    exits = []
+    monkeypatch.setattr(WM.os, "_exit", exits.append)
+    WM._crash_exit(q, stop, beat_t)
+    assert exits == [3] and not beat_t.is_alive()
+    assert q._wlock.acquire(timeout=5), "the write lock stayed taken"
+    q._wlock.release()
+    done.set()
+    reader.join(timeout=10)
+    assert not reader.is_alive()

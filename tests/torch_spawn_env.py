@@ -9,8 +9,14 @@ host runs many times more compute threads than it has cores, and
 heartbeat-timed cases stretch. ``one_thread_workers`` sets both
 variables for a test module (workers inherit the environment) and
 restores them afterwards; import it into the module to apply it.
+
+``ignore_sigterm_then_sleep`` is a spawn target for the tests of a
+pool's reaping: a worker that ignores SIGTERM. It lives here, a module
+that imports no JAX, so that the spawned child starts in a second.
 """
 import os
+import signal
+import time
 
 import pytest
 
@@ -29,3 +35,10 @@ def one_thread_workers():
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def ignore_sigterm_then_sleep(ready) -> None:
+    """Ignore SIGTERM, set ``ready``, then sleep ten minutes."""
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    ready.set()
+    time.sleep(600)
