@@ -37,7 +37,9 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    and of AutoInt, D = 16), embedding_bag_backward (the table gradient
    of bags of one, bit-equal to its plain version, at DeepFM's, AutoInt's
    and DIEN's train_batch lookups, beside
-   ``torch.ops.aten.embedding_dense_backward``), segment_mm (``ogb_products``:
+   ``torch.ops.aten.embedding_dense_backward``; and as equiformer's
+   ``ops.segment_sum`` at minibatch_lg's message aggregation, 168,960
+   (49 x 128) bf16 rows into 169,984 nodes, beside ``index_add_``), segment_mm (``ogb_products``:
    N=2,449,029, E=61,859,140, 100 -> 128, f32; timed beside
    ``torch.matmul`` then ``index_add_``). ``ms`` is the CUDA-event median
    of one launch (host time included for a small kernel: the first event
@@ -180,9 +182,9 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    of 2 x 4096 (``train_4k`` is global batch 256 x 4096; cut to one
    card): one warm-up step and 3 timed steps (seeds 1-4): ms a step,
    tokens/s, peak GB, the losses, model TFLOP/s (6 x matmul params x
-   tokens plus 3 x the causal attention) against 989 TFLOP/s bf16, and a
-   torch.profiler pass over one step (busy share, top kernels,
-   ``cudaLaunchKernel`` calls). Holds: finite losses, the first within
+   tokens plus 3 x the causal attention) against 989 TFLOP/s bf16 (no
+   profiled step: its aggregation took 61 s of the run's limit;
+   ``reduced`` says so). Holds: finite losses, the first within
    2.0 of ln V and within 1e-2 relative of a no-grad float32 forward of
    the same params and batch, every parameter leaf moved by the first
    step, and no flash_attention launch (training attends through
@@ -270,6 +272,29 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    2e-5; 5 train steps, losses within 1e-4 and params within 1e-4 (the
    elements a gradient below 1e-6 reached held to the most one element
    moved), two cuda trainings bit-equal.
+19e. gnn_train: full-width bf16 ``equiformer-v2`` (12 layers, C = 128,
+   l_max 6, m_max 2, 8 heads; 72.57 M params at Reddit's d_in; random
+   weights from a seeded CUDA generator) trained through
+   ``launch.specs.gnn_train_step`` (remat, ``chain_clip(adamw(3e-4,
+   0.1), 1.0)``) on ``_gnn_batch`` batches of the reference's cells:
+   minibatch_lg (N = 169,984, E = 168,960; batch_nodes cut only if the
+   peak reckoned from two small steps does not fit) one warm-up and 3
+   timed steps, full_graph_sm and molecule a warm-up and one timed step
+   each: ms a step, model TFLOP/s (3x the forward's matmul FLOPs, the
+   remat recompute not counted) against 989 TFLOP/s bf16, peak GB,
+   finite losses, every leaf moved, exactly 8 embedding_bag and 8
+   embedding_bag_backward launches a layer a step (one more for the
+   pooled readout), and a torch.profiler pass over one step per cell
+   (busy share, top device ops); ogb_products refused by the train CLI
+   with its reckoning (a 776 GB edge tensor).
+19f. gnn_small_parity: eq-tiny (f32) at the reduced full_graph_sm and
+   molecule cells on cuda against cpu (forward, loss, every gradient
+   within 2e-5; three AdamW steps, losses within 2e-5 and params within
+   2e-5 as ``param_gap`` holds them), two cuda trainings bit-equal;
+   rotation and translation invariance on cuda within 5e-5 (the JAX
+   test's bar and graph size); the full-width bf16 forward at molecule
+   on cuda against the port's cpu path, within 2e-2 of the output's
+   largest magnitude.
 20. gnn: ``segment_matmul(x, src, dst, w, n_nodes)`` at ``ogb_products``
    (uniform random edges from a seeded CUDA generator, d_out 128, f32):
    a torch.profiler pass over the first (cold, uncounted) step at full
@@ -288,6 +313,7 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1180,6 +1206,77 @@ def check_embedding_bag_backward(dev) -> list[dict]:
         del grad, ids, ids64, run_key, run_start, perm, out
         free_cuda()
     return rows
+
+
+def check_segment_sum(dev) -> list[dict]:
+    """Row 6d: ``embedding_bag_backward`` as equiformer's segment sum
+    (``ops.segment_sum``) at minibatch_lg's message aggregation: the
+    168,960 edges' (49 x 128) bf16 messages summed into 169,984 nodes by
+    the cell's seed-1 ``dst``, bit-equal to the plain version (the same
+    adds in the same order). ``ms`` is the wrapper (the ids' map past
+    the end, sort and runs, then the entry), ``kernel_ms`` the C entry
+    alone, ``ms_device`` the entry back to back; ``index_add_`` (atomics)
+    is timed beside it as the yardstick the port never calls on this
+    path."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.embedding_bag import ops, ref
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.kernel_timing import device_ms
+
+    arch = get_config("equiformer-v2")
+    shape = arch.shape("minibatch_lg")
+    n, e = S._gnn_dims(shape)
+    d = 49 * arch.model.d_hidden
+    ids = S._gnn_batch(shape, 1, dev)["dst"]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    msgs = torch.randn((e, d), generator=g, device=dev).to(torch.bfloat16)
+    before = ops.BACKWARD.launches
+    got = ops.segment_sum(msgs, ids, n)
+    assert ops.BACKWARD.launches == before + 1
+    want = ref.embedding_bag_backward_ref(msgs, ids, n)
+    torch.cuda.synchronize()
+    # tolerance: none (the plain version's adds, in its order)
+    assert torch.equal(got, want), \
+        f"segment_sum: max err {(got.float() - want.float()).abs().max()}"
+    del got, want
+    run_key, run_start, perm = ops.sorted_runs(ids, n)
+    touched = int(run_key.numel())
+    max_run = int((run_start[1:] - run_start[:-1]).max())
+    out = torch.empty((n, d), dtype=torch.bfloat16, device=dev)
+
+    def entry():
+        ops.BACKWARD(msgs.data_ptr(), 1, n, d, run_key.data_ptr(),
+                     run_start.data_ptr(), perm.data_ptr(), touched, 1,
+                     out.data_ptr(), cuda_lib.stream_of(dev))
+
+    ms = time_ms(lambda: ops.segment_sum(msgs, ids, n), reps=10, warmup=2)
+    kernel_ms = time_ms(entry, reps=10, warmup=2)
+    ms_device = device_ms(entry)
+    plain_ms = time_ms(lambda: ref.embedding_bag_backward_ref(msgs, ids, n),
+                       reps=3, warmup=1)
+    ids64 = ids.long()
+    lib_ms = time_ms(lambda: torch.zeros((n, d), dtype=torch.bfloat16,
+                                         device=dev).index_add_(0, ids64,
+                                                                msgs),
+                     reps=10, warmup=2)
+    # the messages read once, the ids once, the (N, D) sums written once
+    nbytes = msgs.numel() * 2 + ids.numel() * ids.element_size() + n * d * 2
+    b_ms, b_by = bound(nbytes)
+    del msgs, ids, ids64, run_key, run_start, perm, out
+    free_cuda()
+    return [dict(
+        name="embedding_bag_backward", row="equiformer_aggregation",
+        shape=dict(table="equiformer-v2 minibatch_lg messages",
+                   table_rows=n, d=d, dtype="bfloat16", ids=e,
+                   id_dtype="int32", vec16=True, touched_rows=touched,
+                   longest_run=max_run),
+        tolerance=0.0, max_abs_err=0.0, ms=ms, kernel_ms=kernel_ms,
+        ms_device=ms_device, plain_ms=plain_ms, library_ms=lib_ms,
+        library="torch.Tensor.index_add_ (atomics)", bound_ms=b_ms,
+        bound_by=b_by, bytes=nbytes)]
 
 
 def gnn_inputs(dev):
@@ -2917,15 +3014,6 @@ LM_TRAIN_BATCH = 2       # cut from train_4k's 256 (the TPU pod's global
 LM_TRAIN_STEPS = 3       # timed steps, after one warm-up step
 LM_SMALL_STEPS = 5       # lm_train_small_parity: steps a device
 OPT_SMALL_STEPS = 20     # Adafactor and compression: steps a device
-# the training step's device time by kernel kind (first match wins):
-# float32 GEMMs (xla_flash's score and PV products; TF32 is off), the
-# other GEMMs (bf16), dtype casts and copies, reductions, and the other
-# elementwise kernels
-LM_TRAIN_SPLIT = {"gemm_f32": r"sgemm|f32f32_f32",
-                  "gemm_bf16": r"gemm|nvjet|cutlass",
-                  "copy": r"copy",
-                  "reduce": r"reduce",
-                  "elementwise": r"elementwise"}
 
 
 def lm_train_flops(cfg, b: int, s: int) -> float:
@@ -2970,7 +3058,7 @@ def phase_lm_train() -> dict:
     opt_state = opt.init(leaves)
     step_fn = S.lm_train_step(cfg, opt)
     batches = [S._lm_train_batch(cfg, b, s, seed, dev) for seed in
-               range(1, LM_TRAIN_STEPS + 3)]
+               range(1, LM_TRAIN_STEPS + 2)]
     # the first loss against a no-grad float32 forward of the same params
     with torch.no_grad():
         f32_loss, f32_s = synced(lambda: float(T.lm_loss(
@@ -3002,15 +3090,6 @@ def phase_lm_train() -> dict:
     assert rel_f32 <= 1e-2, (losses[0], f32_loss)
     assert not unchanged, f"leaves {unchanged} did not move in a step"
     assert counts["flash_attention"] == 0, counts   # xla_flash, as JAX
-
-    def profiled():
-        nonlocal opt_state
-        _, opt_state, _ = step_fn(params, opt_state, LM_TRAIN_STEPS + 1,
-                                  batches[-1])
-
-    t0 = time.perf_counter()
-    prof = device_profile(profiled, top=25, split=LM_TRAIN_SPLIT)
-    profile_s = time.perf_counter() - t0
     ms = statistics.median(step_s) * 1e3
     flops = lm_train_flops(cfg, b, s)
     emit({"phase": "lm_train", "config": cfg.name, "card": card_line(),
@@ -3019,18 +3098,20 @@ def phase_lm_train() -> dict:
           "attention_impl": cfg.attention_impl, "remat": cfg.remat,
           "reduced": f"batch {b} x {s} where train_4k is global batch "
                      f"256 x 4096 (no gradient accumulation, as in the "
-                     f"reference); full width and depth; random weights",
+                     f"reference); full width and depth; random weights; "
+                     f"no profiled step (its ~70,000 events took 61 s to "
+                     f"aggregate, which the run's limit cannot spare; "
+                     f"PERF.md keeps an earlier run's split)",
           "launches": counts, "first_step_ms": first_s * 1e3,
           "step_ms": [x * 1e3 for x in step_s], "ms_per_step": ms,
           "tokens_per_s": b * s / (ms / 1e3), "peak_gb": peak_gb,
           "losses": losses, "f32_forward_loss": f32_loss,
           "first_loss_rel_diff_vs_f32": rel_f32,
-          "f32_forward_s": f32_s, "profile_s": profile_s,
+          "f32_forward_s": f32_s,
           "phase_s": time.perf_counter() - phase_t0,
           "model_tflop_per_step": flops / 1e12,
           "model_tflops": flops / (ms / 1e3) / 1e12,
-          "share_of_989_bf16": flops / (ms / 1e3) / BF16_OPS_PER_S,
-          "profile": prof})
+          "share_of_989_bf16": flops / (ms / 1e3) / BF16_OPS_PER_S})
     del params, opt_state, leaves, batches
     free_cuda()
     return counts
@@ -4170,6 +4251,435 @@ def phase_recsys_zoo_small_parity() -> None:
                         "param_atol": 1e-4}})
 
 
+# -------------------------------------------------------------- equiformer
+
+
+GNN_ARCH = "equiformer-v2"
+GNN_TRAIN_STEPS = 3            # timed minibatch_lg steps, after a warm-up
+GNN_PROBE_BATCH_NODES = (64, 128)  # the steps whose peaks reckon
+#                                    minibatch_lg's
+GNN_SPLIT = {"embedding_bag_backward": r"bag_backward_kernel",
+             "embedding_bag": r"bag_kernel|embedding_bag",
+             "gemm": r"gemm|cutlass|nvjet|sm90_xmma|wgmma",
+             "elementwise": r"elementwise|vectorized|unrolled",
+             "reduce": r"reduce_kernel|Reduce"}
+
+
+def gnn_forward_flops(cfg, n: int, e: int) -> float:
+    """Matmul FLOPs of one equiformer forward over N nodes and E edges,
+    worked out from ``models/gnn/equiformer.py`` (2 a multiply-add):
+    per edge and layer, the rotations into the edge frame of source and
+    target (the kept rows of each D_l: sum_l k_l (2l+1) C each) and back
+    (once), the SO(2) maps (m = 0: one (n_l 2C x n_l C) product; m > 0:
+    four), the radial MLP and the attention logits; per node and layer,
+    the two gate products and the two per-l FFN products; the embedding
+    and the readout once. Elementwise work, norms and the segment sums
+    are not counted."""
+    C, L, H, R = cfg.d_hidden, cfg.n_layers, cfg.n_heads, cfg.n_radial
+    n_lm = (cfg.l_max + 1) ** 2
+    rot = sum((2 * min(l, cfg.m_max) + 1) * (2 * l + 1)
+              for l in range(cfg.l_max + 1)) * C
+    so2 = sum((1 if m == 0 else 4) * (cfg.l_max - m + 1) ** 2 * 2 * C * C
+              for m in range(cfg.m_max + 1))
+    per_edge = 3 * rot + so2 + R * 2 * C + 2 * C * (cfg.m_max + 1) * C \
+        + (C + R) * H
+    per_node = 2 * C * cfg.l_max * C + 2 * n_lm * C * C
+    head = n * (cfg.d_in * C + C * C + C * cfg.n_out)
+    return 2.0 * (L * (e * per_edge + n * per_node) + head)
+
+
+def gnn_expected_launches(cfg, pooled: bool) -> dict:
+    """Launches of one remat training step: each layer's forward (run
+    again in the backward) gathers source and target features and takes
+    the two per-l FFN weights (4 embedding_bag) and sums the softmax
+    denominators and the messages (2 embedding_bag_backward); the
+    backward adds the four lookups' gradients (4 embedding_bag_backward);
+    a pooled readout sums once more."""
+    return {"embedding_bag": 8 * cfg.n_layers,
+            "embedding_bag_backward": 8 * cfg.n_layers + int(pooled)}
+
+
+def gnn_train_run(arch, shape, steps: int, dev, profile: bool = True):
+    """``steps`` + 1 ``gnn_train_step``s (the first a warm-up) of the
+    full-width cell at ``shape``, seeds 1.. as the train CLI draws them,
+    from a seeded init on the card: a dict of per-step ms, losses, peak
+    GB of the timed steps, their launches, host seconds to draw a batch,
+    leaves that did not move, and a profiled step. The next batch's
+    numpy draws run on a host thread while a step runs on the card; its
+    copy to the card is made on this thread, between steps."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import specs as S
+    from repro_torch.models.gnn import equiformer as E
+
+    cfg = S.gnn_cell_config(arch, shape)
+    params = E.init_equiformer(cfg, torch.Generator(device=dev)
+                               .manual_seed(SEED), dev)
+    leaves = S.gnn_param_leaves(params)
+    before = [p.clone() for p in leaves]
+    opt = S._optimizer_for(arch)[0]
+    state = opt.init(leaves)
+    step_fn = S.gnn_train_step(cfg, opt)
+    walls, losses, batch_s = [], [], []
+
+    def draw(seed):
+        t0 = time.perf_counter()
+        arrays = S.gnn_batch_arrays(shape, seed)
+        return arrays, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    with ThreadPoolExecutor(1) as pool:
+        nxt = pool.submit(draw, 1)
+        for step in range(steps + 1):
+            arrays, sec = nxt.result()
+            if step < steps:
+                nxt = pool.submit(draw, step + 2)
+            batch_s.append(sec)
+            batch = {k: torch.from_numpy(v).to(dev)
+                     if isinstance(v, np.ndarray) else v
+                     for k, v in arrays.items()}
+            del arrays
+            if step == 1:
+                reset_counts()
+                torch.cuda.reset_peak_memory_stats()
+            (_, state, loss), wall = synced(
+                lambda: step_fn(params, state, step, batch))
+            losses.append(float(loss))
+            if step:
+                walls.append(wall * 1e3)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    still = [i for i, (a, b) in enumerate(zip(before, leaves))
+             if torch.equal(a, b)]
+    del before
+    prof = None
+    if profile:
+        free_cuda()
+        prof = device_profile(lambda: step_fn(params, state, steps + 1,
+                                              batch), top=8, split=GNN_SPLIT)
+    del params, state, step_fn, batch, leaves
+    free_cuda()
+    return {"cfg": cfg, "ms": walls, "losses": losses, "peak_gb": peak,
+            "counts": counts, "batch_s": batch_s, "unmoved_leaves": still,
+            "profile": prof}
+
+
+def phase_gnn_train() -> dict:
+    """Full-width bf16 equiformer-v2 training through
+    ``launch.specs.gnn_train_step`` (remat, chain_clip(adamw(3e-4, 0.1),
+    1.0)) at minibatch_lg (one warm-up and 3 timed steps; batch_nodes
+    cut only if the peak reckoned from a 128-seed step does not fit),
+    full_graph_sm and molecule (a warm-up and one timed step each): ms a
+    step, model TFLOP/s (3x the forward's matmul FLOPs; the remat
+    recompute not counted), peak GB, finite losses, every leaf moved,
+    the exact embedding_bag / embedding_bag_backward launches a step, a
+    profiled step's busy share and top device ops; ogb_products refused
+    by the train CLI with its reckoning."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import specs as S
+    from repro_torch.launch import train
+    from repro_torch.models.gnn import equiformer as E
+
+    phase_t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    arch = get_config(GNN_ARCH)
+    m = arch.model
+    assert (m.n_layers, m.d_hidden, m.l_max, m.m_max, m.n_heads,
+            m.param_dtype, m.remat) == (12, 128, 6, 2, 8, "bfloat16",
+                                        True), m
+    total = dict.fromkeys(kernels(), 0)
+    out, reduced = {}, {}
+    # minibatch_lg: the activations scale with batch_nodes (N and E are
+    # both 166 x it), so the peaks of two small steps reckon the full one
+    full = arch.shape("minibatch_lg")
+
+    def at(bn):
+        return ShapeConfig(full.name, full.kind,
+                           dict(full.dims, batch_nodes=bn), full.note)
+
+    free_cuda()
+    peaks = [gnn_train_run(arch, at(bn), 0, dev, profile=False)["peak_gb"]
+             * 1e9 for bn in GNN_PROBE_BATCH_NODES]
+    lo, hi = GNN_PROBE_BATCH_NODES
+    per_seed = (peaks[1] - peaks[0]) / (hi - lo)
+    fixed = peaks[0] - per_seed * lo
+    budget = 0.92 * torch.cuda.mem_get_info()[1]
+    bn = full["batch_nodes"]
+    while bn > hi and fixed + per_seed * bn > budget:
+        bn //= 2
+    reckon = {"probe_batch_nodes": list(GNN_PROBE_BATCH_NODES),
+              "probe_peak_gb": [x / 1e9 for x in peaks],
+              "bytes_a_seed_node": per_seed, "fixed_gb": fixed / 1e9,
+              "reckoned_peak_gb_at_1024": (fixed + per_seed * 1024) / 1e9,
+              "budget_gb": budget / 1e9}
+    reduced["minibatch_lg"] = (
+        dict(reckon, why="none: batch_nodes 1024 (N = 169,984, E = "
+             "168,960), full width and depth; uniform random edges and "
+             "features as the reference's cell draws them")
+        if bn == full["batch_nodes"] else
+        dict(reckon, batch_nodes=bn, why=f"batch_nodes cut to {bn}: the "
+             f"peak reckoned at 1024 exceeds {budget / 1e9:.0f} GB"))
+    cells = [(at(bn), GNN_TRAIN_STEPS),
+             (arch.shape("full_graph_sm"), 1), (arch.shape("molecule"), 1)]
+    for shape, steps in cells:
+        run = gnn_train_run(arch, shape, steps, dev)
+        cfg = run["cfg"]
+        n, e = S._gnn_dims(shape)
+        pooled = shape.name == "molecule"
+        assert all(math.isfinite(x) for x in run["losses"]), run["losses"]
+        assert not run["unmoved_leaves"], run["unmoved_leaves"]
+        want = {k: v * steps for k, v in
+                gnn_expected_launches(cfg, pooled).items()}
+        got = {k: v for k, v in run["counts"].items() if v}
+        assert got == want, (shape.name, got, want)
+        for k, v in run["counts"].items():
+            total[k] += v
+        ms = statistics.median(run["ms"])
+        flops = 3 * gnn_forward_flops(cfg, n, e)
+        out[shape.name] = {
+            "n_nodes": n, "n_edges": e, "d_in": cfg.d_in, "n_out": cfg.n_out,
+            "n_params": E.equiformer_param_count(cfg), "steps": steps,
+            "ms_a_step": ms, "ms_steps": run["ms"],
+            "losses": run["losses"], "peak_gb": run["peak_gb"],
+            "batch_host_s": run["batch_s"],
+            "launches_a_step": {k: v // steps for k, v in got.items()},
+            "model_tflop_a_step": flops / 1e12,
+            "model_tflops": flops / (ms / 1e3) / 1e12,
+            "share_of_989_bf16": flops / (ms / 1e3) / BF16_OPS_PER_S,
+            "profile": run["profile"]}
+    shp = arch.shape("ogb_products")
+    why = S.gnn_refusal(S.gnn_cell_config(arch, shp), shp)
+    try:
+        train.main(["--arch", GNN_ARCH, "--shape", "ogb_products",
+                    "--steps", "1"])
+        raise AssertionError("ogb_products was not refused")
+    except ValueError as err:
+        assert why and why in str(err), (why, str(err))
+    assert "776 GB" in why, why
+    reduced["ogb_products"] = f"not run: {why}"
+    emit({"phase": "gnn_train", "config": GNN_ARCH, "card": card_line(),
+          "optimizer": "chain_clip(adamw(3e-4, weight_decay=0.1), 1.0)",
+          "dtype": "bfloat16", "remat": True, "cells": out,
+          "launches": total, "reduced": reduced,
+          "phase_s": time.perf_counter() - phase_t0})
+    return total
+
+
+def gnn_cpu_forward(out_path: str) -> None:
+    """(A child process.) The full-width bf16 equiformer-v2 forward at
+    molecule on the cpu, from the seed-0 cpu init and the seed-1 batch:
+    its output (float32) and seconds written to ``out_path`` (.npz). It
+    leaves two of the host's cores to the parent."""
+    import os
+
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs as S
+    from repro_torch.models.gnn import equiformer as E
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 3) - 2))
+    arch = get_config(GNN_ARCH)
+    shape = arch.shape("molecule")
+    cfg = S.gnn_cell_config(arch, shape)
+    params = E.init_equiformer(cfg, torch.Generator().manual_seed(SEED),
+                               "cpu")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = E.equiformer_forward(params, cfg, S._gnn_batch(shape, 1, "cpu"))
+    np.savez(out_path, out=out.float().numpy(),
+             seconds=time.perf_counter() - t0)
+
+
+def start_gnn_cpu_forward() -> tuple:
+    """``gnn_cpu_forward`` in a spawned child (it runs beside phase
+    ``gnn_train``, whose minibatch_lg steps keep the card, not the host,
+    busy): (the process, its output path, its temporary directory)."""
+    import multiprocessing
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="gnn_cpu_forward_")
+    path = str(Path(tmp) / "out.npz")
+    proc = multiprocessing.get_context("spawn").Process(
+        target=gnn_cpu_forward, args=(path,), daemon=True)
+    proc.start()
+    return proc, path, tmp
+
+
+def _gnn_small_steps(arch, cfg, shape, init, dev, steps: int):
+    """``steps`` ``gnn_train_step``s from ``init`` (cpu tensors, copied to
+    ``dev``) on the reduced cell's seed t + 1 batches: (losses, final
+    leaves on the cpu, each leaf's smallest nonzero |gradient|, the most
+    one element moved)."""
+    from repro_torch.launch import specs as S
+
+    params = tree_to(init, dev)
+    opt = _GradScale(S._optimizer_for(arch)[0])
+    state = opt.init(S.gnn_param_leaves(params))
+    step_fn = S.gnn_train_step(cfg, opt)
+    losses = []
+    for step in range(steps):
+        batch = S._gnn_batch(shape, step + 1, dev)
+        _, state, loss = step_fn(params, state, step, batch)
+        losses.append(float(loss))
+    return (losses, [p.cpu() for p in S.gnn_param_leaves(params)],
+            [g.cpu() for g in opt.gmin], opt.moved)
+
+
+def _gnn_loss_grads(params, cfg, batch):
+    """(loss, every leaf's gradient on the cpu) of ``equiformer_loss``."""
+    import torch
+
+    from repro_torch.launch import specs as S
+    from repro_torch.models.gnn import equiformer as E
+
+    leaves = S.gnn_param_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, _ = E.equiformer_loss(params, cfg, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    for p in leaves:
+        p.requires_grad_(False)
+    return float(loss), [g.cpu() for g in grads]
+
+
+def phase_gnn_small_parity(cpu_forward: tuple) -> None:
+    """eq-tiny (f32) at the reduced full_graph_sm (node-level) and
+    molecule (pooled) cells from one cpu init, on cuda against cpu: the
+    forward, the loss and every gradient within 2e-5, three AdamW steps
+    (losses within 2e-5, params within 2e-5 as ``param_gap`` holds them),
+    and two cuda trainings bit-equal; rotation and translation
+    invariance on cuda (5e-5, on the JAX invariance test's graph size);
+    then the full-width bf16 forward at molecule on cuda against the
+    port's cpu path (``cpu_forward``: ``start_gnn_cpu_forward``'s child,
+    which ran beside phase ``gnn_train``), within 2e-2 of the output's
+    largest magnitude."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs as S
+    from repro_torch.models.gnn import equiformer as E
+
+    phase_t0 = time.perf_counter()
+    out = {}
+    arch = get_config(GNN_ARCH).reduced()
+    for name in ("full_graph_sm", "molecule"):
+        shape = S._reduce_shape("gnn", arch.shape(name))
+        cfg = S.gnn_cell_config(arch, shape)
+        init = E.init_equiformer(cfg, torch.Generator().manual_seed(SEED),
+                                 "cpu")
+        bc = S._gnn_batch(shape, 1, "cpu")
+        bg = S._gnn_batch(shape, 1, DEVICE)
+        with torch.no_grad():
+            fc = E.equiformer_forward(init, cfg, bc)
+            fg = E.equiformer_forward(tree_to(init, DEVICE), cfg, bg)
+        fwd_err = float((fg.cpu() - fc).abs().max())
+        lc, gc = _gnn_loss_grads(tree_to(init, "cpu"), cfg, bc)
+        lg, gg = _gnn_loss_grads(tree_to(init, DEVICE), cfg, bg)
+        grad_err = max(float((a - b).abs().max()) for a, b in zip(gg, gc))
+        # tolerance: 2e-5 in float32 (another summation order)
+        assert fwd_err <= 2e-5 and abs(lg - lc) <= 2e-5, (name, fwd_err,
+                                                          lg, lc)
+        assert grad_err <= 2e-5, (name, grad_err)
+        n0 = read_counts()
+        lsc, pc, _, _ = _gnn_small_steps(arch, cfg, shape, init, DEVICE, 3)
+        n1 = read_counts()
+        lsh, ph, gmin, moved = _gnn_small_steps(arch, cfg, shape, init,
+                                                "cpu", 3)
+        loss_diff = max(abs(a - c) for a, c in zip(lsc, lsh))
+        gap = param_gap(pc, ph, gmin, [str(i) for i in range(len(ph))],
+                        moved)
+        assert loss_diff <= 2e-5, (name, lsc, lsh)
+        assert gap["held_max_abs_diff"] <= 2e-5, (name, gap)
+        assert gap["small_grad_max_abs_diff"] <= moved, (name, gap)
+        lsc2, pc2, _, _ = _gnn_small_steps(arch, cfg, shape, init, DEVICE, 3)
+        assert lsc == lsc2 and all(torch.equal(a, c) for a, c in
+                                   zip(pc, pc2)), f"{name}: two cuda " \
+            f"trainings differ"
+        out[name] = {"forward_max_abs_err": fwd_err,
+                     "loss_abs_diff": abs(lg - lc),
+                     "grad_max_abs_err": grad_err,
+                     "step_loss_max_abs_diff": loss_diff,
+                     "launches_3_steps": {k: n1[k] - n0[k] for k in n1
+                                          if n1[k] != n0[k]},
+                     "two_cuda_trainings_bit_equal": True, **gap}
+    # rotation and translation invariance on the card: eq-tiny on the
+    # JAX test's graph size (20 nodes, 60 edges), numpy-seeded inputs
+    cfg = arch.model
+    p2 = tree_to(E.init_equiformer(cfg, torch.Generator().manual_seed(SEED),
+                                   "cpu"), DEVICE)
+    rng = np.random.RandomState(SEED)
+    b = {"pos": rng.randn(20, 3).astype(np.float32),
+         "src": rng.randint(0, 20, 60), "dst": rng.randint(0, 20, 60),
+         "node_feat": rng.randn(20, cfg.d_in).astype(np.float32)}
+    b = {k: torch.from_numpy(v).to(DEVICE) for k, v in b.items()}
+    q, _ = np.linalg.qr(np.random.RandomState(5).randn(3, 3))
+    if np.linalg.det(q) < 0:
+        q[:, 0] *= -1
+    q = torch.from_numpy(q.astype(np.float32)).to(DEVICE)
+    with torch.no_grad():
+        o1 = E.equiformer_forward(p2, cfg, b)
+        o2 = E.equiformer_forward(p2, cfg, dict(b, pos=b["pos"] @ q.T))
+        o3 = E.equiformer_forward(p2, cfg, dict(
+            b, pos=b["pos"] + torch.tensor([1.0, -2.0, 3.0], device=DEVICE)))
+    rot_err = float((o1 - o2).abs().max())
+    shift_err = float((o1 - o3).abs().max())
+    # tolerance: 5e-5, the JAX package's own invariance test's
+    assert rot_err <= 5e-5 and shift_err <= 5e-5, (rot_err, shift_err)
+    out["invariance"] = {"rotation_max_abs_err": rot_err,
+                         "translation_max_abs_err": shift_err,
+                         "output_max_abs": float(o1.abs().max())}
+    # the full-width bf16 forward at molecule: cuda against the cpu path
+    # (``start_gnn_cpu_forward``'s child, from the same seeded cpu init)
+    proc, path, tmp = cpu_forward
+    full = get_config(GNN_ARCH)
+    shape = full.shape("molecule")
+    cfg = S.gnn_cell_config(full, shape)
+    pg = tree_to(E.init_equiformer(cfg, torch.Generator().manual_seed(SEED),
+                                   "cpu"), DEVICE)
+    with torch.no_grad():
+        og, g_s = synced(lambda: E.equiformer_forward(
+            pg, cfg, S._gnn_batch(shape, 1, DEVICE)))
+    t0 = time.perf_counter()
+    proc.join(timeout=600)
+    wait_s = time.perf_counter() - t0
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+    try:
+        assert proc.exitcode == 0, f"the cpu forward exited {proc.exitcode}"
+        with np.load(path) as f:
+            oc, c_s = torch.from_numpy(f["out"]), float(f["seconds"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    scale = float(oc.abs().max())
+    err = float((og.cpu().float() - oc).abs().max())
+    assert bool(torch.isfinite(og).all()) and og.shape == (shape["batch"], 1)
+    # tolerance: 2e-2 of the largest magnitude (bf16 rounding at other
+    # points of each product on the two devices, over 12 layers)
+    assert err <= 2e-2 * scale, (err, scale)
+    out["full_width_bf16_molecule"] = {
+        "max_abs_err": err, "output_max_abs": scale,
+        "err_over_scale": err / scale, "cuda_s": g_s, "cpu_s": c_s,
+        "cpu_wait_s": wait_s}
+    del pg
+    free_cuda()
+    emit({"phase": "gnn_small_parity", "configs": out,
+          "tolerance": {"f32": 2e-5, "invariance": 5e-5,
+                        "bf16_of_max_abs": 2e-2},
+          "phase_s": time.perf_counter() - phase_t0})
+
+
 def phase_gnn() -> dict:
     import torch
 
@@ -4303,7 +4813,8 @@ def main() -> int:
     rows = (check_fast_features(ccfg, pages, dev) + check_budget_route(dev)
             + check_ngram_score(docs, [pages, exp_pages], dev)
             + check_flash_attention(dev) + check_embedding_bag(dev)
-            + check_embedding_bag_backward(dev) + check_segment_mm(dev))
+            + check_embedding_bag_backward(dev) + check_segment_sum(dev)
+            + check_segment_mm(dev))
     torch.cuda.synchronize()
     for r in rows:
         # the function's operations over the kernel's time (rows whose
@@ -4339,6 +4850,9 @@ def main() -> int:
     path_counts.append(phase_recsys_zoo())
     path_counts.append(phase_recsys_train())
     phase_recsys_zoo_small_parity()
+    cpu_forward = start_gnn_cpu_forward()
+    path_counts.append(phase_gnn_train())
+    phase_gnn_small_parity(cpu_forward)
     path_counts.append(phase_gnn())
 
     # name -> (the directory of its source, the TPU kernel it replaces)

@@ -1,8 +1,8 @@
 """Config dataclasses + arch/shape registry (the subset of
 ``repro.configs.base`` the port needs: ``MoEConfig``, ``LMConfig``,
-``EncoderConfig``, ``RecsysConfig``, ``ShapeConfig``, ``ArchConfig``,
-``LM_SHAPES``, ``GNN_SHAPES``, ``RECSYS_SHAPES``,
-``register``/``get_config``)."""
+``EncoderConfig``, ``GNNConfig``, ``RecsysConfig``, ``ShapeConfig``,
+``ArchConfig``, ``LM_SHAPES``, ``GNN_SHAPES``, ``RECSYS_SHAPES``,
+``register``/``get_config``), and ``round_up`` of ``repro.common``."""
 from __future__ import annotations
 
 import dataclasses
@@ -112,6 +112,36 @@ class EncoderConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    """EquiformerV2-style eSCN equivariant graph attention network.
+
+    ``scan_layers`` is the JAX package's lowering knob; the port loops
+    over the layers either way."""
+
+    name: str
+    n_layers: int
+    d_hidden: int
+    l_max: int
+    m_max: int
+    n_heads: int
+    n_radial: int = 32
+    d_edge: int = 0
+    d_in: int = 0                     # input node feature dim (0 = embeddings)
+    n_out: int = 1                    # regression targets / classes
+    cutoff: float = 5.0
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+    remat: bool = True
+    scan_layers: bool = True
+
+    @property
+    def n_coeff(self) -> int:
+        """Number of (l, m) spherical coefficients with |m| <= m_max."""
+        return sum(min(2 * l + 1, 2 * self.m_max + 1)
+                   for l in range(self.l_max + 1))
+
+
+@dataclasses.dataclass(frozen=True)
 class RecsysConfig:
     name: str
     kind: str                         # "dlrm" | "deepfm" | "autoint" | "dien"
@@ -167,6 +197,11 @@ class ArchConfig:
                 return s
         raise KeyError(f"{self.arch_id}: unknown shape {name!r}; "
                        f"have {[s.name for s in self.shapes]}")
+
+
+def round_up(a: int, b: int) -> int:
+    """The least multiple of ``b`` that is at least ``a``."""
+    return -(-a // b) * b
 
 
 _REGISTRY: dict[str, Callable[[], ArchConfig]] = {}

@@ -17,8 +17,19 @@ forward is ``embedding_bag``, the backward ``embedding_bag_backward``,
 the table gradient of bags of one (``csrc/embedding_bag.cu``'s second
 kernel on CUDA tensors, ``ref.embedding_bag_backward_ref`` on CPU ones),
 added in the table's dtype in position order as XLA's scatter-add adds.
+
+``segment_sum(msgs, ids, n)`` is ``jax.ops.segment_sum`` as an
+``autograd.Function``: the forward is that same backward kernel, which
+sums the rows of each segment in position order, rounding each add to
+the dtype (no atomics, the same bits every run); ids outside ``[0, n)``
+are mapped past the end, so they are dropped and never wrap. Its
+backward is a plain gather of the gradient by id (zero for a dropped
+id). The GNN's aggregations (``models/gnn/segment.scatter_sum``) run
+through it.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -178,3 +189,41 @@ def lookup(table, ids):
         raise ValueError(f"lookup: ids must be (N,) (got "
                          f"{tuple(ids.shape)})")
     return _Lookup.apply(table, ids)
+
+
+class _SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, msgs, ids, n):
+        idx = ids.long()
+        # a dropped id goes to row n, which the kernel drops (>= rows)
+        idx = torch.where((idx >= 0) & (idx < n), idx, n)
+        ctx.save_for_backward(idx)
+        ctx.n, ctx.shape = n, msgs.shape
+        flat = msgs.reshape(msgs.shape[0], math.prod(msgs.shape[1:]))
+        return embedding_bag_backward(flat, idx, n).view(
+            (n,) + tuple(msgs.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        g = grad.reshape(ctx.n, math.prod(ctx.shape[1:]))
+        if ctx.n == 0:
+            rows = g.new_zeros((idx.numel(), g.shape[1]))
+        else:
+            rows = g.index_select(0, idx.clamp_max(ctx.n - 1))
+            rows.masked_fill_((idx == ctx.n)[:, None], 0)
+        return rows.view(ctx.shape), None, None
+
+
+def segment_sum(msgs, ids, n: int):
+    """msgs (E, ...) float32/bfloat16; ids (E,) int -> (n, ...) in msgs'
+    dtype: row s is ``((0 + m[p0]) + m[p1]) + ...`` over the positions
+    p0 < p1 < ... whose id is s, each add rounded to the dtype, as XLA's
+    scatter-add adds; ids outside [0, n) add nothing. Differentiable with
+    respect to msgs. One ``embedding_bag_backward`` launch on the card
+    (its plain version on the CPU), none in the backward."""
+    if ids.dim() != 1 or msgs.dim() < 1 or ids.shape[0] != msgs.shape[0]:
+        raise ValueError(f"segment_sum: ids must be (E,) with E = "
+                         f"msgs.shape[0] (got ids {tuple(ids.shape)}, msgs "
+                         f"{tuple(msgs.shape)})")
+    return _SegmentSum.apply(msgs, ids, int(n))

@@ -1,24 +1,29 @@
 """Workload batches and the training and retrieval steps, the port of
-the seeded batch functions and of the LM and recsys cells of
+the seeded batch functions and of the LM, GNN and recsys cells of
 ``repro/launch/specs.py`` (its abstract and sharded cells are the JAX
 package's own lowering and are not ported).
 
 Params are dict trees (a recsys MLP is a list of layer dicts); the
-optimizers take lists of tensors. ``lm_param_leaves`` and
-``recsys_param_leaves`` give the leaves in the order
-``jax.tree_util.tree_leaves`` gives the reference's params (sorted keys,
-lists in index order), so the optimizer state, the global norm and the
-checkpoint line up with the JAX package's leaf for leaf, and
+optimizers take lists of tensors. ``lm_param_leaves``,
+``gnn_param_leaves`` and ``recsys_param_leaves`` give the leaves in the
+order ``jax.tree_util.tree_leaves`` gives the reference's params (sorted
+keys, lists in index order), so the optimizer state, the global norm and
+the checkpoint line up with the JAX package's leaf for leaf, and
 ``opt_state_from_jax`` carries a JAX run's optimizer state across.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from repro_torch import device as device_lib
-from repro_torch.configs.base import (ArchConfig, LMConfig, RecsysConfig,
-                                      ShapeConfig)
+from repro_torch.configs.base import (ArchConfig, GNNConfig, LMConfig,
+                                      RecsysConfig, ShapeConfig, round_up)
+from repro_torch.models.gnn import sampler as sampler_lib
+from repro_torch.models.gnn.equiformer import equiformer_loss
+from repro_torch.models.gnn.so3 import n_coeff_full
 from repro_torch.models.layers import from_numpy
 from repro_torch.models.recsys.models import recsys_loss, recsys_retrieval
 from repro_torch.models.transformer import lm_loss
@@ -32,22 +37,29 @@ def _optimizer_for(arch: ArchConfig):
 
 
 def _reduce_shape(family: str, shape: ShapeConfig) -> ShapeConfig:
-    """Shrink an LM or recsys workload cell for CPU runs (same kind), as
-    the JAX function's LM and recsys branches do."""
+    """Shrink an LM, GNN or recsys workload cell for CPU runs (same
+    kind), as the JAX function's LM, GNN and recsys branches do."""
     d = dict(shape.dims)
     if family == "lm":
         if "seq_len" in d:
             d["seq_len"] = min(d["seq_len"], 64)
         if "global_batch" in d:
             d["global_batch"] = min(d["global_batch"], 4)
+    elif family == "gnn":
+        scale = {"full_graph_sm": dict(n_nodes=64, n_edges=256, d_feat=16),
+                 "minibatch_lg": dict(n_nodes=0, n_edges=0, batch_nodes=8,
+                                      fanout0=3, fanout1=2),
+                 "ogb_products": dict(n_nodes=128, n_edges=512, d_feat=16),
+                 "molecule": dict(n_nodes=6, n_edges=12, batch=4)}
+        d.update(scale[shape.name])
     elif family == "recsys":
         if "batch" in d:
             d["batch"] = min(d["batch"], 16)
         if "n_candidates" in d:
             d["n_candidates"] = min(d["n_candidates"], 64)
     else:
-        raise NotImplementedError(f"family {family!r}: only the LM and "
-                                  f"recsys cells are ported (ROADMAP.md "
+        raise NotImplementedError(f"family {family!r}: only the LM, GNN "
+                                  f"and recsys cells are ported (ROADMAP.md "
                                   f"item 13e)")
     return ShapeConfig(shape.name, shape.kind, d, shape.note)
 
@@ -70,6 +82,13 @@ def lm_param_leaves(params: dict) -> list[torch.Tensor]:
     return _tree_leaves(params)
 
 
+def gnn_param_leaves(params: dict) -> list[torch.Tensor]:
+    """Equiformer's leaves in ``jax.tree_util.tree_leaves`` order:
+    ``embed_w``, the stacked ``layers`` leaves by sorted name, then
+    ``out_w1``, ``out_w2``."""
+    return _tree_leaves(params)
+
+
 def recsys_param_leaves(params: dict) -> list[torch.Tensor]:
     """A recsys model's leaves in ``jax.tree_util.tree_leaves`` order:
     sorted keys, an MLP's layers in index order."""
@@ -77,10 +96,11 @@ def recsys_param_leaves(params: dict) -> list[torch.Tensor]:
 
 
 def opt_state_from_jax(raw_state: dict, params: dict, kind: str) -> dict:
-    """The JAX package's optimizer state (numpy leaves) for an LM's or a
-    recsys model's params -> the port's: AdamW's ``{"m", "v"}`` trees as
-    lists, or Adafactor's ``{"v": tree of {"vr", "vc"} | {"v"}}`` as a
-    list of dicts, each leaf a float32 tensor on the params' device.
+    """The JAX package's optimizer state (numpy leaves) for an LM's, a
+    GNN's or a recsys model's params -> the port's: AdamW's ``{"m",
+    "v"}`` trees as lists, or Adafactor's ``{"v": tree of {"vr", "vc"}
+    | {"v"}}`` as a list of dicts, each leaf a float32 tensor on the
+    params' device.
     Raises on a leaf whose count or shape does not match the params."""
     leaves = _tree_leaves(params)
     dev = leaves[0].device
@@ -157,6 +177,15 @@ def lm_train_step(cfg: LMConfig, opt):
     return _train_step(lambda p, b: lm_loss(p, cfg, b), lm_param_leaves, opt)
 
 
+def gnn_train_step(cfg: GNNConfig, opt):
+    """The GNN train cell's step, as ``lm_train_step`` is the LM's: the
+    gradient of ``equiformer_loss`` with respect to every leaf, one update
+    of ``opt`` (``_optimizer_for``: ``chain_clip(adamw(3e-4, wd 0.1),
+    1.0)``), applied in place. ``cfg`` is the cell's (``gnn_cell_config``)."""
+    return _train_step(lambda p, b: equiformer_loss(p, cfg, b),
+                       gnn_param_leaves, opt)
+
+
 def recsys_train_step(cfg: RecsysConfig, opt):
     """The recsys train cell's step, as ``lm_train_step`` is the LM's:
     the gradient of ``recsys_loss`` with respect to every leaf (the
@@ -213,3 +242,102 @@ def _recsys_batch(cfg: RecsysConfig, b: int, seed: int = 0,
             target=rng.randint(0, v0, b).astype(np.int32),
             target_cat=rng.randint(v0, v1, b).astype(np.int32))
     return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+# ---------------------------------------------------------------------------
+# GNN cells
+# ---------------------------------------------------------------------------
+
+GNN_DATASETS = {
+    # shape -> (d_in, n_out, classification?)
+    "full_graph_sm": (1433, 7, True),        # Cora
+    "minibatch_lg": (602, 41, True),         # Reddit (sampled)
+    "ogb_products": (100, 47, True),         # ogbn-products
+    "molecule": (16, 1, False),              # batched small molecules
+}
+
+
+def _gnn_dims(shape: ShapeConfig) -> tuple[int, int]:
+    """(nodes, edges) of a GNN train cell: the static sampler's counts
+    for ``minibatch_lg``, ``batch`` molecules for ``molecule``, else the
+    graph's counts padded to a multiple of 512 (the padding edges are
+    zero-length self-loops, which the model drops)."""
+    if shape.name == "minibatch_lg":
+        fan = [shape["fanout0"], shape["fanout1"]]
+        return (sampler_lib.static_node_count(shape["batch_nodes"], fan),
+                sampler_lib.static_edge_count(shape["batch_nodes"], fan))
+    if shape.name == "molecule":
+        return (shape["n_nodes"] * shape["batch"],
+                shape["n_edges"] * shape["batch"])
+    return (round_up(shape["n_nodes"], 512), round_up(shape["n_edges"], 512))
+
+
+def gnn_cell_config(arch: ArchConfig, shape: ShapeConfig) -> GNNConfig:
+    """The model config of a GNN train cell: the arch's with the
+    dataset's input width and output count."""
+    d_in, n_out, _ = GNN_DATASETS[shape.name]
+    return dataclasses.replace(arch.model, d_in=d_in, n_out=n_out)
+
+
+def gnn_one_card_bytes(cfg: GNNConfig, shape: ShapeConfig) -> dict:
+    """What one step of the cell must hold, in bytes at the compute
+    dtype: one node state (N, (l_max+1)^2, C), one edge tensor (E,
+    (l_max+1)^2, C), and the remat checkpoints (one node state a
+    layer)."""
+    n, e = _gnn_dims(shape)
+    el = torch.finfo(getattr(torch, cfg.compute_dtype)).bits // 8
+    row = n_coeff_full(cfg.l_max) * cfg.d_hidden * el
+    return {"n_nodes": n, "n_edges": e, "node_state": n * row,
+            "edge_tensor": e * row, "checkpoints": cfg.n_layers * n * row}
+
+
+def gnn_refusal(cfg: GNNConfig, shape: ShapeConfig,
+                card_bytes: float = 80e9) -> str | None:
+    """Why the cell cannot train on one card, or None: one edge tensor
+    or the layer checkpoints alone beyond the card's memory (the
+    reference shards such a graph over a mesh)."""
+    b = gnn_one_card_bytes(cfg, shape)
+    if max(b["edge_tensor"], b["checkpoints"]) <= card_bytes:
+        return None
+    return (f"{shape.name}: N = {b['n_nodes']:,}, E = {b['n_edges']:,}: one "
+            f"(E, {n_coeff_full(cfg.l_max)}, {cfg.d_hidden}) "
+            f"{cfg.compute_dtype} edge tensor is "
+            f"{b['edge_tensor'] / 1e9:.0f} GB and the node state "
+            f"{b['node_state'] / 1e9:.1f} GB ({b['checkpoints'] / 1e9:.0f} "
+            f"GB for the {cfg.n_layers} remat checkpoints), beyond one "
+            f"{card_bytes / 1e9:.0f} GB card; the reference shards it over "
+            f"a mesh, which waits for ROADMAP.md item 13e's distributed/*")
+
+
+def _gnn_batch(shape: ShapeConfig, seed: int = 0, device=None) -> dict:
+    """A copy of the JAX GNN train cell's concrete batch
+    (``gnn_batch_arrays``) as tensors on ``device`` (cuda unless "cpu"),
+    with ``n_graphs`` an int for ``molecule``."""
+    dev = device_lib.resolve(device)
+    return {k: torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray)
+            else v for k, v in gnn_batch_arrays(shape, seed).items()}
+
+
+def gnn_batch_arrays(shape: ShapeConfig, seed: int = 0) -> dict:
+    """The JAX GNN train cell's concrete batch as numpy arrays (host
+    work only): ``RandomState(seed)`` draws pos (N, 3), src and dst (E,)
+    int32, node_feat (N, d_in) and the labels ((N,) int32 classes, or
+    (batch, 1) float32 targets for ``molecule``, which adds
+    ``graph_ids`` (N,) and ``n_graphs``), in the reference's order."""
+    d_in, n_out, is_cls = GNN_DATASETS[shape.name]
+    n, e = _gnn_dims(shape)
+    mol = shape.name == "molecule"
+    lbl_shape = (shape["batch"], n_out) if mol else (n,)
+    rng = np.random.RandomState(seed)
+    batch = {"pos": rng.randn(n, 3).astype(np.float32),
+             "src": rng.randint(0, n, e).astype(np.int32),
+             "dst": rng.randint(0, n, e).astype(np.int32),
+             "node_feat": rng.randn(n, d_in).astype(np.float32),
+             "labels": (rng.randint(0, n_out, lbl_shape).astype(np.int32)
+                        if is_cls else
+                        rng.randn(*lbl_shape).astype(np.float32))}
+    if mol:
+        batch["graph_ids"] = np.repeat(
+            np.arange(shape["batch"], dtype=np.int32), shape["n_nodes"])
+        batch["n_graphs"] = shape["batch"]
+    return batch

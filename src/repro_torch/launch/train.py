@@ -1,11 +1,19 @@
 """Fault-tolerant training driver, the port of ``repro/launch/train.py``
-on one card: the LM train cells and the recsys ``train_batch`` cell.
+on one card: the LM train cells, the GNN train cells and the recsys
+``train_batch`` cell.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
         --shape train_4k [--reduced] [--steps 100] [--ckpt-dir ckpts/qwen] \\
         [--ckpt-every 50] [--mesh 1x1] [--device cuda|cpu]
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch deepfm|autoint|dien|dlrm-mlperf --shape train_batch [--reduced]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch equiformer-v2 \\
+        --shape full_graph_sm|minibatch_lg|molecule [--reduced]
+
+A GNN cell's model is the arch's with the dataset's input width and
+output count (``specs.gnn_cell_config``); ``ogb_products`` at full size
+does not fit one card and raises with the reckoning
+(``specs.gnn_refusal``); its reduced cell trains.
 
 As the reference does:
 - restart-from-latest: on launch, restores the newest checkpoint in
@@ -37,10 +45,14 @@ from repro_torch import device as device_lib
 from repro_torch.checkpoint import checkpoint as ckpt_lib
 from repro_torch.configs import get_config
 from repro_torch.distributed.fault import StragglerDetector
-from repro_torch.launch.specs import (_lm_train_batch, _optimizer_for,
-                                      _recsys_batch, _reduce_shape,
-                                      lm_param_leaves, lm_train_step,
-                                      recsys_param_leaves, recsys_train_step)
+from repro_torch.launch.specs import (_gnn_batch, _lm_train_batch,
+                                      _optimizer_for, _recsys_batch,
+                                      _reduce_shape, gnn_cell_config,
+                                      gnn_param_leaves, gnn_refusal,
+                                      gnn_train_step, lm_param_leaves,
+                                      lm_train_step, recsys_param_leaves,
+                                      recsys_train_step)
+from repro_torch.models.gnn.equiformer import init_equiformer
 from repro_torch.models.recsys.models import init_recsys
 from repro_torch.models.transformer import init_lm
 
@@ -79,13 +91,23 @@ def main(argv=None):
     if args.shape in arch.skips and not args.reduced:
         raise ValueError(f"{args.arch}/{args.shape} skipped: "
                          f"{arch.skips[args.shape]}")
-    if arch.family not in ("lm", "recsys") or shape.kind != "train":
+    if arch.family not in ("lm", "gnn", "recsys") or shape.kind != "train":
         raise NotImplementedError(
-            f"{args.arch}/{args.shape}: the port trains the LM and recsys "
-            f"train cells only (ROADMAP.md item 13e)")
+            f"{args.arch}/{args.shape}: the port trains the LM, GNN and "
+            f"recsys train cells only (ROADMAP.md item 13e)")
     cfg = arch.model
     opt, _ = _optimizer_for(arch)
-    if arch.family == "lm":
+    if arch.family == "gnn":
+        cfg = gnn_cell_config(arch, shape)
+        why = None if args.reduced else gnn_refusal(cfg, shape)
+        if why:
+            raise ValueError(f"{args.arch}/{why}")
+        init, leaves_of = init_equiformer, gnn_param_leaves
+        train_step = gnn_train_step(cfg, opt)
+
+        def make_batch(seed):
+            return _gnn_batch(shape, seed, device=dev)
+    elif arch.family == "lm":
         b, s = shape["global_batch"], shape["seq_len"]
         init, leaves_of = init_lm, lm_param_leaves
         train_step = lm_train_step(cfg, opt)

@@ -5,25 +5,48 @@ outside ``[0, n)`` are dropped; an empty segment sums to 0 and its
 float max is ``-inf`` (``segment_softmax`` then shifts it by 0). The
 fused gather-GEMM-scatter of the hot path is
 ``repro_torch.kernels.segment_mm``.
+
+On the card ``gather_src`` is the ``embedding_bag`` kernel
+(``kernels/embedding_bag/ops.lookup``: bags of one, its backward the
+``embedding_bag_backward`` kernel) and ``scatter_sum`` the
+``embedding_bag_backward`` kernel (``ops.segment_sum``): each segment's
+rows added in position order with no atomics, as XLA's scatter-add adds
+on the CPU, so two trainings give the same bits. On CPU tensors both
+run the kernels' plain versions. ``scatter_sum_plain`` is the
+``index_add_`` scatter, for the plain versions of other kernels
+(``kernels/segment_mm/ref.py``) and the plain mirrors of JAX functions.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.embedding_bag import ops as bag_ops
 from repro_torch.models.layers import embed_lookup
 
 
 def gather_src(x: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """Node features -> per-edge source features (``jnp.take``: wrap,
-    NaN rows for ids out of range)."""
-    return embed_lookup(x, src)
+    """Node features (N, ...) float32/bfloat16 -> per-edge source
+    features (E, ...) (``jnp.take``: wrap, NaN rows for ids out of
+    range), differentiable with respect to x."""
+    rows = bag_ops.lookup(x.reshape(x.shape[0], -1), src.reshape(-1))
+    return rows.view((src.numel(),) + tuple(x.shape[1:]))
 
 
 def scatter_sum(msgs: torch.Tensor, dst: torch.Tensor,
                 n_nodes: int) -> torch.Tensor:
-    """``jax.ops.segment_sum``: rows of ``msgs`` summed by ``dst``, in
-    ``msgs``' dtype; ids outside [0, n_nodes) are dropped (they land in
-    a spill row past the end, cut off)."""
+    """``jax.ops.segment_sum`` of float32/bfloat16 ``msgs`` (E, ...) by
+    ``dst`` (E,): ``ops.segment_sum``, the rows of each segment added in
+    position order in ``msgs``' dtype; ids outside [0, n_nodes) are
+    dropped."""
+    return bag_ops.segment_sum(msgs, dst, n_nodes)
+
+
+def scatter_sum_plain(msgs: torch.Tensor, dst: torch.Tensor,
+                      n_nodes: int) -> torch.Tensor:
+    """``scatter_sum`` as one ``index_add_`` (any dtype, any device: on
+    CUDA its atomics add in no fixed order): rows of ``msgs`` summed by
+    ``dst``; ids outside [0, n_nodes) are dropped (they land in a spill
+    row past the end, cut off)."""
     idx = dst.long()
     idx = torch.where((idx >= 0) & (idx < n_nodes), idx, n_nodes)
     out = torch.zeros((n_nodes + 1,) + msgs.shape[1:], dtype=msgs.dtype,

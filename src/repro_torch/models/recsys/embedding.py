@@ -21,7 +21,7 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.kernels.embedding_bag import ops as bag_ops
 from repro_torch.kernels.order import total_order_key
-from repro_torch.models.gnn.segment import scatter_sum
+from repro_torch.models.gnn.segment import scatter_sum_plain
 from repro_torch.models.layers import embed_lookup
 
 
@@ -98,12 +98,13 @@ def embedding_bag_ragged(table: torch.Tensor, flat_ids: torch.Tensor,
     emb = embed_lookup(table, flat_ids)                   # (T, D)
     if weights is not None:
         emb = emb * weights[:, None].to(emb.dtype)
-    s = scatter_sum(emb, bag_ids, n_bags)
+    s = scatter_sum_plain(emb, bag_ids, n_bags)
     if combiner == "sum":
         return s
     if combiner == "mean":
-        cnt = scatter_sum(torch.ones(flat_ids.shape, dtype=emb.dtype,
-                                     device=emb.device), bag_ids, n_bags)
+        cnt = scatter_sum_plain(torch.ones(flat_ids.shape, dtype=emb.dtype,
+                                           device=emb.device),
+                                bag_ids, n_bags)
         return s / cnt.clamp_min(1.0)[:, None]
     raise ValueError(combiner)
 

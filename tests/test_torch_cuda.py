@@ -1515,3 +1515,151 @@ def test_recsys_train_main_restart_is_bit_exact_on_cuda(dev, tmp_path):
     b = ckpt._flatten(ckpt.restore(str(tmp_path / "ck"), device="cpu")[1])
     assert [p for p, _ in a] == [p for p, _ in b]
     assert all(torch.equal(x, y) for (_, x), (_, y) in zip(a, b))
+
+
+# -- equiformer-v2 (ROADMAP 13e, its GNN part) -----------------------------
+
+
+@pytest.mark.parametrize("d", [1, 8, 6272])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_sum_kernel_vs_plain(dev, d, dtype):
+    """``ops.segment_sum``: one ``embedding_bag_backward`` launch, equal
+    bit for bit to the plain version's position-order adds on the cpu
+    (ids below 0 or past n dropped, a long segment); its backward is a
+    gather with no launch, zero for a dropped id."""
+    g = torch.Generator(device=dev).manual_seed(d)
+    n, e = 300, 2000
+    ids = torch.randint(-20, n + 20, (e,), generator=g, device=dev)
+    ids[:500] = 7
+    msgs = torch.randn((e, d), generator=g, device=dev).to(dtype)
+    before = eb.BACKWARD.launches
+    got = eb.segment_sum(msgs, ids, n)
+    assert eb.BACKWARD.launches == before + 1
+    assert torch.equal(got.cpu(), eb.segment_sum(msgs.cpu(), ids.cpu(), n))
+    msgs.requires_grad_(True)
+    cot = torch.randn((n, d), generator=g, device=dev).to(dtype)
+    out = eb.segment_sum(msgs, ids, n)
+    b0 = (eb.KERNEL.launches, eb.BACKWARD.launches)
+    (gm,) = torch.autograd.grad(out, msgs, cot)
+    assert (eb.KERNEL.launches, eb.BACKWARD.launches) == b0
+    valid = ((ids >= 0) & (ids < n))[:, None]
+    assert torch.equal(gm, torch.where(valid, cot[ids.clamp(0, n - 1)], 0))
+
+
+def _tiny_gnn(shape_name, layers=None):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs as S
+    from repro_torch.models.gnn import equiformer as E
+
+    arch = get_config("equiformer-v2").reduced()
+    shape = S._reduce_shape("gnn", arch.shape(shape_name))
+    cfg = S.gnn_cell_config(arch, shape)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    host = E.init_equiformer(cfg, torch.Generator().manual_seed(0), "cpu")
+    return arch, shape, cfg, host
+
+
+def _tiny_gnn_train(d, arch, shape, cfg, host, steps=3):
+    from repro_torch.launch import specs as S
+
+    params = _tree_to(host, d)
+    opt = S._optimizer_for(arch)[0]
+    gmin, moved = [], []
+    state = opt.init(S.gnn_param_leaves(params))
+    step_fn = S.gnn_train_step(cfg, _recording(opt, gmin, moved))
+    losses = []
+    for step in range(steps):
+        batch = S._gnn_batch(shape, step + 1, d)
+        _, state, loss = step_fn(params, state, step, batch)
+        losses.append(float(loss))
+    return (losses, [p.cpu() for p in S.gnn_param_leaves(params)], gmin,
+            sum(moved))
+
+
+@pytest.mark.parametrize("shape_name", ["full_graph_sm", "molecule"])
+def test_tiny_equiformer_cuda_matches_cpu_and_repeats(dev, shape_name):
+    """eq-tiny (f32, 3 layers) on cuda against cpu: the forward, the loss
+    and every gradient within 2e-5; three steps, losses within 2e-5 and
+    params within 1e-4 at every element whose nonzero gradients all
+    reached 1e-6 (the rest held to the most one element moved); the
+    launches of a remat step exactly (8 embedding_bag and 8
+    embedding_bag_backward a layer, one more for the pooled readout);
+    two cuda runs bit-equal."""
+    from repro_torch.launch import specs as S
+    from repro_torch.models.gnn import equiformer as E
+
+    arch, shape, cfg, host = _tiny_gnn(shape_name, layers=3)
+    bc = S._gnn_batch(shape, 1, "cpu")
+    bg = S._gnn_batch(shape, 1, dev)
+    with torch.no_grad():
+        torch.testing.assert_close(
+            E.equiformer_forward(_tree_to(host, dev), cfg, bg).cpu(),
+            E.equiformer_forward(host, cfg, bc), atol=2e-5, rtol=0)
+
+    def loss_grads(params, batch):
+        leaves = S.gnn_param_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss, _ = E.equiformer_loss(params, cfg, batch)
+        return loss, torch.autograd.grad(loss, leaves)
+
+    lh, gh = loss_grads(_tree_to(host, "cpu"), bc)
+    k0 = (eb.KERNEL.launches, eb.BACKWARD.launches)
+    lc, gc = loss_grads(_tree_to(host, dev), bg)
+    pooled = int(shape_name == "molecule")
+    assert (eb.KERNEL.launches - k0[0], eb.BACKWARD.launches - k0[1]) == \
+        (8 * cfg.n_layers, 8 * cfg.n_layers + pooled)
+    assert abs(float(lc) - float(lh)) <= 2e-5
+    for a, b in zip(gc, gh):
+        torch.testing.assert_close(a.cpu(), b, atol=2e-5, rtol=0)
+    lc, pc, _, _ = _tiny_gnn_train(dev, arch, shape, cfg, host)
+    lh, ph, gmin, moved = _tiny_gnn_train("cpu", arch, shape, cfg, host)
+    np.testing.assert_allclose(lc, lh, atol=2e-5, rtol=0)
+    for a, b, g in zip(pc, ph, gmin):
+        held = g >= 1e-6
+        if held.any():
+            assert (a - b).abs()[held].max().item() <= 1e-4
+        if (~held).any():
+            assert (a - b).abs()[~held].max().item() <= moved
+    lc2, pc2, _, _ = _tiny_gnn_train(dev, arch, shape, cfg, host)
+    assert lc == lc2 and all(torch.equal(a, b) for a, b in zip(pc, pc2))
+
+
+def test_equiformer_bf16_training_is_bit_reproducible_on_cuda(dev):
+    """Two bf16 trainings of eq-tiny (3 steps) on the card give the same
+    bits: every sum by index adds in a fixed order."""
+    arch, shape, cfg, host = _tiny_gnn("minibatch_lg", layers=3)
+    cfg = dataclasses.replace(cfg, param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    host = {k: (v.to(torch.bfloat16) if not isinstance(v, dict) else
+                {a: b.to(torch.bfloat16) for a, b in v.items()})
+            for k, v in host.items()}
+    la, pa, _, _ = _tiny_gnn_train(dev, arch, shape, cfg, host)
+    lb, pb, _, _ = _tiny_gnn_train(dev, arch, shape, cfg, host)
+    assert all(np.isfinite(la))
+    assert la == lb and all(torch.equal(a, b) for a, b in zip(pa, pb))
+
+
+def test_gnn_train_main_restart_is_bit_exact_on_cuda(dev, tmp_path):
+    """``launch.train.main --arch equiformer-v2 --shape molecule
+    --reduced`` on cuda: 6 steps against 3, a checkpoint and a resume to
+    6, bit-equal."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.launch import train
+
+    def main(*extra):
+        return train.main(["--arch", "equiformer-v2", "--shape", "molecule",
+                           "--reduced", "--log-every", "100", "--device",
+                           "cuda", *extra])
+
+    full = main("--steps", "6", "--ckpt-dir", str(tmp_path / "full"),
+                "--ckpt-every", "100")
+    assert main("--steps", "3", "--ckpt-dir", str(tmp_path / "ck"),
+                "--ckpt-every", "3") == full[:3]
+    assert main("--steps", "6", "--ckpt-dir", str(tmp_path / "ck")) == \
+        full[3:]
+    a = ckpt._flatten(ckpt.restore(str(tmp_path / "full"), device="cpu")[1])
+    b = ckpt._flatten(ckpt.restore(str(tmp_path / "ck"), device="cpu")[1])
+    assert [p for p, _ in a] == [p for p, _ in b]
+    assert all(torch.equal(x, y) for (_, x), (_, y) in zip(a, b))

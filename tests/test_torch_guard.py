@@ -81,7 +81,11 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.models.moe",
                  "repro_torch.configs.olmoe_1b_7b",
                  "repro_torch.configs.grok_1_314b",
-                 "repro_torch.configs.phi3_medium_14b"):
+                 "repro_torch.configs.phi3_medium_14b",
+                 "repro_torch.configs.equiformer_v2",
+                 "repro_torch.models.gnn.so3",
+                 "repro_torch.models.gnn.sampler",
+                 "repro_torch.models.gnn.equiformer"):
         assert name in res["modules"]
     assert "join_timeline" in res["scripts"]
 

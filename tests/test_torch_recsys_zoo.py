@@ -439,7 +439,8 @@ def test_reduce_shape_recsys_copies_the_jax_branch():
         got = TS._reduce_shape("recsys", get_config("deepfm").shape(name))
         assert repr(got) == repr(want)
     with pytest.raises(NotImplementedError, match="13e"):
-        TS._reduce_shape("gnn", get_config("deepfm").shape("train_batch"))
+        TS._reduce_shape("vit_parser",
+                         get_config("deepfm").shape("train_batch"))
 
 
 # ------------------------------------------------------------- training
