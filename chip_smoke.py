@@ -302,6 +302,31 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    kernel, one segment_mm launch, the kernel within rtol = atol = 1e-5
    of the plain version, two runs bit-identical, and a torch.profiler
    pass over a warm step.
+21. vit_parser: full-width bf16 ``nougat-base`` as registered (12
+   encoder layers of 1,024 in windows of 112 over 2,352 patches, 10
+   decoder layers of 1,024, vocabulary 50,000, remat; 466,362,368
+   params, random weights from a seeded CUDA generator): training steps
+   through ``launch.specs.vit_parser_train_step`` (``chain_clip(adamw(
+   3e-4, 0.1), 1.0)``) on ``_nougat_batch`` batches at the page batch
+   the peaks of steps at 4 and 8 pages reckon within 85% of the card
+   (``train_pages`` is 256 x 2,048), one warm-up and 3 timed steps:
+   finite losses and model TFLOP/s (3x the forward's matmul and
+   attention FLOPs) against 989 TFLOP/s bf16; ``parse_encode`` (the
+   encoder and the cross keys and values) and one ``parse_decode`` step
+   (cache 2,048, position 2,047) at 256 pages of the cells' 2,560 (their
+   K/V alone are 246.6 GB): pages/s and tokens/s; ``generate`` for one
+   B_p batch of 10 pages x 128 tokens, twice, equal. Each: ms, peak GB,
+   busy share and a torch.profiler split (generate's over 4 tokens).
+   No hand kernel may launch: the parser attends naively, as the
+   reference does.
+22. vit_parser_small_parity: nougat-tiny (f32; 12 patches in windows of
+   8, so the zero-padded windows) from one cpu init on cuda against cpu:
+   encode, logits, the loss and every gradient within 2e-5, greedy
+   tokens equal, three AdamW steps within 2e-5 (params as ``param_gap``
+   holds them), two cuda trainings bit-equal; the full-width bf16
+   forward of one page x 64 tokens on cuda against the port's cpu path
+   (run in a spawned child beside phase ``vit_parser``), within 2e-2 of
+   the cpu logits' largest magnitude.
 
 The phases free the card's memory between them: the DLRM table and the
 GNN step's ~60 GB (with its plain version) do not fit together.
@@ -4733,6 +4758,498 @@ def phase_gnn() -> dict:
     return counts
 
 
+# -------------------------------------------------------------- vit parser
+
+VIT_ARCH = "nougat-base"
+VIT_TRAIN_STEPS = 3            # timed train_pages steps, after a warm-up
+VIT_PROBE_PAGES = (4, 8)       # the steps whose peaks reckon the page
+#                                batch (below 4 pages the optimizer's
+#                                float32 temporaries set the peak)
+VIT_HEADROOM = 0.85            # share of the card a reckoned peak may take
+VIT_SERVE_PAGES = 256          # parse_encode / parse_decode page batch
+VIT_GEN = (10, 128)            # generate: one B_p batch of pages x tokens
+VIT_GEN_PROFILED = 4           # generate's profiled run: tokens (its
+#                                aggregation took 12 s at 16)
+VIT_SMALL_STEPS = 3            # vit_parser_small_parity: steps a device
+VIT_SPLIT = {"gemm": r"gemm|cutlass|nvjet|sm90_xmma|wgmma|Kernel2|cublas",
+             "softmax": r"softmax",
+             "elementwise": r"elementwise|vectorized|unrolled|CatArray",
+             "reduce": r"reduce_kernel|Reduce"}
+
+
+def vit_forward_flops(cfg, b: int, t: int, encode_only: bool = False
+                      ) -> dict:
+    """Model FLOPs of one forward over ``b`` pages and ``t`` tokens (2 a
+    multiply-add), from the tree's matmul weights: those that multiply
+    the N patch rows (``patch_proj``, the encoder layers' projections and
+    FFN, the decoder's cross keys and values) and those that multiply
+    the t token rows (the decoder's other projections and FFN,
+    ``lm_head``), plus the attention products: the encoder's windows,
+    the decoder's causal self-attention (half of T x T) and its cross
+    attention. ``encode_only``: the parse_encode step (the encoder and
+    the cross keys and values). Returns the FLOPs and the matmul weights
+    counted (412,696,576 of the tree's 466,362,368 at nougat-base: the
+    embeddings, position table and norm scales take no product)."""
+    n, w = cfg.n_patches, cfg.window
+    de, fe, le = cfg.enc_d_model, cfg.enc_d_ff, cfg.enc_layers
+    dd, fd, ld = cfg.dec_d_model, cfg.dec_d_ff, cfg.dec_layers
+    p_dim = cfg.patch * cfg.patch * 3
+    on_patches = p_dim * de + le * (4 * de * de + 2 * de * fe) \
+        + ld * 2 * de * dd
+    on_tokens = ld * (6 * dd * dd + 3 * dd * fd) + dd * cfg.vocab_size
+    attn = le * 4 * b * n * w * de
+    flops = 2 * b * n * on_patches + attn
+    if not encode_only:
+        flops += 2 * b * t * on_tokens \
+            + ld * 4 * b * (t * t / 2 + t * n) * dd
+    return {"flops": float(flops),
+            "matmul_params": on_patches + on_tokens}
+
+
+def vit_train_run(params, cfg, opt, shape, steps: int, dev,
+                  profile: bool = True) -> dict:
+    """``steps`` + 1 ``vit_parser_train_step``s (the first a warm-up) of
+    ``shape``'s page batch, batches from seeds 1.. as the train CLI draws
+    them (drawn before the first step): per-step ms, losses, peak GB of
+    the timed steps, the launches, and a profiled step."""
+    import torch
+
+    from repro_torch.launch import specs as S
+
+    state = opt.init(S.vit_parser_param_leaves(params))
+    step_fn = S.vit_parser_train_step(cfg, opt)
+    batches = [S._nougat_batch(cfg, shape, s + 1, dev)
+               for s in range(steps + 1)]
+    walls, losses = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for step, batch in enumerate(batches):
+        if step == 1:
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+        (_, state, loss), wall = synced(
+            lambda: step_fn(params, state, step, batch))
+        losses.append(float(loss))
+        if step:
+            walls.append(wall * 1e3)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = None
+    if profile:
+        prof = device_profile(lambda: step_fn(params, state, steps + 1,
+                                              batches[-1]),
+                              top=8, split=VIT_SPLIT)
+    del state, batches
+    free_cuda()
+    return {"ms": walls, "losses": losses, "peak_gb": peak,
+            "counts": counts, "profile": prof}
+
+
+def vit_measure(fn, reps: int = 2) -> tuple:
+    """A warm-up ``fn()``, one profiled call, then ``reps`` timed calls
+    (host clock with a synchronise; the peak over them): (the numbers,
+    the last call's output)."""
+    import torch
+
+    fn()
+    prof = device_profile(fn, top=6, split=VIT_SPLIT)
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(reps):
+        out = None
+        out, wall = synced(fn)
+        walls.append(wall * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    return {"ms": statistics.median(walls), "ms_runs": walls,
+            "peak_gb": peak, "busy_share": prof["busy_share"],
+            "profile": prof}, out
+
+
+def phase_vit_parser() -> dict:
+    """Full-width bf16 nougat-base as registered (remat, random weights
+    from a seeded CUDA generator): training steps through
+    ``launch.specs.vit_parser_train_step`` at the page batch the peaks of
+    steps at 4 and 8 pages reckon (train_pages is 256 pages x 2,048),
+    ``parse_encode`` and one ``parse_decode`` step at 256 pages (the
+    cells' 2,560 cut by the cross keys and values), and ``generate`` for
+    one B_p batch of 10 pages x 128 tokens: ms, peak GB, busy share and
+    a torch.profiler split of each; pages/s, tokens/s and model TFLOP/s.
+    The parser calls no hand kernel (it attends naively, as the
+    reference does): no launch may move."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import specs as S
+    from repro_torch.models import vit_parser as V
+    from repro_torch.models.attention import KVCache
+
+    phase_t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    arch = get_config(VIT_ARCH)
+    cfg = arch.model
+    assert (cfg.enc_layers, cfg.enc_d_model, cfg.dec_layers,
+            cfg.dec_d_model, cfg.vocab_size, cfg.n_patches, cfg.window,
+            cfg.param_dtype, cfg.remat) == (12, 1024, 10, 1024, 50000, 2352,
+                                            112, "bfloat16", True), cfg
+    n_params = V.vit_parser_param_count(cfg)
+    opt = S._optimizer_for(arch)[0]
+
+    def init():
+        return V.init_vit_parser(cfg, torch.Generator(device=dev)
+                                 .manual_seed(SEED), dev)
+
+    params = init()
+    assert sum(p.numel() for p in S.vit_parser_param_leaves(params)) \
+        == n_params == 466_362_368
+    out, reduced = {}, {}
+    reset_counts()
+    # train_pages: the activations scale with the page batch, so the
+    # peaks of two smaller steps reckon the largest batch that fits
+    full = arch.shape("train_pages")
+    t = min(full["dec_len"], cfg.max_dec_len)
+
+    def at(b):
+        return ShapeConfig(full.name, full.kind,
+                           dict(full.dims, global_batch=b), full.note)
+
+    free_cuda()
+    peaks = [vit_train_run(params, cfg, opt, at(b), 0, dev,
+                           profile=False)["peak_gb"] * 1e9
+             for b in VIT_PROBE_PAGES]
+    lo, hi = VIT_PROBE_PAGES
+    per_page = (peaks[1] - peaks[0]) / (hi - lo)
+    fixed = peaks[0] - per_page * lo
+    assert per_page > 0, ("the probe steps' peaks do not grow with the "
+                          "page batch", peaks)
+    budget = VIT_HEADROOM * torch.cuda.mem_get_info()[1]
+    b = full["global_batch"]
+    while b > hi and fixed + per_page * b > budget:
+        b //= 2
+    reduced["train_pages"] = {
+        "probe_pages": list(VIT_PROBE_PAGES),
+        "probe_peak_gb": [x / 1e9 for x in peaks],
+        "bytes_a_page": per_page, "fixed_gb": fixed / 1e9,
+        "reckoned_peak_gb": (fixed + per_page * b) / 1e9,
+        "reckoned_peak_gb_at_256": (fixed + per_page * 256) / 1e9,
+        "budget_gb": budget / 1e9, "pages": b,
+        "why": f"page batch cut to {b} (the largest power of two whose "
+               f"reckoned peak stays within {VIT_HEADROOM:.0%} of the "
+               f"card); dec_len {t} kept"}
+    del params
+    free_cuda()
+    params = init()               # the probe steps moved the first init
+    run = vit_train_run(params, cfg, opt, at(b), VIT_TRAIN_STEPS, dev)
+    assert all(math.isfinite(x) for x in run["losses"]), run["losses"]
+    ms = statistics.median(run["ms"])
+    fl = vit_forward_flops(cfg, b, t)
+    flops = 3 * fl["flops"]
+    out["train_pages"] = {
+        "pages": b, "dec_len": t, "steps": VIT_TRAIN_STEPS,
+        "ms_a_step": ms, "ms_steps": run["ms"], "losses": run["losses"],
+        "pages_per_s": b / (ms / 1e3), "tokens_per_s": b * t / (ms / 1e3),
+        "peak_gb": run["peak_gb"], "busy_share":
+            run["profile"]["busy_share"],
+        "matmul_params": fl["matmul_params"],
+        "model_tflop_a_step": flops / 1e12,
+        "model_tflops": flops / (ms / 1e3) / 1e12,
+        "share_of_989_bf16": flops / (ms / 1e3) / BF16_OPS_PER_S,
+        "profile": run["profile"]}
+    # parse_encode and parse_decode at VIT_SERVE_PAGES: the cross keys and
+    # values take 2 x L x N x H x Dh bf16 a page
+    dh = cfg.dec_d_model // cfg.dec_heads
+    kv_page = 2 * cfg.dec_layers * cfg.n_patches * cfg.dec_d_model * 2
+    dec_len = min(arch.shape("parse_decode")["dec_len"], cfg.max_dec_len)
+    cache_page = 2 * cfg.dec_layers * dec_len * cfg.dec_d_model * 2
+    n_pages = arch.shape("parse_encode")["global_batch"]
+    pb = VIT_SERVE_PAGES
+    reduced["parse_encode"] = (
+        f"{pb} pages of the cell's {n_pages:,}: its cross keys and values "
+        f"take {kv_page / 1e6:.1f} MB a page, {kv_page * n_pages / 1e9:.1f} "
+        f"GB in all ({kv_page * pb / 1e9:.1f} GB at {pb}); patches drawn "
+        f"on the card from a seeded generator")
+    reduced["parse_decode"] = (
+        f"{pb} pages of {n_pages:,}: a cache of {dec_len} positions and "
+        f"the cross keys and values take "
+        f"{(kv_page + cache_page) / 1e6:.0f} MB a page, "
+        f"{(kv_page + cache_page) * n_pages / 1e9:.0f} GB in all; the "
+        f"cross keys and values are parse_encode's, the cache zeros, the "
+        f"token 0 at position {dec_len - 1}, as the cell's")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    patches = torch.randn((pb, cfg.n_patches, cfg.patch ** 2 * 3),
+                          generator=g, device=dev).to(torch.bfloat16)
+
+    def encode_step():
+        with torch.no_grad():
+            return V.cross_kv(params, cfg,
+                              V.encode_pages(params, cfg, patches))
+
+    m, (xk, xv) = vit_measure(encode_step)
+    assert xk.shape == (cfg.dec_layers, pb, cfg.n_patches, cfg.dec_heads,
+                        dh) and bool(torch.isfinite(xk).all()) \
+        and bool(torch.isfinite(xv).all())
+    fe = vit_forward_flops(cfg, pb, 0, encode_only=True)["flops"]
+    out["parse_encode"] = {
+        "pages": pb, **m, "pages_per_s": pb / (m["ms"] / 1e3),
+        "model_tflops": fe / (m["ms"] / 1e3) / 1e12,
+        "share_of_989_bf16": fe / (m["ms"] / 1e3) / BF16_OPS_PER_S,
+        "kv_gb": (xk.numel() + xv.numel()) * 2 / 1e9}
+    del patches
+    free_cuda()
+    shape = (cfg.dec_layers, pb, dec_len, cfg.dec_heads, dh)
+    state = V.DecState(KVCache(*(torch.zeros(shape, dtype=torch.bfloat16,
+                                             device=dev) for _ in "kv")),
+                       xk, xv)
+    tok = torch.zeros((pb, 1), dtype=torch.int32, device=dev)
+    m, logits = vit_measure(lambda: V.dec_step(params, cfg, tok, state,
+                                               dec_len - 1)[0], reps=3)
+    assert logits.shape == (pb, cfg.vocab_size) and bool(
+        torch.isfinite(logits).all())
+    out["parse_decode"] = {"pages": pb, "cache": dec_len, **m,
+                           "tokens_per_s": pb / (m["ms"] / 1e3)}
+    del state, xk, xv, logits, tok
+    free_cuda()
+    gp, gt = VIT_GEN
+    patches = torch.randn((gp, cfg.n_patches, cfg.patch ** 2 * 3),
+                          generator=g, device=dev).to(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    toks, g_s = synced(lambda: V.generate(params, cfg, patches, gt))
+    toks2, g2_s = synced(lambda: V.generate(params, cfg, patches, gt))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    assert toks.shape == (gp, gt) and toks.dtype == torch.int32
+    assert int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size
+    assert torch.equal(toks, toks2), "generate: two runs differ"
+    prof = device_profile(lambda: V.generate(params, cfg, patches,
+                                             VIT_GEN_PROFILED),
+                          top=6, split=VIT_SPLIT)
+    out["generate"] = {
+        "pages": gp, "tokens": gt, "ms": min(g_s, g2_s) * 1e3,
+        "ms_runs": [g_s * 1e3, g2_s * 1e3],
+        "tokens_per_s": gp * gt / min(g_s, g2_s), "peak_gb": peak,
+        "distinct_tokens": int(toks.unique().numel()),
+        "two_runs_equal": True,
+        "profiled_tokens": VIT_GEN_PROFILED,
+        "busy_share": prof["busy_share"], "profile": prof}
+    counts = read_counts()
+    # the parser attends naively, as the reference does: no hand kernel
+    assert not any(counts.values()), counts
+    del params, patches, toks, toks2
+    free_cuda()
+    emit({"phase": "vit_parser", "config": VIT_ARCH, "card": card_line(),
+          "n_params": n_params, "n_params_formula": cfg.n_params(),
+          "optimizer": "chain_clip(adamw(3e-4, weight_decay=0.1), 1.0)",
+          "dtype": "bfloat16", "remat": True, "cells": out,
+          "launches": counts, "reduced": reduced,
+          "phase_s": time.perf_counter() - phase_t0})
+    return counts
+
+
+def vit_cpu_forward(out_path: str) -> None:
+    """(A child process.) The full-width bf16 nougat-base forward of one
+    page x 64 tokens on the cpu, from the seed-0 cpu init and numpy
+    seed-1 inputs (``vit_full_inputs``): its logits (float32) and
+    seconds written to ``out_path`` (.npz). It leaves two of the host's
+    cores to the parent."""
+    import os
+
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import vit_parser as V
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 3) - 2))
+    cfg = get_config(VIT_ARCH).model
+    params = V.init_vit_parser(cfg, torch.Generator().manual_seed(SEED),
+                               "cpu")
+    patches, toks = vit_full_inputs(cfg, "cpu")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = V.decode_logits(params, cfg,
+                                 V.encode_pages(params, cfg, patches), toks)
+    np.savez(out_path, out=logits.float().numpy(),
+             seconds=time.perf_counter() - t0)
+
+
+def vit_full_inputs(cfg, dev):
+    """One page of numpy ``RandomState(1)`` patches (bf16) and 64 tokens."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(1)
+    patches = rng.randn(1, cfg.n_patches, cfg.patch ** 2 * 3)
+    toks = rng.randint(0, cfg.vocab_size, (1, 64)).astype(np.int32)
+    return (torch.from_numpy(patches).to(torch.bfloat16).to(dev),
+            torch.from_numpy(toks).to(dev))
+
+
+def start_vit_cpu_forward() -> tuple:
+    """``vit_cpu_forward`` in a spawned child, beside phase
+    ``vit_parser``: (the process, its output path, its temporary
+    directory)."""
+    import multiprocessing
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="vit_cpu_forward_")
+    path = str(Path(tmp) / "out.npz")
+    proc = multiprocessing.get_context("spawn").Process(
+        target=vit_cpu_forward, args=(path,), daemon=True)
+    proc.start()
+    return proc, path, tmp
+
+
+def _vit_loss_grads(params, cfg, batch):
+    """(loss, every leaf's gradient on the cpu) of ``parser_loss``."""
+    import torch
+
+    from repro_torch.launch import specs as S
+    from repro_torch.models import vit_parser as V
+
+    leaves = S.vit_parser_param_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, _ = V.parser_loss(params, cfg, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    for p in leaves:
+        p.requires_grad_(False)
+    return float(loss.detach()), [g.cpu() for g in grads]
+
+
+def _vit_small_steps(arch, init, dev, steps: int):
+    """``steps`` ``vit_parser_train_step``s from ``init`` (cpu tensors,
+    copied to ``dev``) on the reduced train_pages cell's seed t + 1
+    batches: (losses, final leaves on the cpu, each leaf's smallest
+    nonzero |gradient|, the most one element moved)."""
+    from repro_torch.launch import specs as S
+
+    cfg = arch.model
+    shape = S._reduce_shape("vit_parser", arch.shape("train_pages"))
+    params = tree_to(init, dev)
+    opt = _GradScale(S._optimizer_for(arch)[0])
+    state = opt.init(S.vit_parser_param_leaves(params))
+    step_fn = S.vit_parser_train_step(cfg, opt)
+    losses = []
+    for step in range(steps):
+        _, state, loss = step_fn(params, state, step,
+                                 S._nougat_batch(cfg, shape, step + 1, dev))
+        losses.append(float(loss))
+    return (losses, [p.cpu() for p in S.vit_parser_param_leaves(params)],
+            [g.cpu() for g in opt.gmin], opt.moved)
+
+
+def phase_vit_parser_small_parity(cpu_forward: tuple) -> None:
+    """nougat-tiny (f32; 12 patches, window 8: the padded windows) from
+    one cpu init, on cuda against cpu: encode, logits, the loss and every
+    gradient within 2e-5, greedy tokens (16) equal, three AdamW steps
+    (losses within 2e-5, params within 2e-5 as ``param_gap`` holds them)
+    and two cuda trainings bit-equal; then the full-width bf16 forward of
+    one page x 64 tokens on cuda against the port's cpu path
+    (``cpu_forward``: ``start_vit_cpu_forward``'s child), within 2e-2 of
+    the cpu logits' largest magnitude."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs as S
+    from repro_torch.models import vit_parser as V
+
+    phase_t0 = time.perf_counter()
+    out = {}
+    arch = get_config(VIT_ARCH).reduced()
+    cfg = arch.model
+    init = V.init_vit_parser(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    rng = np.random.RandomState(SEED)
+    host = {"patches": rng.randn(4, cfg.n_patches, cfg.patch ** 2 * 3)
+            .astype(np.float32),
+            "tokens": rng.randint(0, cfg.vocab_size, (4, 16))
+            .astype(np.int32)}
+    host["labels"] = np.roll(host["tokens"], -1, axis=1)
+    bc = {k: torch.from_numpy(v) for k, v in host.items()}
+    bg = {k: v.to(DEVICE) for k, v in bc.items()}
+    pg = tree_to(init, DEVICE)
+    with torch.no_grad():
+        mc = V.encode_pages(init, cfg, bc["patches"])
+        mg = V.encode_pages(pg, cfg, bg["patches"])
+        lc = V.decode_logits(init, cfg, mc, bc["tokens"])
+        lg = V.decode_logits(pg, cfg, mg, bg["tokens"])
+    enc_err = float((mg.cpu() - mc).abs().max())
+    logit_err = float((lg.cpu() - lc).abs().max())
+    loss_c, gc = _vit_loss_grads(tree_to(init, "cpu"), cfg, bc)
+    loss_g, gg = _vit_loss_grads(pg, cfg, bg)
+    grad_err = max(float((a - b).abs().max()) for a, b in zip(gg, gc))
+    # tolerance: 2e-5 in float32 (another summation order)
+    assert enc_err <= 2e-5 and logit_err <= 2e-5, (enc_err, logit_err)
+    assert abs(loss_g - loss_c) <= 2e-5 and grad_err <= 2e-5, (
+        loss_g, loss_c, grad_err)
+    tok_c = V.generate(init, cfg, bc["patches"], 16)
+    tok_g = V.generate(pg, cfg, bg["patches"], 16)
+    assert torch.equal(tok_g.cpu(), tok_c), (tok_g, tok_c)
+    n0 = read_counts()
+    lsg, pgs, _, _ = _vit_small_steps(arch, init, DEVICE, VIT_SMALL_STEPS)
+    n1 = read_counts()
+    lsc, pcs, gmin, moved = _vit_small_steps(arch, init, "cpu",
+                                             VIT_SMALL_STEPS)
+    loss_diff = max(abs(a - c) for a, c in zip(lsg, lsc))
+    gap = param_gap(pgs, pcs, gmin, [str(i) for i in range(len(pcs))],
+                    moved)
+    assert loss_diff <= 2e-5, (lsg, lsc)
+    assert gap["held_max_abs_diff"] <= 2e-5, gap
+    assert gap["small_grad_max_abs_diff"] <= moved, gap
+    lsg2, pgs2, _, _ = _vit_small_steps(arch, init, DEVICE, VIT_SMALL_STEPS)
+    assert lsg == lsg2 and all(torch.equal(a, c) for a, c in
+                               zip(pgs, pgs2)), "two cuda trainings differ"
+    out["nougat_tiny"] = {
+        "encode_max_abs_err": enc_err, "logits_max_abs_err": logit_err,
+        "loss_abs_diff": abs(loss_g - loss_c), "grad_max_abs_err": grad_err,
+        "greedy_tokens_equal": True,
+        "distinct_tokens": int(tok_c.unique().numel()),
+        "step_loss_max_abs_diff": loss_diff,
+        "launches_3_steps": {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]},
+        "two_cuda_trainings_bit_equal": True, **gap}
+    # the full-width bf16 forward: cuda against the cpu path
+    # (``start_vit_cpu_forward``'s child, from the same seeded cpu init)
+    proc, path, tmp = cpu_forward
+    full = get_config(VIT_ARCH).model
+    pf = tree_to(V.init_vit_parser(full, torch.Generator().manual_seed(SEED),
+                                   "cpu"), DEVICE)
+    patches, toks = vit_full_inputs(full, DEVICE)
+    with torch.no_grad():
+        og, g_s = synced(lambda: V.decode_logits(
+            pf, full, V.encode_pages(pf, full, patches), toks))
+    t0 = time.perf_counter()
+    proc.join(timeout=600)
+    wait_s = time.perf_counter() - t0
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+    try:
+        assert proc.exitcode == 0, f"the cpu forward exited {proc.exitcode}"
+        with np.load(path) as f:
+            oc, c_s = torch.from_numpy(f["out"]), float(f["seconds"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    scale = float(oc.abs().max())
+    err = float((og.cpu().float() - oc).abs().max())
+    assert og.shape == (1, 64, full.vocab_size) and bool(
+        torch.isfinite(og).all())
+    # tolerance: 2e-2 of the largest magnitude (bf16 rounding at other
+    # points of each product on the two devices, over 22 layers)
+    assert err <= 2e-2 * scale, (err, scale)
+    out["full_width_bf16_forward"] = {
+        "pages": 1, "tokens": 64, "max_abs_err": err,
+        "logits_max_abs": scale, "err_over_scale": err / scale,
+        "cuda_s": g_s, "cpu_s": c_s, "cpu_wait_s": wait_s}
+    del pf, og
+    free_cuda()
+    emit({"phase": "vit_parser_small_parity", "configs": out,
+          "tolerance": {"f32": 2e-5, "bf16_of_max_abs": 2e-2},
+          "phase_s": time.perf_counter() - phase_t0})
+
+
 # -------------------------------------------------------------- main
 
 
@@ -4854,6 +5371,9 @@ def main() -> int:
     path_counts.append(phase_gnn_train())
     phase_gnn_small_parity(cpu_forward)
     path_counts.append(phase_gnn())
+    cpu_forward = start_vit_cpu_forward()
+    path_counts.append(phase_vit_parser())
+    phase_vit_parser_small_parity(cpu_forward)
 
     # name -> (the directory of its source, the TPU kernel it replaces)
     replaces = {

@@ -1,6 +1,7 @@
 """Config dataclasses + arch/shape registry (the subset of
 ``repro.configs.base`` the port needs: ``MoEConfig``, ``LMConfig``,
-``EncoderConfig``, ``GNNConfig``, ``RecsysConfig``, ``ShapeConfig``,
+``EncoderConfig``, ``VitParserConfig``, ``GNNConfig``, ``RecsysConfig``,
+``ShapeConfig``,
 ``ArchConfig``, ``LM_SHAPES``, ``GNN_SHAPES``, ``RECSYS_SHAPES``,
 ``register``/``get_config``), and ``round_up`` of ``repro.common``."""
 from __future__ import annotations
@@ -109,6 +110,55 @@ class EncoderConfig:
         emb = self.vocab_size * d + self.max_len * d + 2 * d
         head = d * d + d * self.n_outputs
         return L * per_layer + emb + head
+
+
+@dataclasses.dataclass(frozen=True)
+class VitParserConfig:
+    """Nougat-class parser: windowed-attention image encoder + causal
+    cross-attention text decoder. Page pixels -> patch embeddings is a
+    stub frontend (the batch provides patch vectors directly).
+
+    ``n_params`` is the reference's formula, copied as it stands: it
+    leaves out the decoder's third FFN matrix and ``lm_head`` (372.4 M
+    at ``nougat-base``, where the tree holds 466,362,368); count the
+    tree's leaves (``vit_parser_param_count``) for model FLOPs.
+    ``scan_layers`` is the JAX package's lowering knob; the port loops
+    over the layers either way."""
+
+    name: str
+    # encoder (Swin-ish, single resolution for simplicity at scale)
+    enc_layers: int
+    enc_d_model: int
+    enc_heads: int
+    enc_d_ff: int
+    window: int                       # window size in patches (1D-flattened windows)
+    image_hw: tuple[int, int] = (896, 672)
+    patch: int = 16
+    # decoder (mBART-ish causal LM with cross attention)
+    dec_layers: int = 10
+    dec_d_model: int = 1024
+    dec_heads: int = 16
+    dec_d_ff: int = 4096
+    vocab_size: int = 50000
+    max_dec_len: int = 4096
+    pages_per_batch: int = 10         # paper's B_p
+    norm_eps: float = 1e-5
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    remat: bool = True
+    scan_layers: bool = True
+
+    @property
+    def n_patches(self) -> int:
+        return (self.image_hw[0] // self.patch) * (self.image_hw[1] // self.patch)
+
+    def n_params(self) -> int:
+        e = self.enc_layers * (4 * self.enc_d_model**2
+                               + 2 * self.enc_d_model * self.enc_d_ff)
+        d = self.dec_layers * (8 * self.dec_d_model**2
+                               + 2 * self.dec_d_model * self.dec_d_ff)
+        emb = self.vocab_size * self.dec_d_model + self.n_patches * self.enc_d_model
+        return e + d + emb
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,15 +1,17 @@
 """Workload batches and the training and retrieval steps, the port of
-the seeded batch functions and of the LM, GNN and recsys cells of
-``repro/launch/specs.py`` (its abstract and sharded cells are the JAX
-package's own lowering and are not ported).
+the seeded batch functions and of the LM, GNN, recsys, ViT-parser and
+router train cells of ``repro/launch/specs.py`` (its abstract and
+sharded cells are the JAX package's own lowering and are not ported).
 
-Params are dict trees (a recsys MLP is a list of layer dicts); the
-optimizers take lists of tensors. ``lm_param_leaves``,
-``gnn_param_leaves`` and ``recsys_param_leaves`` give the leaves in the
-order ``jax.tree_util.tree_leaves`` gives the reference's params (sorted
-keys, lists in index order), so the optimizer state, the global norm and
-the checkpoint line up with the JAX package's leaf for leaf, and
-``opt_state_from_jax`` carries a JAX run's optimizer state across.
+Params are dict trees (a recsys MLP is a list of layer dicts; the
+router's ``Encoder`` module is carried as the JAX package's raw dict,
+``router_param_tree``); the optimizers take lists of tensors.
+``lm_param_leaves``, ``gnn_param_leaves``, ``recsys_param_leaves``,
+``vit_parser_param_leaves`` and ``router_param_leaves`` give the leaves
+in the order ``jax.tree_util.tree_leaves`` gives the reference's params
+(sorted keys, lists in index order), so the optimizer state, the global
+norm and the checkpoint line up with the JAX package's leaf for leaf,
+and ``opt_state_from_jax`` carries a JAX run's optimizer state across.
 """
 from __future__ import annotations
 
@@ -19,14 +21,17 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
-from repro_torch.configs.base import (ArchConfig, GNNConfig, LMConfig,
-                                      RecsysConfig, ShapeConfig, round_up)
+from repro_torch.configs.base import (ArchConfig, EncoderConfig, GNNConfig,
+                                      LMConfig, RecsysConfig, ShapeConfig,
+                                      VitParserConfig, round_up)
+from repro_torch.models.encoder import Encoder, _named_params, init_encoder
 from repro_torch.models.gnn import sampler as sampler_lib
 from repro_torch.models.gnn.equiformer import equiformer_loss
 from repro_torch.models.gnn.so3 import n_coeff_full
-from repro_torch.models.layers import from_numpy
+from repro_torch.models.layers import from_numpy, torch_dtype
 from repro_torch.models.recsys.models import recsys_loss, recsys_retrieval
 from repro_torch.models.transformer import lm_loss
+from repro_torch.models.vit_parser import parser_loss
 from repro_torch.optim import adafactor, adamw, apply_updates, chain_clip
 
 
@@ -37,14 +42,16 @@ def _optimizer_for(arch: ArchConfig):
 
 
 def _reduce_shape(family: str, shape: ShapeConfig) -> ShapeConfig:
-    """Shrink an LM, GNN or recsys workload cell for CPU runs (same
-    kind), as the JAX function's LM, GNN and recsys branches do."""
+    """Shrink a workload cell for CPU runs (same kind), as the JAX
+    function does; a family it has no branch for keeps its shape."""
     d = dict(shape.dims)
-    if family == "lm":
+    if family in ("lm", "encoder", "vit_parser"):
         if "seq_len" in d:
             d["seq_len"] = min(d["seq_len"], 64)
         if "global_batch" in d:
             d["global_batch"] = min(d["global_batch"], 4)
+        if "dec_len" in d:
+            d["dec_len"] = min(d["dec_len"], 16)
     elif family == "gnn":
         scale = {"full_graph_sm": dict(n_nodes=64, n_edges=256, d_feat=16),
                  "minibatch_lg": dict(n_nodes=0, n_edges=0, batch_nodes=8,
@@ -57,10 +64,6 @@ def _reduce_shape(family: str, shape: ShapeConfig) -> ShapeConfig:
             d["batch"] = min(d["batch"], 16)
         if "n_candidates" in d:
             d["n_candidates"] = min(d["n_candidates"], 64)
-    else:
-        raise NotImplementedError(f"family {family!r}: only the LM, GNN "
-                                  f"and recsys cells are ported (ROADMAP.md "
-                                  f"item 13e)")
     return ShapeConfig(shape.name, shape.kind, d, shape.note)
 
 
@@ -92,6 +95,45 @@ def gnn_param_leaves(params: dict) -> list[torch.Tensor]:
 def recsys_param_leaves(params: dict) -> list[torch.Tensor]:
     """A recsys model's leaves in ``jax.tree_util.tree_leaves`` order:
     sorted keys, an MLP's layers in index order."""
+    return _tree_leaves(params)
+
+
+def vit_parser_param_leaves(params: dict) -> list[torch.Tensor]:
+    """The ViT parser's leaves in ``jax.tree_util.tree_leaves`` order:
+    ``dec_layers`` and ``enc_layers`` (each's stacked leaves by sorted
+    name) between the sorted top-level leaves."""
+    return _tree_leaves(params)
+
+
+def router_param_tree(enc: Encoder) -> dict:
+    """The encoder's tensors as the JAX package's raw dict, on its
+    device and in its dtype: the top-level leaves by name and the layers'
+    stacked on a leading axis under ``"layers"`` (copies)."""
+    tree: dict = {}
+    per_layer: dict = {}
+    for name, i, prm in _named_params(enc):
+        if i is None:
+            tree[name] = prm.detach().clone()
+        else:
+            per_layer.setdefault(name, []).append(prm.detach())
+    tree["layers"] = {k: torch.stack(v) for k, v in per_layer.items()}
+    return tree
+
+
+def init_router_params(cfg: EncoderConfig,
+                       generator: torch.Generator | None = None,
+                       device=None) -> dict:
+    """``init_encoder``'s params as ``router_param_tree``: its weights are
+    drawn on the CPU from a generator seeded with ``generator``'s seed
+    (0 by default), then put on ``device`` (cuda unless "cpu")."""
+    seed = 0 if generator is None else generator.initial_seed()
+    return router_param_tree(init_encoder(
+        cfg, torch.Generator().manual_seed(seed),
+        device_lib.resolve(device)))
+
+
+def router_param_leaves(params: dict) -> list[torch.Tensor]:
+    """The router's leaves in ``jax.tree_util.tree_leaves`` order."""
     return _tree_leaves(params)
 
 
@@ -148,6 +190,47 @@ def _lm_train_batch(cfg: LMConfig, b: int, s: int, seed: int = 0,
             "labels": torch.from_numpy(toks[:, 1:].copy()).to(dev)}
 
 
+def _nougat_batch(cfg: VitParserConfig, shape: ShapeConfig, seed: int = 0,
+                  device=None) -> dict:
+    """A copy of the JAX ``_nougat_cell``'s ``train_pages`` batch:
+    ``patches`` (b, n_patches, patch * patch * 3) from numpy
+    ``RandomState(seed).randn``, rounded once to the compute dtype, and
+    zero int32 ``tokens`` of length ``min(dec_len, max_dec_len)``, which
+    are also the ``labels``. Tensors on ``device`` (cuda unless "cpu")."""
+    dev = device_lib.resolve(device)
+    b, t = shape["global_batch"], min(shape["dec_len"], cfg.max_dec_len)
+    patches = np.random.RandomState(seed).randn(
+        b, cfg.n_patches, cfg.patch * cfg.patch * 3)
+    toks = torch.zeros((b, t), dtype=torch.int32, device=dev)
+    return {"patches": torch.from_numpy(patches).to(
+                torch_dtype(cfg.compute_dtype)).to(dev),
+            "tokens": toks, "labels": toks}
+
+
+def _router_batch(cfg: EncoderConfig, shape: ShapeConfig, seed: int = 0,
+                  device=None) -> dict:
+    """A copy of the JAX ``_router_cell``'s ``sft_4k`` batch: int32
+    ``tokens`` ``randint(2, vocab)`` from numpy ``RandomState(seed)``,
+    of length ``min(seq_len, max_len)``, an all-ones float32 ``mask``
+    and float32 ``targets`` of 0.5 for each of the ``n_outputs``
+    parsers. Tensors on ``device`` (cuda unless "cpu")."""
+    dev = device_lib.resolve(device)
+    b, s = shape["global_batch"], min(shape["seq_len"], cfg.max_len)
+    toks = np.random.RandomState(seed).randint(2, cfg.vocab_size, (b, s))
+    return {"tokens": torch.from_numpy(toks.astype(np.int32)).to(dev),
+            "mask": torch.ones((b, s), dtype=torch.float32, device=dev),
+            "targets": torch.full((b, cfg.n_outputs), 0.5,
+                                  dtype=torch.float32, device=dev)}
+
+
+def _update(opt, leaves, grads, opt_state, step):
+    """One update of ``opt`` applied to ``leaves`` in place."""
+    updates, opt_state = opt.update(list(grads), opt_state, leaves,
+                                    int(step))
+    apply_updates(leaves, updates)
+    return opt_state
+
+
 def _train_step(loss_fn, leaves_of, opt):
     def train_step(params, opt_state, step, batch):
         leaves = leaves_of(params)
@@ -160,9 +243,7 @@ def _train_step(loss_fn, leaves_of, opt):
         finally:
             for p in leaves:
                 p.requires_grad_(False)
-        updates, opt_state = opt.update(list(grads), opt_state, leaves,
-                                        int(step))
-        apply_updates(leaves, updates)
+        opt_state = _update(opt, leaves, grads, opt_state, step)
         return params, opt_state, loss.detach()
 
     return train_step
@@ -175,6 +256,61 @@ def lm_train_step(cfg: LMConfig, opt):
     where the params and the batch are (``init_lm`` and
     ``_lm_train_batch`` put them on cuda unless asked for "cpu")."""
     return _train_step(lambda p, b: lm_loss(p, cfg, b), lm_param_leaves, opt)
+
+
+def vit_parser_train_step(cfg: VitParserConfig, opt):
+    """The ViT parser's ``train_pages`` step, as ``lm_train_step`` is the
+    LM's: the gradient of ``parser_loss`` with respect to every leaf, one
+    update of ``opt`` (``_optimizer_for``: ``chain_clip(adamw(3e-4, wd
+    0.1), 1.0)``), applied in place."""
+    return _train_step(lambda p, b: parser_loss(p, cfg, b),
+                       vit_parser_param_leaves, opt)
+
+
+def router_train_step(cfg: EncoderConfig, opt):
+    """The router's ``sft_4k`` step on ``router_param_tree`` params:
+    the tree's values are copied into an ``Encoder`` on the params'
+    device, ``Encoder.regression_loss`` is differentiated with respect to
+    its parameters, each stacked leaf's gradient is the stack of its
+    layers' (the preference head, which the loss does not reach, gets
+    none: a zero gradient that still decays), and one update of ``opt``
+    is applied to the tree in place."""
+    encoders: dict = {}
+
+    def train_step(params, opt_state, step, batch):
+        leaves = router_param_leaves(params)
+        dev = leaves[0].device
+        if dev not in encoders:
+            encoders[dev] = Encoder(cfg, dev)
+        named = list(_named_params(encoders[dev]))
+        with torch.no_grad():
+            for name, i, prm in named:
+                prm.copy_(params[name] if i is None
+                          else params["layers"][name][i])
+        prms = [prm for _, _, prm in named]
+        for p in prms:
+            p.requires_grad_(True)
+        try:
+            with torch.enable_grad():
+                loss = encoders[dev].regression_loss(batch)
+                grads = torch.autograd.grad(loss, prms, allow_unused=True)
+        finally:
+            for p in prms:
+                p.requires_grad_(False)
+        grad_tree: dict = {}
+        per_layer: dict = {}
+        for (name, i, _), g in zip(named, grads):
+            if i is None:
+                grad_tree[name] = g
+            else:
+                per_layer.setdefault(name, []).append(g)
+        grad_tree["layers"] = {k: torch.stack(gs)
+                               for k, gs in per_layer.items()}
+        opt_state = _update(opt, leaves, router_param_leaves(grad_tree),
+                            opt_state, step)
+        return params, opt_state, loss.detach()
+
+    return train_step
 
 
 def gnn_train_step(cfg: GNNConfig, opt):

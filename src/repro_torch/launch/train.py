@@ -1,6 +1,7 @@
 """Fault-tolerant training driver, the port of ``repro/launch/train.py``
-on one card: the LM train cells, the GNN train cells and the recsys
-``train_batch`` cell.
+on one card: the LM train cells, the GNN train cells, the recsys
+``train_batch`` cell, the ViT parser's ``train_pages`` and the router's
+``sft_4k``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
         --shape train_4k [--reduced] [--steps 100] [--ckpt-dir ckpts/qwen] \\
@@ -9,11 +10,20 @@ on one card: the LM train cells, the GNN train cells and the recsys
         --arch deepfm|autoint|dien|dlrm-mlperf --shape train_batch [--reduced]
     PYTHONPATH=src python -m repro_torch.launch.train --arch equiformer-v2 \\
         --shape full_graph_sm|minibatch_lg|molecule [--reduced]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch nougat-base \\
+        --shape train_pages [--reduced]
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch adaparse-router --shape sft_4k [--reduced]
 
 A GNN cell's model is the arch's with the dataset's input width and
 output count (``specs.gnn_cell_config``); ``ogb_products`` at full size
 does not fit one card and raises with the reckoning
-(``specs.gnn_refusal``); its reduced cell trains.
+(``specs.gnn_refusal``); its reduced cell trains. The router trains its
+``Encoder`` through ``specs.router_train_step`` on the JAX package's raw
+param layout (``specs.router_param_tree``), so its optimizer state and
+checkpoint line up with the reference's leaves. ``dpo_2k`` is refused:
+the reference's CLI cannot run it (``DPO_REFUSAL``); DPO trains through
+``core/dpo.py``.
 
 As the reference does:
 - restart-from-latest: on launch, restores the newest checkpoint in
@@ -46,15 +56,28 @@ from repro_torch.checkpoint import checkpoint as ckpt_lib
 from repro_torch.configs import get_config
 from repro_torch.distributed.fault import StragglerDetector
 from repro_torch.launch.specs import (_gnn_batch, _lm_train_batch,
-                                      _optimizer_for, _recsys_batch,
-                                      _reduce_shape, gnn_cell_config,
+                                      _nougat_batch, _optimizer_for,
+                                      _recsys_batch, _reduce_shape,
+                                      _router_batch, gnn_cell_config,
                                       gnn_param_leaves, gnn_refusal,
-                                      gnn_train_step, lm_param_leaves,
-                                      lm_train_step, recsys_param_leaves,
-                                      recsys_train_step)
+                                      gnn_train_step, init_router_params,
+                                      lm_param_leaves, lm_train_step,
+                                      recsys_param_leaves, recsys_train_step,
+                                      router_param_leaves, router_train_step,
+                                      vit_parser_param_leaves,
+                                      vit_parser_train_step)
 from repro_torch.models.gnn.equiformer import init_equiformer
 from repro_torch.models.recsys.models import init_recsys
 from repro_torch.models.transformer import init_lm
+from repro_torch.models.vit_parser import init_vit_parser
+
+#: why ``--arch adaparse-router --shape dpo_2k`` is refused
+DPO_REFUSAL = (
+    "the JAX package's train CLI raises TypeError on this cell: its step "
+    "takes five arguments, (params, ref_params, opt_state, step, batch) "
+    "(src/repro/launch/specs.py:456), but src/repro/launch/train.py "
+    "passes four; the port does not train it here either. DPO trains "
+    "through repro_torch.core.dpo (fit_dpo), as serve --variant llm does")
 
 
 def _check_mesh(spec: str) -> None:
@@ -91,10 +114,14 @@ def main(argv=None):
     if args.shape in arch.skips and not args.reduced:
         raise ValueError(f"{args.arch}/{args.shape} skipped: "
                          f"{arch.skips[args.shape]}")
-    if arch.family not in ("lm", "gnn", "recsys") or shape.kind != "train":
+    if shape.kind != "train":
         raise NotImplementedError(
-            f"{args.arch}/{args.shape}: the port trains the LM, GNN and "
-            f"recsys train cells only (ROADMAP.md item 13e)")
+            f"{args.arch}/{args.shape}: the train CLI takes train cells "
+            f"only; the serve cells wait for the port's cell factory "
+            f"(ROADMAP.md item 13e-3)")
+    if arch.family == "encoder" and shape.name.startswith("dpo"):
+        raise NotImplementedError(f"{args.arch}/{args.shape}: "
+                                  f"{DPO_REFUSAL}")
     cfg = arch.model
     opt, _ = _optimizer_for(arch)
     if arch.family == "gnn":
@@ -114,6 +141,18 @@ def main(argv=None):
 
         def make_batch(seed):
             return _lm_train_batch(cfg, b, s, seed=seed, device=dev)
+    elif arch.family == "vit_parser":
+        init, leaves_of = init_vit_parser, vit_parser_param_leaves
+        train_step = vit_parser_train_step(cfg, opt)
+
+        def make_batch(seed):
+            return _nougat_batch(cfg, shape, seed, device=dev)
+    elif arch.family == "encoder":
+        init, leaves_of = init_router_params, router_param_leaves
+        train_step = router_train_step(cfg, opt)
+
+        def make_batch(seed):
+            return _router_batch(cfg, shape, seed, device=dev)
     else:
         init, leaves_of = init_recsys, recsys_param_leaves
         train_step = recsys_train_step(cfg, opt)

@@ -33,7 +33,12 @@ its plain version (the same adds in the same order, each rounded to the
 dtype), the reduced recsys zoo's scores on cuda against cpu within
 2e-5, and its training (5 steps, AdamW) within 1e-4 (losses, and params
 as the MoE LMs': every element whose nonzero gradients all reached
-1e-6), two cuda runs and the train CLI's restart bit-equal.
+1e-6), two cuda runs and the train CLI's restart bit-equal; nougat-tiny
+(the ViT parser) on cuda against cpu within 2e-5 (encode, logits,
+gradients, three steps; params as the MoE LMs' but at 2e-5), greedy
+tokens equal, no kernel launched, two cuda runs bit-equal; the router's
+sft_4k cell within 2e-5 (losses) and 1e-4 (params); both cells' train
+CLI restarts bit-equal.
 """
 import dataclasses
 
@@ -1655,6 +1660,152 @@ def test_gnn_train_main_restart_is_bit_exact_on_cuda(dev, tmp_path):
 
     full = main("--steps", "6", "--ckpt-dir", str(tmp_path / "full"),
                 "--ckpt-every", "100")
+    assert main("--steps", "3", "--ckpt-dir", str(tmp_path / "ck"),
+                "--ckpt-every", "3") == full[:3]
+    assert main("--steps", "6", "--ckpt-dir", str(tmp_path / "ck")) == \
+        full[3:]
+    a = ckpt._flatten(ckpt.restore(str(tmp_path / "full"), device="cpu")[1])
+    b = ckpt._flatten(ckpt.restore(str(tmp_path / "ck"), device="cpu")[1])
+    assert [p for p, _ in a] == [p for p, _ in b]
+    assert all(torch.equal(x, y) for (_, x), (_, y) in zip(a, b))
+
+
+def _tiny_vit_train(d, host, steps=3):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs as S
+
+    arch = get_config("nougat-base").reduced()
+    shape = S._reduce_shape("vit_parser", arch.shape("train_pages"))
+    params = _tree_to(host, d)
+    opt = S._optimizer_for(arch)[0]
+    gmin, moved = [], []
+    state = opt.init(S.vit_parser_param_leaves(params))
+    step_fn = S.vit_parser_train_step(arch.model,
+                                      _recording(opt, gmin, moved))
+    losses = []
+    for step in range(steps):
+        batch = S._nougat_batch(arch.model, shape, step + 1, d)
+        _, state, loss = step_fn(params, state, step, batch)
+        losses.append(float(loss))
+    return (losses, [p.cpu() for p in S.vit_parser_param_leaves(params)],
+            gmin, sum(moved))
+
+
+def test_tiny_vit_parser_cuda_matches_cpu_and_repeats(dev):
+    """nougat-tiny (f32; 12 patches in windows of 8: padded) on cuda
+    against cpu: encode, logits, the loss and every gradient within
+    2e-5, greedy tokens equal; three steps, losses within 2e-5 and params
+    within 2e-5 at every element whose nonzero gradients all reached
+    1e-6 (the rest held to the most one element moved); no hand kernel
+    launched; two cuda runs bit-equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs as S
+    from repro_torch.models import vit_parser as V
+
+    cfg = get_config("nougat-base").reduced().model
+    host = V.init_vit_parser(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.RandomState(0)
+    patches = torch.from_numpy(rng.randn(3, cfg.n_patches, 768).astype(
+        np.float32))
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (3, 12)).astype(
+        np.int32))
+    batch = {"patches": patches, "tokens": toks,
+             "labels": toks.roll(-1, dims=1)}
+
+    def loss_grads(params, b):
+        leaves = S.vit_parser_param_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss, _ = V.parser_loss(params, cfg, b)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    k0 = {n: k.launches for n, k in _all_kernels().items()}
+    lc, gc = loss_grads(_tree_to(host, dev),
+                        {k: v.to(dev) for k, v in batch.items()})
+    lh, gh = loss_grads(_tree_to(host, "cpu"), batch)
+    assert {n: k.launches for n, k in _all_kernels().items()} == k0
+    assert abs(float(lc) - float(lh)) <= 2e-5
+    for a, b in zip(gc, gh):
+        torch.testing.assert_close(a.cpu(), b, atol=2e-5, rtol=0)
+    with torch.no_grad():
+        mc = V.encode_pages(_tree_to(host, dev), cfg, patches.to(dev))
+        mh = V.encode_pages(host, cfg, patches)
+        torch.testing.assert_close(mc.cpu(), mh, atol=2e-5, rtol=0)
+        torch.testing.assert_close(
+            V.decode_logits(_tree_to(host, dev), cfg, mc, toks.to(dev)).cpu(),
+            V.decode_logits(host, cfg, mh, toks), atol=2e-5, rtol=0)
+    assert torch.equal(
+        V.generate(_tree_to(host, dev), cfg, patches.to(dev), 16).cpu(),
+        V.generate(host, cfg, patches, 16))
+    lc, pc, _, _ = _tiny_vit_train(dev, host)
+    lh, ph, gmin, moved = _tiny_vit_train("cpu", host)
+    np.testing.assert_allclose(lc, lh, atol=2e-5, rtol=0)
+    for a, b, g in zip(pc, ph, gmin):
+        held = g >= 1e-6
+        if held.any():
+            assert (a - b).abs()[held].max().item() <= 2e-5
+        if (~held).any():
+            assert (a - b).abs()[~held].max().item() <= moved
+    lc2, pc2, _, _ = _tiny_vit_train(dev, host)
+    assert lc == lc2 and all(torch.equal(a, b) for a, b in zip(pc, pc2))
+
+
+def _all_kernels():
+    return {"fast_features": ff.KERNEL, "budget_route": br.KERNEL,
+            "ngram_score": ng.KERNEL, "flash_attention": fa.KERNEL,
+            "embedding_bag": eb.KERNEL, "embedding_bag_backward":
+            eb.BACKWARD, "segment_mm": sm.KERNEL}
+
+
+def test_router_sft_cell_cuda_matches_cpu(dev):
+    """The router-tiny ``sft_4k`` cell (``router_train_step``, AdamW with
+    clipping) from one cpu init, 3 steps on cuda against cpu: losses
+    within 2e-5 and params within 1e-4 (the router training's bar)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs as S
+
+    arch = get_config("adaparse-router").reduced()
+    shape = S._reduce_shape("encoder", arch.shape("sft_4k"))
+    host = S.init_router_params(arch.model, torch.Generator().manual_seed(0),
+                                "cpu")
+
+    def run(d):
+        params = _tree_to(host, d)
+        opt = S._optimizer_for(arch)[0]
+        state = opt.init(S.router_param_leaves(params))
+        step_fn = S.router_train_step(arch.model, opt)
+        losses = []
+        for step in range(3):
+            batch = S._router_batch(arch.model, shape, step + 1, d)
+            _, state, loss = step_fn(params, state, step, batch)
+            losses.append(float(loss))
+        return losses, [p.cpu() for p in S.router_param_leaves(params)]
+
+    lc, pc = run(dev)
+    lh, ph = run("cpu")
+    np.testing.assert_allclose(lc, lh, atol=2e-5, rtol=0)
+    for a, b in zip(pc, ph):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("arch, shape", [("nougat-base", "train_pages"),
+                                         ("adaparse-router", "sft_4k")])
+def test_parser_and_router_train_main_restart_is_bit_exact_on_cuda(
+        dev, tmp_path, arch, shape):
+    """``launch.train.main --reduced`` on cuda for the ViT parser's
+    train_pages and the router's sft_4k: 6 steps against 3, a checkpoint
+    and a resume to 6, bit-equal."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.launch import train
+
+    def main(*extra):
+        return train.main(["--arch", arch, "--shape", shape, "--reduced",
+                           "--log-every", "100", "--device", "cuda",
+                           *extra])
+
+    full = main("--steps", "6", "--ckpt-dir", str(tmp_path / "full"),
+                "--ckpt-every", "100")
+    assert all(np.isfinite(full))
     assert main("--steps", "3", "--ckpt-dir", str(tmp_path / "ck"),
                 "--ckpt-every", "3") == full[:3]
     assert main("--steps", "6", "--ckpt-dir", str(tmp_path / "ck")) == \

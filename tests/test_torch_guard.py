@@ -85,7 +85,9 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.configs.equiformer_v2",
                  "repro_torch.models.gnn.so3",
                  "repro_torch.models.gnn.sampler",
-                 "repro_torch.models.gnn.equiformer"):
+                 "repro_torch.models.gnn.equiformer",
+                 "repro_torch.configs.nougat_base",
+                 "repro_torch.models.vit_parser"):
         assert name in res["modules"]
     assert "join_timeline" in res["scripts"]
 

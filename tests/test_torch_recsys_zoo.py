@@ -30,6 +30,7 @@ from repro.models.recsys import interactions as JI
 from repro.models.recsys import models as JM
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs import get_config
+from repro_torch.configs.base import _REGISTRY
 from repro_torch.kernels.embedding_bag import ops
 from repro_torch.launch import specs as TS
 from repro_torch.launch import train
@@ -434,13 +435,22 @@ def test_retrieval_step_copies_the_cell():
 
 
 def test_reduce_shape_recsys_copies_the_jax_branch():
+    """The recsys branch, every registered arch's shapes under its own
+    family, and a family the JAX function has no branch for (the shape
+    comes back unchanged), all equal to the JAX function's."""
     for name in ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand"):
         want = JS._reduce_shape("recsys", j_get_config("deepfm").shape(name))
         got = TS._reduce_shape("recsys", get_config("deepfm").shape(name))
         assert repr(got) == repr(want)
-    with pytest.raises(NotImplementedError, match="13e"):
-        TS._reduce_shape("vit_parser",
-                         get_config("deepfm").shape("train_batch"))
+    for arch in sorted(_REGISTRY):
+        for s in get_config(arch).shapes:
+            fam = get_config(arch).family
+            want = JS._reduce_shape(fam, j_get_config(arch).shape(s.name))
+            assert repr(TS._reduce_shape(fam, s)) == repr(want), (arch, s)
+    shape = get_config("deepfm").shape("train_batch")
+    assert repr(TS._reduce_shape("unknown-family", shape)) == repr(shape) \
+        == repr(JS._reduce_shape("unknown-family", j_get_config(
+            "deepfm").shape("train_batch")))
 
 
 # ------------------------------------------------------------- training
