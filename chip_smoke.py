@@ -33,14 +33,17 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    bags of one over the 48.07 GB bf16 table, bit-equal; and a 100,000 x
    64 f32 table, B=4096, L=16, sum and mean; timed beside
    ``torch.nn.functional.embedding_bag``; and bags of one at the
-   train_batch lookups of DeepFM, D = 10 and D = 1 on the scalar path,
-   and of AutoInt, D = 16), embedding_bag_backward (the table gradient
-   of bags of one, bit-equal to its plain version, at DeepFM's, AutoInt's
-   and DIEN's train_batch lookups, beside
-   ``torch.ops.aten.embedding_dense_backward``; and as equiformer's
-   ``ops.segment_sum`` at minibatch_lg's message aggregation, 168,960
-   (49 x 128) bf16 rows into 169,984 nodes, beside ``index_add_``), segment_mm (``ogb_products``:
-   N=2,449,029, E=61,859,140, 100 -> 128, f32; timed beside
+   train_batch lookups of DeepFM, D = 10 (4-byte vectors) and D = 1
+   (2-byte), and of AutoInt, D = 16; each row also gives the floor at
+   DRAM's 32-byte sectors), embedding_bag_backward (the table gradient
+   of bags of one, bit-equal to its plain version and across two
+   launches, at DeepFM's, AutoInt's and DIEN's train_batch lookups,
+   beside ``torch.ops.aten.embedding_dense_backward``; and as
+   equiformer's ``ops.segment_sum`` at minibatch_lg's message
+   aggregation, 168,960 (49 x 128) bf16 rows into 169,984 nodes, beside
+   ``index_add_``; with the wrapper's host synchronisations, which must
+   be 0, and its plumbing timed), segment_mm
+   (``ogb_products``: N=2,449,029, E=61,859,140, 100 -> 128, f32; timed beside
    ``torch.matmul`` then ``index_add_``). ``ms`` is the CUDA-event median
    of one launch (host time included for a small kernel: the first event
    fires before the host has submitted it); ``ms_device`` is the device
@@ -1047,7 +1050,7 @@ def check_embedding_bag(dev) -> list[dict]:
     # a row with an arch looks up one seeded batch of that shape in the
     # full table drawn on the card, bags of one: dlrm-mlperf's serve_bulk
     # lookup, and DeepFM's and AutoInt's train_batch lookups (DeepFM's
-    # D = 10 and D = 1 rows, 20 and 2 bytes, take the scalar path)
+    # D = 10 and D = 1 rows, 20 and 2 bytes, take 4- and 2-byte vectors)
     shapes = (("dlrm_serve_bulk", "dlrm-mlperf", "serve_bulk", None,
                "bfloat16", None, None, 1, "sum", 0.0),
               ("deepfm_train_batch", "deepfm", "train_batch", None,
@@ -1108,22 +1111,117 @@ def check_embedding_bag(dev) -> list[dict]:
         ms_device = device_ms(launch)
         plain_ms = time_ms(lambda: ref.embedding_bag_ref(
             table, ids, w_plain, combiner=comb), reps=5, warmup=1)
-        # each looked-up row read once, each bag written once, the ids
-        # (and the weights, where given) read once
-        nbytes = (ids.numel() * d * table.element_size()
-                  + ids.shape[0] * d * table.element_size()
+        # each distinct looked-up row read once (a repeated id needs its
+        # row once), each bag written once, the ids (and the weights,
+        # where given) read once
+        el = table.element_size()
+        distinct = looked_up_rows(table, ids)
+        row_bytes = distinct.numel() * d * el
+        nbytes = (row_bytes + ids.shape[0] * d * el
                   + ids.numel() * ids.element_size()
                   + (weights.numel() * 4 if weights is not None else 0))
         b_ms, b_by = bound(nbytes)
+        # the same at DRAM's 32-byte sectors: the distinct sectors those
+        # rows touch (a 20-byte row spans 1.5 on average), the output and
+        # ids as above
+        sec_bytes = nbytes - row_bytes + row_sector_bytes(table, distinct)
+        del distinct
         rows.append(dict(name="embedding_bag", row=name, shape=dict(
             table_rows=table.shape[0], d=d, dtype=dtype, bags=ids.shape[0],
-            bag=ids.shape[1], combiner=comb, table=arch_id), tolerance=tol,
+            bag=ids.shape[1], combiner=comb, table=arch_id,
+            distinct_rows=row_bytes // (d * el)), tolerance=tol,
             max_abs_err=err, ms=ms, ms_device=ms_device, plain_ms=plain_ms,
-            library_ms=lib_ms,
-            bound_ms=b_ms, bound_by=b_by, bytes=nbytes))
+            library_ms=lib_ms, vec_bytes=ops.vec_bytes(
+                el, d * el, table.stride(0) * el, table.data_ptr(),
+                out.data_ptr()),
+            bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+            sector_floor_ms=bound(sec_bytes)[0], sector_bytes=sec_bytes))
         del table, ids, weights, w_plain, out
         free_cuda()
     return rows
+
+
+def looked_up_rows(table, ids):
+    """The distinct rows that reading table[ids] touches, sorted: ids
+    wrapped as jnp.take wraps them; an id out of range reads nothing."""
+    import torch
+
+    r = table.shape[0]
+    flat = ids.reshape(-1).long()
+    flat = torch.where(flat < 0, flat + r, flat)
+    return torch.unique(flat[(flat >= 0) & (flat < r)])
+
+
+def row_sector_bytes(table, rows) -> int:
+    """The distinct 32-byte sectors that reading table[rows] touches, in
+    bytes: a row at byte address a of width w spans sectors a // 32 ..
+    (a + w - 1) // 32, and two rows may share one."""
+    import torch
+
+    el = table.element_size()
+    w = table.shape[1] * el
+    a = table.data_ptr() + rows * (table.stride(0) * el)
+    first = a // 32
+    span = (a + w - 1) // 32 - first + 1
+    k = torch.arange(int(span.max()) if rows.numel() else 0,
+                     device=rows.device)
+    sectors = (first[:, None] + k)[k < span[:, None]]
+    return int(torch.unique(sectors).numel()) * 32
+
+
+def host_syncs(fn) -> int:
+    """The host synchronisations ``fn()`` makes: the warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")`` over one call."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message).lower() for w in caught)
+
+
+def backward_plumbing(ops, grad, ids, rows: int) -> dict:
+    """The backward's arguments as ``ops.embedding_bag_backward`` hands
+    them to the C entry (vector bytes, tile, sorted keys, perm, tile
+    pointers), the run statistics from a count of the valid keys a row,
+    and the plumbing timed."""
+    import torch
+
+    el, d = grad.element_size(), grad.shape[1]
+    vb = ops.vec_bytes(el, d * el, grad.data_ptr(), 512)
+    tile = ops.tile_rows(d * el // vb, ids.numel(), rows)
+    keys, perm, ptr = ops.row_offsets(ids, rows, tile)
+    lengths = torch.bincount(keys, minlength=rows + 1)[:rows]
+    stats = dict(touched_rows=int((lengths > 0).sum()),
+                 longest_run=int(lengths.max()) if rows else 0,
+                 long_runs=int((lengths > ops.LONG_RUN).sum()),
+                 ids_in_long_runs=int(lengths[lengths > ops.LONG_RUN]
+                                      .sum()))
+    del lengths
+    plumbing_ms = time_ms(lambda: ops.row_offsets(ids, rows, tile), reps=10,
+                          warmup=2)
+    return dict(vb=vb, tile=tile, keys=keys, perm=perm, ptr=ptr,
+                stats=stats, plumbing_ms=plumbing_ms)
+
+
+def backward_entry(ops, grad, pl: dict, rows: int, out):
+    """One launch of the backward's C entry on ``pl``'s plumbing."""
+    from repro_torch.kernels import cuda_lib
+
+    def entry():
+        ops.BACKWARD(grad.data_ptr(), ops._TABLE_DTYPES[grad.dtype], rows,
+                     grad.shape[1], pl["keys"].data_ptr(),
+                     pl["perm"].data_ptr(), pl["keys"].numel(),
+                     pl["ptr"].data_ptr(), pl["tile"], pl["vb"],
+                     out.data_ptr(), cuda_lib.stream_of(grad.device))
+    return entry
 
 
 def backward_ids(arch_id: str, dev):
@@ -1150,18 +1248,19 @@ def backward_ids(arch_id: str, dev):
 def check_embedding_bag_backward(dev) -> list[dict]:
     """Row 6c: ``embedding_bag_backward`` (the table gradient of bags of
     one) against its plain version on the card, bit-equal, at the
-    train_batch lookups of DeepFM (D = 10, bf16: the scalar path), AutoInt
-    (D = 16, bf16: 16-byte vectors) and DIEN (D = 18, f32, its reduced
-    train batch), with a seeded normal gradient. ``ms`` is the wrapper
-    (the ids' wrap, stable sort and cut into runs, then the entry),
-    ``kernel_ms`` the C entry alone (the zeroing memset and the run-sum
-    kernel) on the runs, ``ms_device`` the entry back to back; ``aten.embedding_dense_backward`` (float32 accumulation,
-    one rounding) is timed beside it as the yardstick the port never
-    calls."""
+    train_batch lookups of DeepFM (D = 10, bf16: 4-byte vectors), AutoInt
+    (D = 16, bf16: 16-byte vectors) and DIEN (D = 18, f32: 8-byte
+    vectors, its reduced train batch), with a seeded normal gradient, and
+    two launches bit-equal. ``ms`` is the wrapper (the ids' wrap, stable
+    sort and tile pointers, then the entry), ``host_syncs`` the host
+    synchronisations it makes, ``kernel_ms`` the C entry alone on the
+    wrapper's plumbing, ``ms_device`` the entry back to back and
+    ``plumbing_ms`` the plumbing alone; ``aten.embedding_dense_backward``
+    (float32 accumulation, one rounding) is timed beside it as the
+    yardstick the port never calls."""
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.embedding_bag import ops, ref
     from repro_torch.launch.kernel_timing import device_ms
     from repro_torch.models.recsys import embedding as E
@@ -1185,18 +1284,15 @@ def check_embedding_bag_backward(dev) -> list[dict]:
         assert torch.equal(got, want), \
             f"embedding_bag_backward {arch_id}: max err " \
             f"{(got.float() - want.float()).abs().max().item()}"
-        run_key, run_start, perm = ops.sorted_runs(ids, r)
-        lengths = run_start[1:] - run_start[:-1]
-        max_run, touched = int(lengths.max()), int(run_key.numel())
-        del got, want, lengths
+        del want
+        again = ops.embedding_bag_backward(grad, ids, r)
+        assert torch.equal(got, again), f"{arch_id}: two launches differ"
+        del got, again
+        syncs = host_syncs(lambda: ops.embedding_bag_backward(grad, ids, r))
+        assert syncs == 0, f"{arch_id}: the wrapper made {syncs} host syncs"
+        pl = backward_plumbing(ops, grad, ids, r)
         out = torch.empty((r, d), dtype=dt, device=dev)
-        vec16 = int((d * grad.element_size()) % 16 == 0)
-
-        def entry():
-            ops.BACKWARD(grad.data_ptr(), ops._TABLE_DTYPES[dt], r, d,
-                         run_key.data_ptr(), run_start.data_ptr(),
-                         perm.data_ptr(), touched, vec16, out.data_ptr(),
-                         cuda_lib.stream_of(dev))
+        entry = backward_entry(ops, grad, pl, r, out)
 
         def wrapper():
             ops.embedding_bag_backward(grad, ids, r)
@@ -1222,13 +1318,14 @@ def check_embedding_bag_backward(dev) -> list[dict]:
             shape=dict(table=arch_id, table_rows=r, d=d,
                        dtype=cfg.param_dtype, ids=ids.numel(),
                        id_dtype=str(ids.dtype).split(".")[-1],
-                       vec16=bool(vec16), touched_rows=touched,
-                       longest_run=max_run),
-            tolerance=0.0, max_abs_err=0.0, ms=ms, kernel_ms=kernel_ms,
-            ms_device=ms_device, plain_ms=plain_ms, library_ms=lib_ms,
+                       vec_bytes=pl["vb"], tile=pl["tile"], **pl["stats"]),
+            tolerance=0.0, max_abs_err=0.0, ms=ms, host_syncs=syncs,
+            kernel_ms=kernel_ms, ms_device=ms_device,
+            plumbing_ms=pl["plumbing_ms"], plain_ms=plain_ms,
+            library_ms=lib_ms,
             library="torch.ops.aten.embedding_dense_backward",
             bound_ms=b_ms, bound_by=b_by, bytes=nbytes))
-        del grad, ids, ids64, run_key, run_start, perm, out
+        del grad, ids, ids64, pl, out, entry
         free_cuda()
     return rows
 
@@ -1238,15 +1335,15 @@ def check_segment_sum(dev) -> list[dict]:
     (``ops.segment_sum``) at minibatch_lg's message aggregation: the
     168,960 edges' (49 x 128) bf16 messages summed into 169,984 nodes by
     the cell's seed-1 ``dst``, bit-equal to the plain version (the same
-    adds in the same order). ``ms`` is the wrapper (the ids' map past
-    the end, sort and runs, then the entry), ``kernel_ms`` the C entry
-    alone, ``ms_device`` the entry back to back; ``index_add_`` (atomics)
-    is timed beside it as the yardstick the port never calls on this
-    path."""
+    adds in the same order) and across two launches. ``ms`` is the
+    wrapper (the ids' map past the end, sort and tile pointers, then the
+    entry), ``host_syncs`` its host synchronisations, ``kernel_ms`` the C
+    entry alone, ``ms_device`` the entry back to back; ``index_add_``
+    (atomics) is timed beside it as the yardstick the port never calls on
+    this path."""
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.embedding_bag import ops, ref
     from repro_torch.launch import specs as S
     from repro_torch.launch.kernel_timing import device_ms
@@ -1266,17 +1363,15 @@ def check_segment_sum(dev) -> list[dict]:
     # tolerance: none (the plain version's adds, in its order)
     assert torch.equal(got, want), \
         f"segment_sum: max err {(got.float() - want.float()).abs().max()}"
-    del got, want
-    run_key, run_start, perm = ops.sorted_runs(ids, n)
-    touched = int(run_key.numel())
-    max_run = int((run_start[1:] - run_start[:-1]).max())
+    del want
+    assert torch.equal(got, ops.segment_sum(msgs, ids, n)), \
+        "segment_sum: two launches differ"
+    del got
+    syncs = host_syncs(lambda: ops.segment_sum(msgs, ids, n))
+    assert syncs == 0, f"segment_sum: {syncs} host syncs"
+    pl = backward_plumbing(ops, msgs, ids, n)
     out = torch.empty((n, d), dtype=torch.bfloat16, device=dev)
-
-    def entry():
-        ops.BACKWARD(msgs.data_ptr(), 1, n, d, run_key.data_ptr(),
-                     run_start.data_ptr(), perm.data_ptr(), touched, 1,
-                     out.data_ptr(), cuda_lib.stream_of(dev))
-
+    entry = backward_entry(ops, msgs, pl, n, out)
     ms = time_ms(lambda: ops.segment_sum(msgs, ids, n), reps=10, warmup=2)
     kernel_ms = time_ms(entry, reps=10, warmup=2)
     ms_device = device_ms(entry)
@@ -1290,18 +1385,20 @@ def check_segment_sum(dev) -> list[dict]:
     # the messages read once, the ids once, the (N, D) sums written once
     nbytes = msgs.numel() * 2 + ids.numel() * ids.element_size() + n * d * 2
     b_ms, b_by = bound(nbytes)
-    del msgs, ids, ids64, run_key, run_start, perm, out
-    free_cuda()
-    return [dict(
+    row = dict(
         name="embedding_bag_backward", row="equiformer_aggregation",
         shape=dict(table="equiformer-v2 minibatch_lg messages",
                    table_rows=n, d=d, dtype="bfloat16", ids=e,
-                   id_dtype="int32", vec16=True, touched_rows=touched,
-                   longest_run=max_run),
-        tolerance=0.0, max_abs_err=0.0, ms=ms, kernel_ms=kernel_ms,
-        ms_device=ms_device, plain_ms=plain_ms, library_ms=lib_ms,
-        library="torch.Tensor.index_add_ (atomics)", bound_ms=b_ms,
-        bound_by=b_by, bytes=nbytes)]
+                   id_dtype=str(ids.dtype).split(".")[-1],
+                   vec_bytes=pl["vb"], tile=pl["tile"], **pl["stats"]),
+        tolerance=0.0, max_abs_err=0.0, ms=ms, host_syncs=syncs,
+        kernel_ms=kernel_ms, ms_device=ms_device,
+        plumbing_ms=pl["plumbing_ms"], plain_ms=plain_ms,
+        library_ms=lib_ms, library="torch.Tensor.index_add_ (atomics)",
+        bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+    del msgs, ids, ids64, pl, out, entry
+    free_cuda()
+    return [row]
 
 
 def gnn_inputs(dev):
@@ -3919,7 +4016,7 @@ def phase_recsys_small_parity() -> None:
 
 
 #: the split of a recsys step's device time by kernel (first match wins)
-RECSYS_SPLIT = {"embedding_bag_backward": r"bag_backward_kernel",
+RECSYS_SPLIT = {"embedding_bag_backward": r"bag_long_kernel|bag_tiles_kernel",
                 "embedding_bag": r"bag_kernel",
                 "sort": r"[Ss]ort|[Rr]adix",
                 "gemm": r"gemm|xmma|cutlass|sm90|Kernel2|cublas",
@@ -4283,7 +4380,7 @@ GNN_ARCH = "equiformer-v2"
 GNN_TRAIN_STEPS = 3            # timed minibatch_lg steps, after a warm-up
 GNN_PROBE_BATCH_NODES = (64, 128)  # the steps whose peaks reckon
 #                                    minibatch_lg's
-GNN_SPLIT = {"embedding_bag_backward": r"bag_backward_kernel",
+GNN_SPLIT = {"embedding_bag_backward": r"bag_long_kernel|bag_tiles_kernel",
              "embedding_bag": r"bag_kernel|embedding_bag",
              "gemm": r"gemm|cutlass|nvjet|sm90_xmma|wgmma",
              "elementwise": r"elementwise|vectorized|unrolled",

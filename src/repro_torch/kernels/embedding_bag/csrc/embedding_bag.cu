@@ -10,19 +10,30 @@
 // serve_bulk lookup (262,144 x 26 bags of one, D=128, bf16) that is
 // 1.745 GB of rows read, 1.745 GB written and 27 MB of ids: ~1.05 ms at
 // 3.35 TB/s. The rows are scattered over a 48 GB table, so every row is
-// a cold 256-byte gather; the design keeps many independent 16-byte
-// loads in flight and does no other work.
+// a cold 256-byte gather; the design keeps many independent loads in
+// flight and does no other work.
 //
 // Design. The TPU kernel walks a block of bags row by row with dynamic
-// loads out of HBM and accumulates in VMEM. Here a group of G lanes
-// (G = the row's count of 16-byte vectors, rounded up to a power of two
-// and at most 32; a 128-wide bf16 row is 16 vectors, two bags a warp)
-// owns one bag: each lane loads its 16-byte slice of every row of the
-// bag, accumulates w * row in float32 registers over the L ids, divides
-// for mean, and narrows once. Rows whose byte width is not a multiple of
-// 16 take a scalar path (one element a lane). No shared memory and no
-// atomics: a bag is summed by one lane per column in id order, so the
-// output is the same bits every run.
+// loads out of HBM and accumulates in VMEM. Here the threads are laid
+// flat over (bag, vector): a vector is the widest of 16, 8, 4 or 2 bytes
+// that divides the row's byte width, the row stride and both base
+// addresses (the wrapper picks it), so a D = 10 bf16 row is five 4-byte
+// words and a D = 18 f32 row nine 8-byte ones. A warp takes Q x 32
+// consecutive (bag, vector) elements (Q = 1 for 16-byte vectors, which
+// is the earlier design's access pattern, else 2: 1 and 4 measured
+// slower), so its stores run contiguously across bags (128 bytes a warp
+// at 4-byte vectors), and each lane keeps Q independent row loads in
+// flight. Each lane accumulates w * row over the bag's L ids in float32
+// registers in id order, divides for mean, and narrows once. No shared
+// memory and no atomics: the same bits every run.
+//
+// What bounded the earlier design, and what this one does about it: a
+// row whose byte width was not a multiple of 16 took one 2-byte element
+// a lane, so DeepFM's 20-byte rows were ten 2-byte loads by 10 lanes of
+// a 16-lane group (6 idle) and 2-byte stores (0.2014 ms against a
+// 0.0336 ms byte bound); now five 4-byte loads and 128-byte warp stores.
+// ptxas (sm_90a): 32-48 registers, no shared memory, no spills but 4
+// bytes in one of the 14 variants (bf16, 4-byte vectors, int64 ids).
 //
 // Semantics shared with ref.py (jnp.take): an id in [-R, 0) counts from
 // the end, an id >= R or < -R reads a NaN row. The TPU kernel clamps
@@ -33,6 +44,9 @@
 // 2^31 on the 187.8M-row table).
 #include <stdint.h>
 
+#include <mutex>
+#include <type_traits>
+
 #include <cuda_bf16.h>
 
 #include "../../csrc/common.cuh"
@@ -40,33 +54,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-
-template <typename T, int V>
-struct Row;
-
-template <>
-struct Row<float, 1> {
-  static __device__ __forceinline__ void load(const float* p, float* x) {
-    x[0] = __ldg(p);
-  }
-  static __device__ __forceinline__ void store(float* p, const float* x) {
-    p[0] = x[0];
-  }
-};
-
-template <>
-struct Row<float, 4> {
-  static __device__ __forceinline__ void load(const float* p, float* x) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    x[0] = v.x;
-    x[1] = v.y;
-    x[2] = v.z;
-    x[3] = v.w;
-  }
-  static __device__ __forceinline__ void store(float* p, const float* x) {
-    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-  }
-};
+constexpr int kWarpsPerBlock = kThreads / 32;
 
 __device__ __forceinline__ float bf16_bits_to_float(unsigned bits16) {
   return __uint_as_float(bits16 << 16);
@@ -76,151 +64,268 @@ __device__ __forceinline__ unsigned float_to_bf16_bits(float f) {
   return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(f)));
 }
 
+template <int VB>
+struct RawOf;
 template <>
-struct Row<__nv_bfloat16, 1> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float* x) {
-    x[0] = bf16_bits_to_float(
-        __ldg(reinterpret_cast<const unsigned short*>(p)));
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p,
-                                               const float* x) {
-    *reinterpret_cast<unsigned short*>(p) =
-        static_cast<unsigned short>(float_to_bf16_bits(x[0]));
-  }
+struct RawOf<2> {
+  using type = unsigned short;
+};
+template <>
+struct RawOf<4> {
+  using type = unsigned;
+};
+template <>
+struct RawOf<8> {
+  using type = uint2;
+};
+template <>
+struct RawOf<16> {
+  using type = uint4;
 };
 
-template <>
-struct Row<__nv_bfloat16, 8> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float* x) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+__device__ __forceinline__ void to_words(unsigned short r, unsigned* w) {
+  w[0] = r;
+}
+__device__ __forceinline__ void to_words(unsigned r, unsigned* w) { w[0] = r; }
+__device__ __forceinline__ void to_words(uint2 r, unsigned* w) {
+  w[0] = r.x;
+  w[1] = r.y;
+}
+__device__ __forceinline__ void to_words(uint4 r, unsigned* w) {
+  w[0] = r.x;
+  w[1] = r.y;
+  w[2] = r.z;
+  w[3] = r.w;
+}
+
+template <int VB>
+__device__ __forceinline__ typename RawOf<VB>::type from_words(
+    const unsigned* w) {
+  if constexpr (VB == 2)
+    return static_cast<unsigned short>(w[0]);
+  else if constexpr (VB == 4)
+    return w[0];
+  else if constexpr (VB == 8)
+    return make_uint2(w[0], w[1]);
+  else
+    return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// A row slice of VB bytes of element type T: loaded raw (held as loaded,
+// so a batch of loads is in flight before any is used), widened to
+// float32 (little endian: the low half of a word is the first bf16),
+// narrowed back with round-to-nearest-even.
+template <typename T, int VB>
+struct Vec {
+  static constexpr int E = VB / static_cast<int>(sizeof(T));
+  static constexpr int NW = VB >= 4 ? VB / 4 : 1;
+  using raw = typename RawOf<VB>::type;
+  static __device__ __forceinline__ raw ldg(const char* p) {
+    return __ldg(reinterpret_cast<const raw*>(p));
+  }
+  static __device__ __forceinline__ raw lds(const char* p) {
+    return *reinterpret_cast<const raw*>(p);
+  }
+  static __device__ __forceinline__ void st(char* p, raw r) {
+    *reinterpret_cast<raw*>(p) = r;
+  }
+  static __device__ __forceinline__ raw zero() { return raw{}; }
+  static __device__ __forceinline__ void widen(raw r, float* x) {
+    unsigned w[NW];
+    to_words(r, w);
+    if constexpr (std::is_same<T, float>::value) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      x[2 * i] = bf16_bits_to_float(w[i] & 0xffffu);     // little endian:
-      x[2 * i + 1] = bf16_bits_to_float(w[i] >> 16);     // low half first
+      for (int i = 0; i < NW; ++i) x[i] = __uint_as_float(w[i]);
+    } else if constexpr (VB == 2) {
+      x[0] = bf16_bits_to_float(w[0]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < NW; ++i) {
+        x[2 * i] = bf16_bits_to_float(w[i] & 0xffffu);
+        x[2 * i + 1] = bf16_bits_to_float(w[i] >> 16);
+      }
     }
   }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p,
-                                               const float* x) {
-    unsigned w[4];
+  static __device__ __forceinline__ raw narrow(const float* x) {
+    unsigned w[NW];
+    if constexpr (std::is_same<T, float>::value) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      w[i] = float_to_bf16_bits(x[2 * i]) |
-             (float_to_bf16_bits(x[2 * i + 1]) << 16);
-    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+      for (int i = 0; i < NW; ++i) w[i] = __float_as_uint(x[i]);
+    } else if constexpr (VB == 2) {
+      w[0] = float_to_bf16_bits(x[0]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < NW; ++i)
+        w[i] = float_to_bf16_bits(x[2 * i]) |
+               (float_to_bf16_bits(x[2 * i + 1]) << 16);
+    }
+    return from_words<VB>(w);
   }
 };
 
-template <typename T, typename IdT, int V>
+template <typename T, typename IdT, int VB, int Q>
 __global__ void __launch_bounds__(kThreads)
-bag_kernel(const T* __restrict__ table, long long n_rows,
-           long long row_stride, int d, const IdT* __restrict__ ids,
+bag_kernel(const char* __restrict__ table, long long n_rows,
+           long long row_stride, int w, const IdT* __restrict__ ids,
            const float* __restrict__ weights, long long n_bags, int bag,
-           int mean, int group_log2, T* __restrict__ out) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  const long long b = t >> group_log2;
-  if (b >= n_bags) return;
-  const int group = 1 << group_log2;
-  const int lane = static_cast<int>(t & (group - 1));
-  const IdT* bid = ids + b * bag;
-  const float* bw = weights ? weights + b * bag : nullptr;
-
-  float denom = 1.0f;
-  if (mean) {
-    denom = 0.0f;
-    for (int l = 0; l < bag; ++l) denom = __fadd_rn(denom, bw ? bw[l] : 1.0f);
-    denom = denom < 1e-9f ? 1e-9f : denom;     // NaN stays NaN
-  }
+           int mean, int bags_per_warp, char* __restrict__ out) {
+  using V = Vec<T, VB>;
+  constexpr int E = V::E;
+  const long long warp = (static_cast<long long>(blockIdx.x) * kThreads +
+                          threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long b0 = warp * bags_per_warp;
+  if (b0 >= n_bags) return;
+  const int nb = static_cast<int>(
+      min(static_cast<long long>(bags_per_warp), n_bags - b0));
+  const int n_el = nb * w;
   const float nan = __int_as_float(0x7fc00000);
-  const int n_vec = d / V;
-  for (int v = lane; v < n_vec; v += group) {
-    float acc[V];
+  for (int f0 = 0; f0 < n_el; f0 += 32 * Q) {
+    long long b[Q];
+    int v[Q];
+    bool ok[Q];
+    float acc[Q][E], denom[Q];
 #pragma unroll
-    for (int i = 0; i < V; ++i) acc[i] = 0.0f;
-    for (int l = 0; l < bag; ++l) {
-      long long id = static_cast<long long>(bid[l]);
-      const float wl = bw ? bw[l] : 1.0f;
-      if (id < 0) id += n_rows;
-      float x[V];
-      if (id < 0 || id >= n_rows) {
+    for (int q = 0; q < Q; ++q) {
+      const int f = f0 + 32 * q + lane;
+      ok[q] = f < n_el;
+      const int lb = !ok[q] ? 0 : w == 1 ? f : f / w;
+      v[q] = ok[q] ? f - lb * w : 0;
+      b[q] = b0 + lb;
+      denom[q] = 1.0f;
 #pragma unroll
-        for (int i = 0; i < V; ++i) x[i] = nan;
-      } else {
-        Row<T, V>::load(table + id * row_stride + static_cast<long long>(v) * V,
-                        x);
-      }
-#pragma unroll
-      for (int i = 0; i < V; ++i) acc[i] = __fadd_rn(acc[i], __fmul_rn(x[i], wl));
+      for (int e = 0; e < E; ++e) acc[q][e] = 0.0f;
     }
     if (mean) {
 #pragma unroll
-      for (int i = 0; i < V; ++i) acc[i] = __fdiv_rn(acc[i], denom);
+      for (int q = 0; q < Q; ++q) {
+        float dn = 0.0f;
+        for (int l = 0; l < bag; ++l)
+          dn = __fadd_rn(dn, weights ? __ldg(weights + b[q] * bag + l) : 1.0f);
+        denom[q] = dn < 1e-9f ? 1e-9f : dn;    // NaN stays NaN
+      }
     }
-    Row<T, V>::store(out + b * d + static_cast<long long>(v) * V, acc);
+    for (int l = 0; l < bag; ++l) {
+      long long id[Q];
+      float wl[Q];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        id[q] = ok[q] ? static_cast<long long>(__ldg(ids + b[q] * bag + l))
+                      : 0;
+        wl[q] = weights && ok[q] ? __ldg(weights + b[q] * bag + l) : 1.0f;
+      }
+      typename V::raw r[Q];
+      bool bad[Q];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        long long x = id[q];
+        if (x < 0) x += n_rows;
+        bad[q] = x < 0 || x >= n_rows;
+        r[q] = ok[q] && !bad[q]
+                   ? V::ldg(table + x * row_stride +
+                            static_cast<long long>(v[q]) * VB)
+                   : V::zero();
+      }
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        float x[E];
+        V::widen(r[q], x);
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          acc[q][e] = __fadd_rn(acc[q][e], __fmul_rn(bad[q] ? nan : x[e],
+                                                     wl[q]));
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      if (!ok[q]) continue;
+      if (mean) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[q][e] = __fdiv_rn(acc[q][e], denom[q]);
+      }
+      V::st(out + (b[q] * w + v[q]) * static_cast<long long>(VB),
+            V::narrow(acc[q]));
+    }
   }
 }
 
-template <typename T, typename IdT, int V>
+template <typename T, typename IdT, int VB>
 cudaError_t launch(const void* table, long long n_rows, long long row_stride,
                    int d, const void* ids, const float* weights,
                    long long n_bags, int bag, int mean, void* out,
                    cudaStream_t stream) {
-  const int n_vec = d / V;
-  int group_log2 = 0;
-  while ((1 << group_log2) < n_vec && group_log2 < 5) ++group_log2;
-  const long long threads = n_bags << group_log2;
-  const long long blocks = (threads + kThreads - 1) / kThreads;
+  constexpr int Q = VB == 16 ? 1 : 2;
+  const int w = static_cast<int>(d * sizeof(T) / VB);
+  const int bags_per_warp = w >= 32 * Q ? 1 : 32 * Q / w;
+  const long long warps = (n_bags + bags_per_warp - 1) / bags_per_warp;
+  const long long blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  bag_kernel<T, IdT, V><<<static_cast<unsigned>(blocks), kThreads, 0,
-                          stream>>>(
-      static_cast<const T*>(table), n_rows, row_stride, d,
-      static_cast<const IdT*>(ids), weights, n_bags, bag, mean, group_log2,
-      static_cast<T*>(out));
+  bag_kernel<T, IdT, VB, Q><<<static_cast<unsigned>(blocks), kThreads, 0,
+                              stream>>>(
+      static_cast<const char*>(table), n_rows,
+      row_stride * static_cast<long long>(sizeof(T)), w,
+      static_cast<const IdT*>(ids), weights, n_bags, bag, mean,
+      bags_per_warp, static_cast<char*>(out));
   return cudaGetLastError();
 }
 
-template <typename T, int VEC>
+template <typename T, int VB>
 cudaError_t launch_ids(const void* table, long long n_rows,
                        long long row_stride, int d, const void* ids,
                        int ids64, const float* weights, long long n_bags,
-                       int bag, int mean, int vec16, void* out,
-                       cudaStream_t stream) {
-  if (vec16) {
-    return ids64 ? launch<T, long long, VEC>(table, n_rows, row_stride, d,
-                                              ids, weights, n_bags, bag, mean,
-                                              out, stream)
-                 : launch<T, int, VEC>(table, n_rows, row_stride, d, ids,
-                                       weights, n_bags, bag, mean, out,
-                                       stream);
-  }
-  return ids64 ? launch<T, long long, 1>(table, n_rows, row_stride, d, ids,
+                       int bag, int mean, void* out, cudaStream_t stream) {
+  return ids64 ? launch<T, long long, VB>(table, n_rows, row_stride, d, ids,
                                           weights, n_bags, bag, mean, out,
                                           stream)
-               : launch<T, int, 1>(table, n_rows, row_stride, d, ids,
-                                   weights, n_bags, bag, mean, out, stream);
+               : launch<T, int, VB>(table, n_rows, row_stride, d, ids,
+                                    weights, n_bags, bag, mean, out, stream);
+}
+
+template <typename T>
+cudaError_t launch_vec(const void* table, long long n_rows,
+                       long long row_stride, int d, const void* ids,
+                       int ids64, const float* weights, long long n_bags,
+                       int bag, int mean, int vec_bytes, void* out,
+                       cudaStream_t stream) {
+  switch (vec_bytes) {
+    case 16:
+      return launch_ids<T, 16>(table, n_rows, row_stride, d, ids, ids64,
+                               weights, n_bags, bag, mean, out, stream);
+    case 8:
+      return launch_ids<T, 8>(table, n_rows, row_stride, d, ids, ids64,
+                              weights, n_bags, bag, mean, out, stream);
+    case 4:
+      return launch_ids<T, 4>(table, n_rows, row_stride, d, ids, ids64,
+                              weights, n_bags, bag, mean, out, stream);
+    case 2:
+      if constexpr (sizeof(T) == 2)
+        return launch_ids<T, 2>(table, n_rows, row_stride, d, ids, ids64,
+                                weights, n_bags, bag, mean, out, stream);
+      return cudaErrorInvalidValue;
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16. ids64: ids are int64 (else int32).
-// weights may be null (every weight 1). vec16: the row width in bytes,
-// the row stride in bytes and both base pointers are multiples of 16.
+// weights may be null (every weight 1). vec_bytes: 16, 8, 4 or 2 (2 for
+// bfloat16 only), dividing the row width in bytes, the row stride in
+// bytes (row_stride is in elements) and both base addresses.
 ADAPARSE_EXPORT int adaparse_embedding_bag(
     const void* table, int dtype, long long n_rows, long long row_stride,
     int d, const void* ids, int ids64, const float* weights,
-    long long n_bags, int bag, int mean, int vec16, void* out,
+    long long n_bags, int bag, int mean, int vec_bytes, void* out,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_ids<float, 4>(table, n_rows, row_stride, d, ids, ids64,
-                                weights, n_bags, bag, mean, vec16, out, s);
+    return launch_vec<float>(table, n_rows, row_stride, d, ids, ids64,
+                             weights, n_bags, bag, mean, vec_bytes, out, s);
   if (dtype == 1)
-    return launch_ids<__nv_bfloat16, 8>(table, n_rows, row_stride, d, ids,
-                                        ids64, weights, n_bags, bag, mean,
-                                        vec16, out, s);
+    return launch_vec<__nv_bfloat16>(table, n_rows, row_stride, d, ids, ids64,
+                                     weights, n_bags, bag, mean, vec_bytes,
+                                     out, s);
   return cudaErrorInvalidValue;
 }
 
@@ -235,197 +340,763 @@ ADAPARSE_EXPORT int adaparse_embedding_bag(
 // bf16, rounding after every add). This kernel copies that order bit for
 // bit, so a bf16 training on the card takes the reference's steps; the
 // F.embedding backward accumulates in float32 and rounds once, and
-// index_add_ adds with atomics in a varying order.
+// index_add_ adds with atomics in a varying order. The same kernel is
+// ops.segment_sum, the GNN's deterministic sum by index.
 //
 // Bound on the H100: bytes. The grad rows are read once, the ids once,
 // and the dense (R, D) gradient is written once. At DeepFM's train_batch
 // lookup (65,536 x 39 ids, D = 10, bf16, 33.76M rows) that is 51 MB of
 // grad, 10 MB of ids and 675 MB written: ~0.22 ms at 3.35 TB/s.
 //
-// Design. The wrapper wraps the ids (jnp.take's semantics; an id outside
-// [-R, R) is dropped), sorts them stably with torch.sort and cuts the
-// sorted keys into runs (torch.unique_consecutive): plumbing that gives
-// each touched row a run of sorted positions whose source positions
-// ascend. The entry zeroes the output (memset), then launches one warp
-// per run. The warp walks its run in chunks of 32 positions: each lane
-// loads one position (coalesced; the next chunk's is prefetched while
-// this one is added), the positions go round by shuffle, and each lane
-// owns one 16-byte vector of the row (or one element on the scalar
-// path) and loads its slice of the chunk's U rows at once (independent
-// loads, held raw), then adds them in order. No atomics and no shared
-// memory: each output element is one lane's serial sum, the same bits
-// every run. The longest run (a field with a vocabulary of 3 takes a
-// third of the batch) is the critical path. Two earlier designs, one
-// group of lanes per run whose every lane computed each position's
-// address itself, spent ~0.2-0.4 us an id on it (PERF.md).
+// Plumbing (the wrapper, no host synchronisation): the ids wrapped as
+// jnp.take wraps them (an id outside [-R, R) becomes R, which sorts last
+// and adds nothing) and stably sorted (keys, and perm, the positions they
+// came from), then tile_ptr = searchsorted(keys, t * tile): the first
+// sorted position of each tile of `tile` output rows, and of R at the
+// end. Dense row offsets (tile = 1) would be a 135 MB array at DeepFM's
+// 33.76M rows, a search of every row written and read back here; the
+// tile pointers are 1 MB, and each tile finds its rows' starts among its
+// own keys. PERF.md has both plumbings' times.
+//
+// What bounded the earlier design (one warp a run after a memset), and
+// what this one does about each:
+// 1. The longest run (21,947 ids on one DeepFM row) was a chain waiting
+//    on memory: a chunk of 32 rows loaded, then added, then the next
+//    loaded. Now a run of more than kLongRun ids is a long run, summed
+//    by a pair of warps (bag_long_kernel): a producer streams its rows
+//    into a ring of kStages chunks in shared memory with cp.async (4, 8
+//    or 16-byte pieces; a row of odd bf16 width as the 4-byte words that
+//    cover it), its positions riding kStages chunks further ahead, and a
+//    consumer adds them, the two handing the slots over through mbarriers
+//    (full: the copies landed; empty: the consumer has read it), so the
+//    chain waits on neither the loads nor their issue. The long runs are
+//    found on the card: sample j looks at sorted position j * kLongRun
+//    and owns the run there when position (j - 1) * kLongRun holds another
+//    row (every run of more than kLongRun holds a sample, and exactly one
+//    owns it); the run's ends come from warp ballots. A block (one pair)
+//    takes 32 samples and sums the runs it owns one after another.
+// 2. Every output byte of a touched row was written twice (a memset of
+//    the whole (R, D) output, then the run). Now every output element is
+//    written exactly once: each tile stores its rows, zeros for a row
+//    with no ids (16-byte stores where the tile's bytes allow), and skips
+//    only the long runs, which their pairs store.
+// 3. Short runs wasted their warp: a warp walked its run once for every
+//    32 column vectors, reloading the run's positions on every pass.
+//    Now a warp takes a tile of consecutive rows (bag_tiles_kernel). Its
+//    rows' starts: a tile of at most kScatterKeys keys loads them all at
+//    once and scatters each run's start, then a suffix minimum (one load
+//    latency); a larger one binary-searches, 8 rows a lane at once. Rows
+//    of at most 32 vectors: its rows of 1 .. kLongRun ids are compacted,
+//    the lanes lie flat over their (row, vector) elements, so stores run
+//    contiguously across rows, each lane takes U elements at once with
+//    the next K positions loaded while the current K rows are in flight
+//    (U x K independent row loads a lane), and the empty rows' zeros go
+//    out while the first positions are in flight. Wider rows: one row at
+//    a time, its positions loaded once into registers (at most kLongRun)
+//    and shuffled to the lanes, 4 vectors a lane a pass, K positions at a
+//    time (8 independent 16-byte loads a lane). __launch_bounds__(256, 4).
+// 4. The wrapper stopped the host twice a call (a count of the valid ids
+//    and unique_consecutive's size). The tile pointers have a fixed size
+//    and need no count; the valid ids end at tile_ptr's last entry.
+//
+// The two kernels run side by side: the long kernel first, on a second
+// stream forked from the caller's and joined back into it, so that the
+// long chains start on an idle card and the tiles fill it around them
+// (in one grid, a block of long runs held its slot from the tiles for
+// the length of its longest chain, and the two together took far longer
+// than either alone). The C entry is one launch of the op.
+//
+// Each output element is still one lane's serial sum in position order
+// (no float atomics; an integer ballot or shared-memory bit mask changes
+// no sum), so two runs give the same bits. The adds are the card's own:
+// a float32 add, and for bf16 the packed bf16 add (add.rn.bf16x2, two
+// elements a lane), which rounds the exact sum to nearest-even once. That
+// equals the float32 add followed by a round to bf16 (the earlier
+// round_to): float32 keeps 24 bits, at least twice bf16's 8 plus one, so
+// the double rounding of a sum cannot differ from the single one
+// (Figueroa's bound), subnormals included, as the two formats share
+// their exponent range.
+//
+// ptxas (sm_90a): bag_tiles_kernel 64 registers at __launch_bounds__(256,
+// 4), so 32 warps an SM (half the card's 64), with 4-28 bytes of spills
+// by vector width, and 25,088 bytes of shared memory a block (8 warps of
+// kTileSmem); bag_long_kernel 56-72 registers, no spills, 12,288 bytes
+// a block of 64 threads (kPairSmem), up to 18 blocks an SM.
 namespace {
 
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
+// A run longer than this is a long run (the wrapper's LONG_RUN, and the
+// sample spacing of the warps that find the long runs; the owner's start
+// search probes 2 x 32 positions, so it is 64).
+constexpr int kLongRun = 64;
+// Chunks in flight in a long run's ring (a compile-time wait count).
+constexpr int kStages = 8;
+// Shared memory of a long run's pair of warps (its barriers and two
+// rings), and of a tile's warp (its rows' starts, at most 257 of 8
+// bytes, its list of touched rows and its empty-row mask).
+constexpr int kPairSmem = 12288;
+constexpr int kTileSmem = 3136;
+constexpr int kMaxTile = 256;
+// A tile with at most this many keys finds its rows' starts by scatter
+// (one load of every key at once), a larger one by binary search.
+constexpr int kScatterKeys = 256;
 
-template <>
-__device__ __forceinline__ float round_to<float>(float x) {
-  return x;
-}
-
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return bf16_bits_to_float(float_to_bf16_bits(x));
-}
-
-// A row slice of V elements as loaded (raw bits), then widened.
-template <typename T, int V>
-struct Raw;
-
-template <>
-struct Raw<float, 1> {
-  using type = float;
-  static __device__ __forceinline__ type load(const float* p) {
-    return __ldg(p);
-  }
-  static __device__ __forceinline__ void widen(type r, float* x) {
-    x[0] = r;
-  }
-};
-
-template <>
-struct Raw<float, 4> {
-  using type = float4;
-  static __device__ __forceinline__ type load(const float* p) {
-    return __ldg(reinterpret_cast<const float4*>(p));
-  }
-  static __device__ __forceinline__ void widen(type r, float* x) {
-    x[0] = r.x;
-    x[1] = r.y;
-    x[2] = r.z;
-    x[3] = r.w;
-  }
-};
-
-template <>
-struct Raw<__nv_bfloat16, 1> {
-  using type = unsigned;
-  static __device__ __forceinline__ type load(const __nv_bfloat16* p) {
-    return __ldg(reinterpret_cast<const unsigned short*>(p));
-  }
-  static __device__ __forceinline__ void widen(type r, float* x) {
-    x[0] = bf16_bits_to_float(r);
-  }
-};
-
-template <>
-struct Raw<__nv_bfloat16, 8> {
-  using type = uint4;
-  static __device__ __forceinline__ type load(const __nv_bfloat16* p) {
-    return __ldg(reinterpret_cast<const uint4*>(p));
-  }
-  static __device__ __forceinline__ void widen(type r, float* x) {
-    const unsigned w[4] = {r.x, r.y, r.z, r.w};
+// acc += x, element by element, in the dtype (raw bits in and out).
+template <typename T, int VB>
+__device__ __forceinline__ void add_to(typename RawOf<VB>::type& acc,
+                                       typename RawOf<VB>::type x) {
+  constexpr int NW = VB >= 4 ? VB / 4 : 1;
+  if constexpr (VB == 2) {                     // one bf16
+    unsigned short r;
+    asm("add.rn.bf16 %0, %1, %2;" : "=h"(r) : "h"(acc), "h"(x));
+    acc = r;
+  } else {
+    unsigned a[NW], b[NW];
+    to_words(acc, a);
+    to_words(x, b);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      x[2 * i] = bf16_bits_to_float(w[i] & 0xffffu);
-      x[2 * i + 1] = bf16_bits_to_float(w[i] >> 16);
+    for (int i = 0; i < NW; ++i) {
+      if constexpr (std::is_same<T, float>::value)
+        a[i] = __float_as_uint(__fadd_rn(__uint_as_float(a[i]),
+                                         __uint_as_float(b[i])));
+      else
+        asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(a[i]) : "r"(a[i]), "r"(b[i]));
+    }
+    acc = from_words<VB>(a);
+  }
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+// Arrive (release: this thread's earlier shared-memory stores are seen by
+// the waiter).
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+          bar)
+      : "memory");
+}
+// Arrive once this thread's cp.async copies issued so far have landed.
+__device__ __forceinline__ void mbar_arrive_copies(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// A long run, summed by a pair of warps of one block: the producer
+// (odd warp) streams the run's rows into a ring of kStages chunks of `ch`
+// rows in shared memory with cp.async, the consumer (even warp) adds
+// them. Chunk g of the pair's runs (counted across runs and column
+// groups, `g0` on entry) lives in row slot g % kStages; full[slot]
+// completes a phase when its copies have landed (32 cp.async arrivals,
+// and 32 plain ones that release the producer's misalignment bytes),
+// empty[slot] when the consumer has read it. The producer's positions
+// come through a ring of their own, kStages chunks ahead, with
+// commit/wait groups: position group x carries chunk x + kStages's
+// positions. Producer lane r copies row r of a chunk (ch <= 32), piece
+// by piece; a slot keeps piece c of its rows together, so a consumer
+// lane (its piece: vector v0 + lane) reads 16 / VB rows with one 16-byte
+// load. 2-byte vectors keep whole rows (the words that cover them).
+template <typename T, int VB>
+__device__ void long_pair(const char* __restrict__ grad, int w,
+                          const long long* __restrict__ pos, long long len,
+                          int group_vecs, bool producer, char* pair,
+                          long long& g0, char* out_row) {
+  using V = Vec<T, VB>;
+  constexpr int CP = VB < 4 ? 4 : VB;          // bytes of one copy
+  constexpr int R = 16 / CP;                     // rows a consumer load
+  const int lane = threadIdx.x & 31;
+  const long long row_bytes = static_cast<long long>(w) * VB;
+  // copies a row: nv vectors, or the 4-byte words that cover nv bf16
+  const int cmax = VB < 4 ? (2 * group_vecs + 5) / 4 : group_vecs;
+  const int rb = cmax * CP;
+  const int ch = min(32, (kPairSmem - 16 * kStages) /
+                             (kStages * (rb + 9))) & ~3;
+  const uint32_t full = adaparse::smem_addr(pair);
+  const uint32_t empty = full + 8 * kStages;
+  long long* pring = reinterpret_cast<long long*>(pair + 16 * kStages);
+  char* ring = pair + 16 * kStages + kStages * ch * 8;
+  unsigned char* mis = reinterpret_cast<unsigned char*>(ring) +
+                       kStages * ch * rb;      // 2-byte vectors: byte offset
+  const long long n_chunks = (len + ch - 1) / ch;
+  for (int v0 = 0; v0 < w; v0 += group_vecs, g0 += n_chunks) {
+    const int nv = min(group_vecs, w - v0);
+    const char* gsrc = grad + static_cast<long long>(v0) * VB;
+    if (producer) {
+      auto issue_pos = [&](long long x) {
+        if (x < n_chunks &&
+            lane < min(static_cast<long long>(ch), len - x * ch))
+          adaparse::cp_async<8>(
+              adaparse::smem_addr(pring + (x % kStages) * ch + lane),
+              pos + x * ch + lane);
+      };
+      auto issue_rows = [&](long long x) {
+        if (x >= n_chunks) return;
+        const long long g = g0 + x;
+        const int slot = static_cast<int>(g % kStages);
+        if (g >= kStages)                        // the consumer freed it
+          mbar_wait(empty + 8 * slot,
+                    static_cast<unsigned>((g / kStages - 1) & 1));
+        // lane r copies row r of the chunk, all its pieces
+        if (lane < min(static_cast<long long>(ch), len - x * ch)) {
+          const char* a = gsrc + pring[(x % kStages) * ch + lane] * row_bytes;
+          if constexpr (VB >= 4) {
+            char* dst = ring + (slot * cmax * ch + lane) * VB;
+            for (int c = 0; c < nv; ++c)
+              adaparse::cp_async<VB>(
+                  adaparse::smem_addr(dst + c * ch * VB), a + c * VB);
+          } else {
+            char* dst = ring + (slot * ch + lane) * rb;
+            const uintptr_t ua = reinterpret_cast<uintptr_t>(a);
+            const char* a0 = reinterpret_cast<const char*>(ua & ~uintptr_t{3});
+            mis[slot * ch + lane] = static_cast<unsigned char>(ua & 3);
+            for (int c = 0; a0 + 4 * c < a + 2 * nv; ++c)   // covering words
+              adaparse::cp_async<4>(adaparse::smem_addr(dst + 4 * c),
+                                    a0 + 4 * c);
+          }
+        }
+        mbar_arrive(full + 8 * slot);
+        mbar_arrive_copies(full + 8 * slot);
+      };
+      for (int x = 0; x < kStages; ++x) issue_pos(x);
+      adaparse::cp_async_commit();
+      adaparse::cp_async_wait<0>();
+      __syncwarp();
+      for (long long x = 0; x < n_chunks; ++x) {
+        if (x >= kStages) {
+          adaparse::cp_async_wait<kStages - 1>();   // chunk x's positions
+          __syncwarp();
+        }
+        issue_rows(x);
+        __syncwarp();                // slot x's positions read before reuse
+        issue_pos(x + kStages);
+        adaparse::cp_async_commit();
+      }
+      adaparse::cp_async_wait<0>();
+      __syncwarp();                  // the position ring is free again
+    } else {
+      typename V::raw acc = V::zero();
+      const bool adder = lane < nv;
+      for (long long c = 0; c < n_chunks; ++c) {
+        const long long g = g0 + c;
+        const int slot = static_cast<int>(g % kStages);
+        mbar_wait(full + 8 * slot, static_cast<unsigned>((g / kStages) & 1));
+        const int m = static_cast<int>(min(static_cast<long long>(ch),
+                                           len - c * ch));
+        if (adder) {
+          if constexpr (VB >= 4) {
+            const char* col = ring + (slot * cmax + lane) * ch * VB;
+            for (int r = 0; r < m; r += 4 * R) {
+              uint4 q[4];
+#pragma unroll
+              for (int u = 0; u < 4; ++u)
+                if (r + u * R < m)
+                  q[u] = *reinterpret_cast<const uint4*>(col +
+                                                         (r + u * R) * VB);
+#pragma unroll
+              for (int u = 0; u < 4; ++u) {
+                const typename V::raw* x =
+                    reinterpret_cast<const typename V::raw*>(&q[u]);
+#pragma unroll
+                for (int i = 0; i < R; ++i)
+                  if (r + u * R + i < m) add_to<T, VB>(acc, x[i]);
+              }
+            }
+          } else {
+            const char* base = ring + slot * ch * rb;
+            for (int r = 0; r < m; r += 8) {
+              typename V::raw x[8];
+#pragma unroll
+              for (int u = 0; u < 8; ++u)
+                if (r + u < m)
+                  x[u] = V::lds(base + (r + u) * rb +
+                                mis[slot * ch + r + u] + 2 * lane);
+#pragma unroll
+              for (int u = 0; u < 8; ++u)
+                if (r + u < m) add_to<T, VB>(acc, x[u]);
+            }
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * slot);
+      }
+      if (adder) V::st(out_row + static_cast<long long>(v0 + lane) * VB, acc);
     }
   }
-};
+}
 
-template <typename T, int V, int U>
-__global__ void __launch_bounds__(kThreads, 2)
-bag_backward_kernel(const T* __restrict__ grad, int d,
-                    const long long* __restrict__ run_key,
-                    const long long* __restrict__ run_start,
-                    const long long* __restrict__ perm, long long n_runs,
-                    T* __restrict__ out) {
-  const long long r = (static_cast<long long>(blockIdx.x) * blockDim.x +
-                       threadIdx.x) >> 5;
-  if (r >= n_runs) return;                    // whole warps: r is uniform
+// One block = one pair of warps (64 threads, kPairSmem bytes of shared
+// memory) a unit u = blockIdx.x of 32 samples: the long runs at the
+// sorted positions j * kLongRun, j in [32u, 32u + 32) (lane: j), that it
+// owns (see the note above), one after another, column group by column
+// group. Warp 1 is the producer.
+template <typename T, int VB>
+__global__ void __launch_bounds__(64)
+bag_long_kernel(const char* __restrict__ grad, long long n_rows, int w,
+                const long long* __restrict__ keys,
+                const long long* __restrict__ perm, long long n_ids,
+                int group_vecs, char* __restrict__ out) {
+  extern __shared__ __align__(16) char pair_smem[];
   const int lane = threadIdx.x & 31;
-  const long long key = __ldg(run_key + r);
-  const long long first = __ldg(run_start + r);
-  const long long end = __ldg(run_start + r + 1);
-  const int n_vec = d / V;
-  for (int v0 = 0; v0 < n_vec; v0 += 32) {
-    const bool mine = v0 + lane < n_vec;
-    const long long col = static_cast<long long>(mine ? v0 + lane : 0) * V;
-    float acc[V];
+  const bool producer = threadIdx.x >= 32;
+  const long long u = blockIdx.x;
+  const long long pl = (32 * u + lane) * kLongRun;
+  const long long kl = pl < n_ids ? __ldg(keys + pl) : n_rows;
+  const bool own = kl < n_rows &&
+                   (pl < kLongRun || __ldg(keys + pl - kLongRun) != kl);
+  unsigned owners = __ballot_sync(adaparse::kFullMask, own);
+  if (!owners) return;                           // the same in both warps
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(adaparse::smem_addr(pair_smem) + 8 * i, 64);
+      mbar_init(adaparse::smem_addr(pair_smem) + 8 * (kStages + i), 1);
+    }
+  }
+  __syncthreads();
+  long long g0 = 0;
+  while (owners) {
+    const int o = __ffs(owners) - 1;
+    owners &= owners - 1;
+    const long long p = __shfl_sync(adaparse::kFullMask, pl, o);
+    const long long k = __shfl_sync(adaparse::kFullMask, kl, o);
+    // the run's start: in [lo, p], where the row's positions are a suffix
+    const long long lo = p >= kLongRun ? p - kLongRun + 1 : 0;
+    const long long q0 = lo + lane, q1 = lo + 32 + lane;
+    const unsigned b0 =
+        __ballot_sync(adaparse::kFullMask, q0 <= p && __ldg(keys + q0) == k);
+    const unsigned b1 =
+        __ballot_sync(adaparse::kFullMask, q1 <= p && __ldg(keys + q1) == k);
+    const long long s = b0 ? lo + __ffs(b0) - 1 : lo + 32 + __ffs(b1) - 1;
+    // its end: gallop up by 32-way probes, then narrow down
+    long long base = p, stride = kLongRun, e;
+    for (;;) {
+      const long long q = base + stride * (lane + 1);
+      const int t = __popc(__ballot_sync(adaparse::kFullMask,
+                                         q < n_ids && __ldg(keys + q) == k));
+      base += stride * t;                        // keys[base] == k
+      if (t == 32) {
+        stride *= 32;
+      } else if (stride == 1) {
+        e = base + 1;
+        break;
+      } else {
+        stride = (stride + 31) / 32;
+      }
+    }
+    if (e - s > kLongRun)                        // else a tile's warp has it
+      long_pair<T, VB>(grad, w, perm + s, e - s, group_vecs, producer,
+                       pair_smem, g0,
+                       out + k * static_cast<long long>(w) * VB);
+  }
+}
+
+// Zeros for the empty rows of a tile (rows_here rows of row_bytes at
+// `obase`; bit r % 32 of emask[r / 32] marks row r empty), each byte
+// stored once. Where the tile's bytes are 16-byte aligned, lanes lie flat
+// over its 16-byte words: a word that holds only empty rows is one
+// 16-byte store, another its empty rows' VB-byte vectors. Else lanes lie
+// flat over the VB-byte vectors.
+template <int VB>
+__device__ __forceinline__ void zero_empty_rows(char* obase, int row_bytes,
+                                                int rows_here,
+                                                const unsigned* emask) {
+  using Raw = typename RawOf<VB>::type;
+  const int lane = threadIdx.x & 31;
+  const int tb = rows_here * row_bytes;
+  auto empty_row = [&](int r) {
+    return ((emask[r >> 5] >> (r & 31)) & 1u) != 0;
+  };
+  if (((reinterpret_cast<uintptr_t>(obase) | static_cast<uintptr_t>(tb)) &
+       15) == 0) {
+    for (int b = 16 * lane; b < tb; b += 512) {
+      const int first = b / row_bytes, last = (b + 15) / row_bytes;
+      bool all = true;
+      for (int r = first; r <= last; ++r) all = all && empty_row(r);
+      if (all) {
+        *reinterpret_cast<uint4*>(obase + b) = make_uint4(0, 0, 0, 0);
+      } else {
+        for (int i = 0; i < 16; i += VB)
+          if (empty_row((b + i) / row_bytes))
+            *reinterpret_cast<Raw*>(obase + b + i) = Raw{};
+      }
+    }
+  } else {
+    for (int f = lane; f < tb / VB; f += 32)
+      if (empty_row(f * VB / row_bytes))
+        *reinterpret_cast<Raw*>(obase + f * VB) = Raw{};
+  }
+}
+
+// Rows of at most 32 vectors (sp[i]: row i's first sorted position,
+// sp[rows_here] the tile's end): its rows of 1 .. kLongRun ids (a long
+// run has its pair of warps) compacted into `list`, lanes flat over
+// their (row, vector) elements: U elements a lane at once, K positions
+// at a time with the next K loaded while the rows are in flight. The
+// empty rows (emask) get their zeros (zero_empty_rows) while the first
+// round's positions are in flight.
+template <typename T, int VB>
+__device__ void narrow_tile(const char* __restrict__ grad, int w,
+                            const long long* __restrict__ perm,
+                            const long long* sp, int* list, unsigned* emask,
+                            long long r0, int rows_here,
+                            char* __restrict__ out) {
+  using V = Vec<T, VB>;
+  constexpr int U = VB == 16 ? 2 : 4;
+  constexpr int K = 2;
+  const int lane = threadIdx.x & 31;
+  const long long row_bytes = static_cast<long long>(w) * VB;
+  char* obase = out + r0 * row_bytes;
+  int n_t = 0;
+  for (int g = 0; 32 * g < rows_here; ++g) {
+    const int i = 32 * g + lane;
+    const long long n = i < rows_here ? sp[i + 1] - sp[i] : -1;
+    const unsigned e = __ballot_sync(adaparse::kFullMask, n == 0);
+    if (lane == 0) emask[g] = e;
+    const bool on = n > 0 && n <= kLongRun;
+    const unsigned bal = __ballot_sync(adaparse::kFullMask, on);
+    if (on) list[n_t + __popc(bal & ((1u << lane) - 1))] = i;
+    n_t += __popc(bal);
+  }
+  __syncwarp();
+  const int n_el = n_t * w;
+  for (int f0 = 0; f0 < max(n_el, 1); f0 += 32 * U) {  // at least once
+    long long s[U], fe[U];
+    int len[U], v[U];
+    int maxlen = 0;
 #pragma unroll
-    for (int e = 0; e < V; ++e) acc[e] = 0.0f;
-    long long next = first + lane < end ? __ldg(perm + first + lane) : 0;
-    for (long long j = first; j < end; j += 32) {
-      const long long src = next;
-      const int m = static_cast<int>(end - j < 32 ? end - j : 32);
-      if (j + 32 < end)
-        next = j + 32 + lane < end ? __ldg(perm + j + 32 + lane) : 0;
+    for (int u = 0; u < U; ++u) {
+      const int f = f0 + 32 * u + lane;
+      const bool ok = f < n_el;
+      const int ti = ok ? f / w : 0;
+      const int i = ok ? list[ti] : 0;
+      v[u] = ok ? f - ti * w : 0;
+      fe[u] = static_cast<long long>(i) * w + v[u];
+      s[u] = sp[i];
+      len[u] = ok ? static_cast<int>(sp[i + 1] - s[u]) : 0;
+      maxlen = max(maxlen, len[u]);
+    }
+    typename V::raw acc[U];
+    long long pc[U][K];
 #pragma unroll
-      for (int h = 0; h < 32; h += U) {
-        typename Raw<T, V>::type raw[U];
+    for (int u = 0; u < U; ++u) {
+      acc[u] = V::zero();
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const long long p = __shfl_sync(0xffffffffu, src, h + u);
-          if (mine && h + u < m) raw[u] = Raw<T, V>::load(grad + p * d + col);
+      for (int k = 0; k < K; ++k)
+        pc[u][k] = k < len[u] ? __ldg(perm + s[u] + k) : 0;
+    }
+    if (f0 == 0) zero_empty_rows<VB>(obase, w * VB, rows_here, emask);
+    for (int j = 0; j < maxlen; j += K) {
+      long long pn[U][K];
+      typename V::raw x[U][K];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          pn[u][k] = j + K + k < len[u] ? __ldg(perm + s[u] + j + K + k) : 0;
+          x[u][k] = j + k < len[u]
+                        ? V::ldg(grad + pc[u][k] * row_bytes +
+                                 static_cast<long long>(v[u]) * VB)
+                        : V::zero();
         }
+      }
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-          if (h + u < m) {                    // uniform over the warp
-            float x[V];
-            Raw<T, V>::widen(raw[u], x);
+      for (int u = 0; u < U; ++u) {
 #pragma unroll
-            for (int e = 0; e < V; ++e)
-              acc[e] = round_to<T>(__fadd_rn(acc[e], x[e]));
-          }
+        for (int k = 0; k < K; ++k) {
+          if (j + k < len[u]) add_to<T, VB>(acc[u], x[u][k]);
+          pc[u][k] = pn[u][k];
         }
       }
     }
-    if (mine) Row<T, V>::store(out + key * d + col, acc);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (len[u] > 0) V::st(obase + fe[u] * VB, acc[u]);
   }
 }
 
-template <typename T, int V, int U>
+// Rows of more than 32 vectors: one row at a time, its positions loaded
+// once into registers (at most kLongRun: 2 a lane) and shuffled out,
+// each pass 4 vectors a lane with K positions at a time.
+template <typename T, int VB>
+__device__ void wide_tile(const char* __restrict__ grad, int w,
+                          const long long* __restrict__ perm,
+                          const long long* sp, long long r0, int rows_here,
+                          char* __restrict__ out) {
+  using V = Vec<T, VB>;
+  constexpr int Q = 4;
+  constexpr int K = 2;
+  const int lane = threadIdx.x & 31;
+  const long long row_bytes = static_cast<long long>(w) * VB;
+  for (int i = 0; i < rows_here; ++i) {
+    const long long a = sp[i];
+    const long long n = sp[i + 1] - a;
+    if (n > kLongRun) continue;                  // a long run has its warp
+    const int len = static_cast<int>(n);
+    const long long pos0 = lane < len ? __ldg(perm + a + lane) : 0;
+    const long long pos1 = lane + 32 < len ? __ldg(perm + a + 32 + lane) : 0;
+    char* orow = out + (r0 + i) * row_bytes;
+    for (int v0 = 0; v0 < w; v0 += 32 * Q) {
+      typename V::raw acc[Q];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) acc[q] = V::zero();
+      for (int j = 0; j < len; j += K) {
+        long long p[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int jj = j + k;                  // uniform over the warp
+          p[k] = __shfl_sync(adaparse::kFullMask, jj < 32 ? pos0 : pos1,
+                             jj & 31);
+        }
+        typename V::raw x[Q][K];
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          const int vec = v0 + 32 * q + lane;
+#pragma unroll
+          for (int k = 0; k < K; ++k)
+            x[q][k] = vec < w && j + k < len
+                          ? V::ldg(grad + p[k] * row_bytes +
+                                   static_cast<long long>(vec) * VB)
+                          : V::zero();
+        }
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+#pragma unroll
+          for (int k = 0; k < K; ++k)
+            if (j + k < len) add_to<T, VB>(acc[q], x[q][k]);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const int vec = v0 + 32 * q + lane;
+        if (vec < w) V::st(orow + static_cast<long long>(vec) * VB, acc[q]);
+      }
+    }
+  }
+}
+
+// A tile: rows [r0, r0 + rows_here), rows_here <= kMaxTile, keys
+// [lo, hi).
+template <typename T, int VB>
+__device__ void row_tile(const char* __restrict__ grad, int w,
+                         const long long* __restrict__ keys,
+                         const long long* __restrict__ perm, long long lo,
+                         long long hi, long long r0, int rows_here, char* ws,
+                         char* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  // sp[i]: row r0 + i's first sorted position, the lower bound of r0 + i
+  // among the tile's keys [lo, hi); sp[rows_here] = hi
+  const long long n = hi - lo;
+  long long* sp = reinterpret_cast<long long*>(ws);
+  if (n <= kScatterKeys) {
+    // a few keys (a sparse table's tile): each run start writes its row's
+    // entry (all loads at once), then a suffix minimum fills the rest
+    for (int i = lane; i <= rows_here; i += 32) sp[i] = hi;
+    __syncwarp();
+#pragma unroll
+    for (int g = 0; g < kScatterKeys / 32; ++g) {
+      const long long j = lo + lane + 32 * g;
+      if (j < hi) {
+        const long long k = __ldg(keys + j);
+        if (j == lo || __ldg(keys + j - 1) != k) sp[k - r0] = j;
+      }
+    }
+    __syncwarp();
+    const int m = rows_here + 1, per = (m + 31) >> 5;
+    const int b = min(m, lane * per), e = min(m, b + per);
+    long long suf = hi;
+    for (int i = e - 1; i >= b; --i) suf = min(suf, sp[i]);
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long up = __shfl_down_sync(adaparse::kFullMask, suf, o);
+      if (lane + o < 32) suf = min(suf, up);
+    }
+    long long cur = __shfl_down_sync(adaparse::kFullMask, suf, 1);
+    if (lane == 31) cur = hi;
+    for (int i = e - 1; i >= b; --i) {
+      cur = min(cur, sp[i]);
+      sp[i] = cur;
+    }
+  } else {
+    // many keys: binary lifting, 8 rows a lane at once
+    long long c[kMaxTile / 32];
+#pragma unroll
+    for (int g = 0; g < kMaxTile / 32; ++g) c[g] = 0;
+    for (long long step = 1LL << (63 - __clzll(n)); step > 0; step >>= 1) {
+#pragma unroll
+      for (int g = 0; g < kMaxTile / 32; ++g) {
+        const int i = lane + 32 * g;
+        if (i < rows_here && c[g] + step <= n &&
+            __ldg(keys + lo + c[g] + step - 1) < r0 + i)
+          c[g] += step;
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < kMaxTile / 32; ++g)
+      if (lane + 32 * g < rows_here) sp[lane + 32 * g] = lo + c[g];
+    if (lane == 0) sp[rows_here] = hi;
+  }
+  __syncwarp();
+  if (w <= 32) {
+    int* list = reinterpret_cast<int*>(sp + kMaxTile + 2);
+    narrow_tile<T, VB>(grad, w, perm, sp, list,
+                       reinterpret_cast<unsigned*>(list + kMaxTile), r0,
+                       rows_here, out);
+  } else {
+    wide_tile<T, VB>(grad, w, perm, sp, r0, rows_here, out);
+  }
+}
+
+// Warp t takes the output rows [t * tile, (t + 1) * tile), with
+// kTileSmem bytes of shared memory.
+template <typename T, int VB>
+__global__ void __launch_bounds__(kThreads, 4)
+bag_tiles_kernel(const char* __restrict__ grad, long long n_rows, int w,
+                 const long long* __restrict__ keys,
+                 const long long* __restrict__ perm,
+                 const long long* __restrict__ tile_ptr, int tile,
+                 char* __restrict__ out) {
+  extern __shared__ __align__(16) char smem[];
+  const long long t = (static_cast<long long>(blockIdx.x) * kThreads +
+                       threadIdx.x) >> 5;
+  const long long r0 = t * tile;
+  if (r0 >= n_rows) return;
+  row_tile<T, VB>(grad, w, keys, perm, __ldg(tile_ptr + t),
+                  __ldg(tile_ptr + t + 1), r0,
+                  static_cast<int>(min(static_cast<long long>(tile),
+                                       n_rows - r0)),
+                  smem + (threadIdx.x >> 5) * kTileSmem, out);
+}
+
+// The long kernel runs on a second stream beside the tiles, forked from
+// and joined back into the caller's stream (a lock keeps the events of
+// two callers apart).
+struct SideStream {
+  std::mutex lock;
+  cudaStream_t stream = nullptr;
+  cudaEvent_t fork = nullptr, join = nullptr;
+};
+
+SideStream& side_stream(int dev) {
+  static SideStream sides[64];
+  return sides[dev & 63];
+}
+
+template <typename T, int VB>
 cudaError_t launch_backward(const void* grad, long long n_rows, int d,
-                            const long long* run_key,
-                            const long long* run_start,
-                            const long long* perm, long long n_runs,
-                            void* out, cudaStream_t stream) {
-  const cudaError_t z = cudaMemsetAsync(
-      out, 0, static_cast<size_t>(n_rows) * d * sizeof(T), stream);
-  if (z != cudaSuccess) return z;
-  if (n_runs == 0) return cudaGetLastError();
-  const long long blocks = (n_runs * 32 + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  bag_backward_kernel<T, V, U><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                 stream>>>(
-      static_cast<const T*>(grad), d, run_key, run_start, perm, n_runs,
-      static_cast<T*>(out));
+                            const long long* keys, const long long* perm,
+                            long long n_ids, const long long* tile_ptr,
+                            int tile, void* out, cudaStream_t stream) {
+  if (tile < 1 || tile > kMaxTile) return cudaErrorInvalidValue;
+  const int w = static_cast<int>(d * sizeof(T) / VB);
+  // a long run's column groups: about 64 bytes each, so its ring holds
+  // ~80-200 rows (2-byte vectors: at most 30 bf16, 16 covering words)
+  const int gmax = VB >= 4 ? 64 / VB : 30;
+  const int n_groups = (w + gmax - 1) / gmax;
+  const int group_vecs = (w + n_groups - 1) / n_groups;
+  const long long n_units = (n_ids + 32LL * kLongRun - 1) / (32LL * kLongRun);
+  const long long n_tiles = (n_rows + tile - 1) / tile;
+  const long long tile_blocks =
+      (n_tiles + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (n_units > 0x7fffffffLL || tile_blocks > 0x7fffffffLL)
+    return cudaErrorInvalidConfiguration;
+  const char* g = static_cast<const char*>(grad);
+  char* o = static_cast<char*>(out);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  SideStream& side = side_stream(dev);
+  std::lock_guard<std::mutex> hold(side.lock);
+  if (n_units > 0) {
+    if (!side.stream) {
+      err = cudaStreamCreateWithFlags(&side.stream, cudaStreamNonBlocking);
+      if (err == cudaSuccess)
+        err = cudaEventCreateWithFlags(&side.fork, cudaEventDisableTiming);
+      if (err == cudaSuccess)
+        err = cudaEventCreateWithFlags(&side.join, cudaEventDisableTiming);
+      if (err != cudaSuccess) return err;
+    }
+    // first, so that the long chains take the card before the tiles
+    err = cudaEventRecord(side.fork, stream);
+    if (err == cudaSuccess)
+      err = cudaStreamWaitEvent(side.stream, side.fork, 0);
+    if (err != cudaSuccess) return err;
+    bag_long_kernel<T, VB><<<static_cast<unsigned>(n_units), 64, kPairSmem,
+                             side.stream>>>(g, n_rows, w, keys, perm, n_ids,
+                                            group_vecs, o);
+    err = cudaGetLastError();
+    if (err == cudaSuccess) err = cudaEventRecord(side.join, side.stream);
+    if (err != cudaSuccess) return err;
+  }
+  if (tile_blocks > 0) {
+    bag_tiles_kernel<T, VB><<<static_cast<unsigned>(tile_blocks), kThreads,
+                              kWarpsPerBlock * kTileSmem, stream>>>(
+        g, n_rows, w, keys, perm, tile_ptr, tile, o);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (n_units > 0) return cudaStreamWaitEvent(stream, side.join, 0);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_backward_vec(const void* grad, long long n_rows, int d,
+                                const long long* keys, const long long* perm,
+                                long long n_ids, const long long* tile_ptr,
+                                int tile, int vec_bytes, void* out,
+                                cudaStream_t stream) {
+  switch (vec_bytes) {
+    case 16:
+      return launch_backward<T, 16>(grad, n_rows, d, keys, perm, n_ids,
+                                    tile_ptr, tile, out, stream);
+    case 8:
+      return launch_backward<T, 8>(grad, n_rows, d, keys, perm, n_ids,
+                                   tile_ptr, tile, out, stream);
+    case 4:
+      return launch_backward<T, 4>(grad, n_rows, d, keys, perm, n_ids,
+                                   tile_ptr, tile, out, stream);
+    case 2:
+      if constexpr (sizeof(T) == 2)
+        return launch_backward<T, 2>(grad, n_rows, d, keys, perm, n_ids,
+                                     tile_ptr, tile, out, stream);
+      return cudaErrorInvalidValue;
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// grad (n, d) contiguous rows, dtype 0 float32 or 1 bfloat16; perm the
-// positions of the sorted valid ids; n_runs runs of equal ids: run i is
-// row run_key[i], positions perm[run_start[i] .. run_start[i + 1]) (so
-// run_start has n_runs + 1 entries); out (n_rows, d) contiguous, zeroed
-// here. vec16: the row width in bytes and both base pointers are
-// multiples of 16.
+// grad (n_ids, d) contiguous rows, dtype 0 float32 or 1 bfloat16; keys
+// (n_ids,) the ids wrapped into [0, n_rows] (n_rows: dropped) and sorted
+// stably, perm (n_ids,) the positions they came from; tile_ptr
+// (ceil(n_rows / tile) + 1,) the first sorted position whose key is at
+// least min(t * tile, n_rows), 1 <= tile <= 256; out (n_rows, d)
+// contiguous, every element written here. vec_bytes: 16, 8, 4 or 2 (2
+// for bfloat16 only), dividing the row width in bytes and both base
+// addresses.
 ADAPARSE_EXPORT int adaparse_embedding_bag_backward(
     const void* grad, int dtype, long long n_rows, int d,
-    const long long* run_key, const long long* run_start,
-    const long long* perm, long long n_runs, int vec16, void* out,
+    const long long* keys, const long long* perm, long long n_ids,
+    const long long* tile_ptr, int tile, int vec_bytes, void* out,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return vec16 ? launch_backward<float, 4, 16>(grad, n_rows, d, run_key,
-                                                 run_start, perm, n_runs,
-                                                 out, s)
-                 : launch_backward<float, 1, 32>(grad, n_rows, d, run_key,
-                                                 run_start, perm, n_runs,
-                                                 out, s);
+    return launch_backward_vec<float>(grad, n_rows, d, keys, perm, n_ids,
+                                      tile_ptr, tile, vec_bytes, out, s);
   if (dtype == 1)
-    return vec16 ? launch_backward<__nv_bfloat16, 8, 16>(
-                       grad, n_rows, d, run_key, run_start, perm, n_runs,
-                       out, s)
-                 : launch_backward<__nv_bfloat16, 1, 32>(
-                       grad, n_rows, d, run_key, run_start, perm, n_runs,
-                       out, s);
+    return launch_backward_vec<__nv_bfloat16>(grad, n_rows, d, keys, perm,
+                                              n_ids, tile_ptr, tile,
+                                              vec_bytes, out, s);
   return cudaErrorInvalidValue;
 }

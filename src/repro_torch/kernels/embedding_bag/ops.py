@@ -2,9 +2,10 @@
 
 ``embedding_bag(table, ids, weights=None, *, combiner="sum")`` computes
 ``out[b] = combine_l w[b, l] * table[ids[b, l]]`` (``weights=None``
-means ones): the CUDA kernel (``csrc/embedding_bag.cu``, one group of
-lanes per bag, float32 accumulation, no atomics) for CUDA tensors, the
-plain version (``ref.py``) for CPU tensors. Both follow ``jnp.take`` for
+means ones): the CUDA kernel (``csrc/embedding_bag.cu``, lanes flat over
+(bag, vector) with the widest vector the row and its addresses allow,
+float32 accumulation, no atomics) for CUDA tensors, the plain version
+(``ref.py``) for CPU tensors. Both follow ``jnp.take`` for
 ids out of range: negative ids wrap once, ids ``>= R`` or ``< -R`` give
 a NaN bag.
 
@@ -17,6 +18,8 @@ forward is ``embedding_bag``, the backward ``embedding_bag_backward``,
 the table gradient of bags of one (``csrc/embedding_bag.cu``'s second
 kernel on CUDA tensors, ``ref.embedding_bag_backward_ref`` on CPU ones),
 added in the table's dtype in position order as XLA's scatter-add adds.
+Its plumbing (``row_offsets``: the wrap, a stable sort and the first
+sorted position of every tile of rows) makes no host synchronisation.
 
 ``segment_sum(msgs, ids, n)`` is ``jax.ops.segment_sum`` as an
 ``autograd.Function``: the forward is that same backward kernel, which
@@ -47,7 +50,14 @@ KERNEL = cuda_lib.CudaKernel(
     [P, I, L, L, I, P, I, P, L, I, I, I, P, P])
 BACKWARD = cuda_lib.CudaKernel(
     "embedding_bag_backward", "adaparse_embedding_bag_backward",
-    [P, I, L, I, P, P, P, L, I, P, P])
+    [P, I, L, I, P, P, L, P, I, I, P, P])
+
+#: a run of more ids than this on one row is a long run: a pair of
+#: warps of its own streams its rows through a shared-memory ring
+#: (``kLongRun`` in ``csrc/embedding_bag.cu``)
+LONG_RUN = 64
+#: the most rows a warp of the backward takes (``kMaxTile``)
+MAX_TILE = 256
 
 
 def _check(table, ids, weights, combiner) -> None:
@@ -87,13 +97,23 @@ def _launch(table, ids, weights, out, *, combiner: str) -> None:
     r, d = table.shape
     b, bag = ids.shape
     el = table.element_size()
-    vec16 = int((d * el) % 16 == 0 and (table.stride(0) * el) % 16 == 0
-                and table.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    vb = vec_bytes(el, d * el, table.stride(0) * el, table.data_ptr(),
+                   out.data_ptr())
     KERNEL(table.data_ptr(), _TABLE_DTYPES[table.dtype], r, table.stride(0),
            d, ids.data_ptr(), int(ids.dtype == torch.int64),
            0 if weights is None else weights.data_ptr(), b, bag,
-           int(combiner == "mean"), vec16, out.data_ptr(),
+           int(combiner == "mean"), vb, out.data_ptr(),
            cuda_lib.stream_of(table.device))
+
+
+def vec_bytes(element_size: int, *multiples: int) -> int:
+    """The kernels' vector: the widest of 16, 8, 4 and 2 bytes (not below
+    one element) that divides every one of ``multiples`` (row widths and
+    strides in bytes, base addresses)."""
+    for vb in (16, 8, 4, 2):
+        if vb >= element_size and all(m % vb == 0 for m in multiples):
+            return vb
+    return element_size
 
 
 def embedding_bag(table, ids, weights=None, *, combiner: str = "sum"):
@@ -135,35 +155,44 @@ def embedding_bag_backward(grad, ids, rows: int):
         raise ValueError(f"embedding_bag_backward: unsupported device "
                          f"{grad.device}")
     grad = grad.contiguous()
-    run_key, run_start, perm = sorted_runs(ids, rows)
     out = torch.empty((rows, grad.shape[1]), dtype=grad.dtype,
                       device=grad.device)
     if out.numel():
-        el = grad.element_size()
-        vec16 = int((grad.shape[1] * el) % 16 == 0
-                    and grad.data_ptr() % 16 == 0
-                    and out.data_ptr() % 16 == 0)
-        BACKWARD(grad.data_ptr(), _TABLE_DTYPES[grad.dtype], rows,
-                 grad.shape[1], run_key.data_ptr(), run_start.data_ptr(),
-                 perm.data_ptr(), run_key.numel(), vec16, out.data_ptr(),
+        el, d = grad.element_size(), grad.shape[1]
+        vb = vec_bytes(el, d * el, grad.data_ptr(), out.data_ptr())
+        tile = tile_rows(d * el // vb, ids.numel(), rows)
+        keys, perm, tile_ptr = row_offsets(ids, rows, tile)
+        BACKWARD(grad.data_ptr(), _TABLE_DTYPES[grad.dtype], rows, d,
+                 keys.data_ptr(), perm.data_ptr(), keys.numel(),
+                 tile_ptr.data_ptr(), tile, vb, out.data_ptr(),
                  cuda_lib.stream_of(grad.device))
     return out
 
 
-def sorted_runs(ids, rows: int):
-    """The backward kernel's plumbing: the valid ids (wrapped into [0,
-    rows), ``sorted_rows``) cut into runs of one row each: (run_key
-    (n_runs,) the run's row, run_start (n_runs + 1,) each run's first
-    sorted position and the end, perm the sorted positions' source
-    positions), all int64."""
+def tile_rows(row_vecs: int, n_ids: int, rows: int) -> int:
+    """Output rows a warp of the backward takes: a power of two in [1,
+    MAX_TILE], about 2,048 row vectors times the ids a row holds on
+    average (at least one), so that a sparse table's warp covers many
+    empty rows and a dense one's few full ones."""
+    per_row = max(1.0, n_ids / max(rows, 1))
+    want = max(1, int(2048 / (row_vecs * per_row)))
+    return min(MAX_TILE, 1 << (want.bit_length() - 1))
+
+
+def row_offsets(ids, rows: int, step: int = 1):
+    """The backward kernel's plumbing, with no host synchronisation: the
+    ids wrapped and stably sorted (``sorted_rows``: keys, an id outside
+    [-rows, rows) as ``rows``, and perm, the positions they came from),
+    and ptr (ceil(rows / step) + 1,) int64: ptr[t] is the first sorted
+    position whose key is at least min(t * step, rows). With step 1 that
+    is the dense row offsets (row r's positions are perm[ptr[r] :
+    ptr[r + 1]]); the kernel takes one entry a tile of ``step`` rows, and
+    ptr[-1] is the count of valid ids."""
     keys, perm = sorted_rows(ids, rows)
-    n_valid = int((keys < rows).sum())          # the dropped sort last
-    run_key, counts = torch.unique_consecutive(keys[:n_valid],
-                                               return_counts=True)
-    run_start = torch.zeros(run_key.numel() + 1, dtype=torch.int64,
-                            device=keys.device)
-    torch.cumsum(counts, 0, out=run_start[1:])
-    return run_key, run_start, perm[:n_valid]
+    n = -(-rows // step)
+    bounds = torch.arange(n + 1, dtype=torch.int64, device=keys.device)
+    bounds.mul_(step).clamp_(max=rows)
+    return keys, perm, torch.searchsorted(keys, bounds)
 
 
 class _Lookup(torch.autograd.Function):

@@ -23,7 +23,18 @@ the two-pass kernel (a ``counts`` scratch, outputs zeroed by the
 caller), which is bound with its own interface. The whole
 ``budget_route()`` op at N = 256 (``route_tau``, the allocations and
 the kernel) is profiled for both as well: device launches and device
-time a call. Prints one JSON line. Needs a CUDA card and nvcc.
+time a call. ``embedding_bag`` is timed the same way at its rows 6
+(dlrm-mlperf's ``serve_bulk`` lookup in the full 48 GB table), 6a
+(DeepFM's train_batch lookup, D = 10 and its D = 1 ``lin_table``) and
+6b (AutoInt's, D = 16), and ``embedding_bag_backward`` at rows 6c
+(DeepFM's table gradient) and 6d (minibatch_lg's ``segment_sum``): the
+C entries back to back on plumbing made beforehand, and each
+checkout's whole op (plumbing and entry) as one CUDA-event time. Those
+rows need a baseline with this checkout's C interface (vector bytes in
+the forward, tile pointers in the backward); for an older baseline
+they are left out, and ``scripts/step_times.py --rows`` times each
+checkout through its own code. Prints one JSON line. Needs a CUDA card
+and nvcc.
 """
 from __future__ import annotations
 
@@ -321,7 +332,168 @@ def compare(baseline: Path, device) -> dict:
     res["budget_route_op_n256"] = {
         "baseline": profiled_ms(baseline_op),
         "this": profiled_ms(lambda: br.budget_route(scores, tokens, 0.05))}
+    del scores, tokens
+    if has_tile_backward(base_dir):
+        res.update(embedding_compare(libs, device))
+    else:
+        res["embedding_bag"] = ("left out: the baseline's C interface "
+                                "predates tile pointers")
     return res
+
+
+def has_tile_backward(kernels_dir: Path) -> bool:
+    """Whether a checkout's ``embedding_bag_backward`` takes tile
+    pointers (and its forward vector bytes), as this one does."""
+    src = kernels_dir / "embedding_bag" / "csrc" / "embedding_bag.cu"
+    return "tile_ptr" in src.read_text()
+
+
+def lookup_inputs(arch_id: str, shape: str, device, d=None, seed: int = 0):
+    """A recsys config's full table drawn on the card and one seeded
+    batch's concatenated-table ids, flat (B * fields,) int32, as
+    ``lookup_fields`` hands them to the kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import _recsys_batch
+    from repro_torch.models.recsys import embedding as E
+
+    arch = get_config(arch_id)
+    cfg = arch.model
+    dt = getattr(torch, cfg.param_dtype)
+    g = torch.Generator(device=device).manual_seed(seed)
+    table, _ = E.init_table(cfg.vocab_sizes, d or cfg.embed_dim, dt, g,
+                            device)
+    sparse = _recsys_batch(cfg, arch.shape(shape)["batch"], seed=seed,
+                           device=device)["sparse"]
+    offs = torch.from_numpy(E.table_offsets(cfg.vocab_sizes)[0]
+                            .astype("int32")).to(device)
+    return table, (sparse + offs[None, :]).reshape(-1)
+
+
+def embedding_compare(libs: dict, device) -> dict:
+    """Both checkouts' embedding_bag (rows 6, 6a, 6b) and
+    embedding_bag_backward (rows 6c, 6d) in turns, each launch first
+    held bit-equal to the plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.embedding_bag import ops, ref
+    from repro_torch.launch import specs as S
+
+    st = cuda_lib.stream_of(device)
+    res = {}
+
+    def in_turns(name, make, check, shape):
+        rows = res[name] = {"shape": shape,
+                            "baseline": {"ms_device": [], "op_ms": []},
+                            "this": {"ms_device": [], "op_ms": []}}
+        for which in ("baseline", "this", "this", "baseline"):
+            entry, op = make(which)
+            entry()
+            torch.cuda.synchronize()
+            check()
+            rows[which]["ms_device"].append(device_ms(entry))
+            rows[which]["op_ms"].append(event_ms(op))
+
+    def forward(name, table, ids):
+        b = ids.numel()
+        d = table.shape[1]
+        out = torch.empty((b, d), dtype=table.dtype, device=device)
+        ids2 = ids.view(-1, 1)
+        want = ref.embedding_bag_ref(table, ids2, torch.ones(
+            ids2.shape, dtype=torch.float32, device=device))
+        el = table.element_size()
+
+        def make(which):
+            fn = _bind(libs[which], ops.KERNEL)
+            vb = ops.vec_bytes(el, d * el, table.stride(0) * el,
+                               table.data_ptr(), out.data_ptr())
+
+            def entry():
+                err = fn(table.data_ptr(), ops._TABLE_DTYPES[table.dtype],
+                         table.shape[0], table.stride(0), d, ids.data_ptr(),
+                         int(ids.dtype == torch.int64), 0, b, 1, 0, vb,
+                         out.data_ptr(), st)
+                if err:
+                    raise RuntimeError(f"embedding_bag ({which}): {err}")
+            return entry, entry
+
+        def check():
+            assert torch.equal(out, want), f"embedding_bag {name}"
+        in_turns(name, make, check, {"bags": b, "d": d,
+                                     "table_rows": table.shape[0]})
+
+    def backward(name, grad, ids, rows):
+        d = grad.shape[1]
+        el = grad.element_size()
+        out = torch.empty((rows, d), dtype=grad.dtype, device=device)
+        want = ref.embedding_bag_backward_ref(grad, ids, rows)
+
+        def make(which):
+            fn = _bind(libs[which], ops.BACKWARD)
+            vb = ops.vec_bytes(el, d * el, grad.data_ptr(), out.data_ptr())
+            tile = ops.tile_rows(d * el // vb, ids.numel(), rows)
+
+            def launch(keys, perm, ptr):
+                err = fn(grad.data_ptr(), ops._TABLE_DTYPES[grad.dtype],
+                         rows, d, keys.data_ptr(), perm.data_ptr(),
+                         keys.numel(), ptr.data_ptr(), tile, vb,
+                         out.data_ptr(), st)
+                if err:
+                    raise RuntimeError(f"backward ({which}): {err}")
+            plumb = ops.row_offsets(ids, rows, tile)
+
+            def op():
+                launch(*ops.row_offsets(ids, rows, tile))
+            return (lambda: launch(*plumb)), op
+
+        def check():
+            assert torch.equal(out, want), f"embedding_bag_backward {name}"
+        in_turns(name, make, check, {"ids": ids.numel(), "d": d,
+                                     "rows": rows})
+
+    table, ids = lookup_inputs("dlrm-mlperf", "serve_bulk", device)
+    forward("embedding_bag_dlrm_serve_bulk", table, ids)
+    del table, ids
+    torch.cuda.empty_cache()
+    for arch_id, d, name in (("deepfm", None, "deepfm_train_batch"),
+                             ("deepfm", 1, "deepfm_lin_train_batch"),
+                             ("autoint", None, "autoint_train_batch")):
+        table, ids = lookup_inputs(arch_id, "train_batch", device, d=d)
+        forward(f"embedding_bag_{name}", table, ids)
+        if name == "deepfm_train_batch":
+            g = torch.Generator(device=device).manual_seed(0)
+            grad = torch.randn((ids.numel(), table.shape[1]), generator=g,
+                               device=device).to(table.dtype)
+            backward("embedding_bag_backward_deepfm_train_batch", grad, ids,
+                     table.shape[0])
+            del grad
+        del table, ids
+        torch.cuda.empty_cache()
+    shape = get_config("equiformer-v2").shape("minibatch_lg")
+    n, e = S._gnn_dims(shape)
+    ids = S._gnn_batch(shape, 1, device)["dst"]
+    g = torch.Generator(device=device).manual_seed(0)
+    msgs = torch.randn((e, 49 * get_config("equiformer-v2").model.d_hidden),
+                       generator=g, device=device).to(torch.bfloat16)
+    backward("embedding_bag_backward_equiformer_aggregation", msgs, ids, n)
+    del msgs, ids
+    torch.cuda.empty_cache()
+    return res
+
+
+def event_ms(fn, reps: int = 10) -> float:
+    """Median CUDA-event time of one ``fn()`` call (host work and any
+    synchronisation it makes included), after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
 
 
 def main(argv=None) -> int:

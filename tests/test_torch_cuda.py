@@ -1389,8 +1389,8 @@ def test_embedding_bag_backward_kernel_vs_plain(dev, d, dtype, id_dtype):
 
 
 def test_embedding_bag_backward_kernel_edges(dev):
-    """No ids (the memset alone), every id dropped, a run longer than a
-    chunk of every width, and the bits equal across two launches."""
+    """No ids (every row the kernel's zeros), every id dropped, a long
+    run of every width, and the bits equal across two launches."""
     z = eb.embedding_bag_backward(torch.randn((0, 8), device=dev),
                                   torch.zeros(0, dtype=torch.int64,
                                               device=dev), 6)
@@ -1410,6 +1410,185 @@ def test_embedding_bag_backward_kernel_edges(dev):
     assert torch.equal(a, embedding_bag_backward_ref(grad, ids, 4))
     with pytest.raises(ValueError, match="one device"):
         eb.embedding_bag_backward(grad, ids.cpu(), 4)
+
+
+def _bwd_into_nan(grad, ids, rows):
+    """The backward kernel's C entry on the wrapper's plumbing, into an
+    output filled with NaN first: an element the kernel does not write
+    stays NaN and fails ``torch.equal`` against the plain version."""
+    from repro_torch.kernels import cuda_lib
+
+    el, d = grad.element_size(), grad.shape[1]
+    out = torch.full((rows, d), float("nan"), dtype=grad.dtype,
+                     device=grad.device)
+    vb = eb.vec_bytes(el, d * el, grad.data_ptr(), out.data_ptr())
+    tile = eb.tile_rows(d * el // vb, ids.numel(), rows)
+    keys, perm, ptr = eb.row_offsets(ids, rows, tile)
+    eb.BACKWARD(grad.data_ptr(), eb._TABLE_DTYPES[grad.dtype], rows, d,
+                keys.data_ptr(), perm.data_ptr(), keys.numel(),
+                ptr.data_ptr(), tile, vb, out.data_ptr(),
+                cuda_lib.stream_of(grad.device))
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("d,dtype", [(10, torch.bfloat16),
+                                     (18, torch.float32)])
+def test_embedding_bag_backward_one_long_run_through_the_ring(dev, d, dtype):
+    """50,000 ids on one row (past the long-run threshold, round the
+    ring many times), a few on others: bit-equal to the plain version,
+    every element written, and two launches bit-equal."""
+    from repro_torch.kernels.embedding_bag.ref import (
+        embedding_bag_backward_ref)
+
+    g = torch.Generator(device=dev).manual_seed(d)
+    n, r = 50_000, 40
+    ids = torch.full((n,), 17, dtype=torch.int32, device=dev)
+    ids[::997] = torch.randint(0, r, (ids[::997].numel(),), generator=g,
+                               device=dev, dtype=torch.int32)
+    grad = torch.randn((n, d), generator=g, device=dev).to(dtype)
+    want = embedding_bag_backward_ref(grad, ids, r)
+    a = _bwd_into_nan(grad, ids, r)
+    assert torch.equal(a, want)
+    assert torch.equal(eb.embedding_bag_backward(grad, ids, r), a)
+
+
+@pytest.mark.parametrize("d,dtype", [(10, torch.bfloat16),
+                                     (18, torch.float32),
+                                     (1, torch.bfloat16),
+                                     (6272, torch.bfloat16)])
+def test_embedding_bag_backward_writes_untouched_and_once_touched_rows(
+        dev, d, dtype):
+    """A grad whose rows are all untouched (every id dropped: zeros
+    everywhere), and one that touches every row exactly once (the rows
+    permuted), each into a NaN-filled output."""
+    g = torch.Generator(device=dev).manual_seed(d)
+    r = 3000 if d < 1000 else 300
+    grad = torch.randn((r, d), generator=g, device=dev).to(dtype)
+    dropped = torch.randint(r, 2 * r, (r,), generator=g, device=dev)
+    assert torch.equal(_bwd_into_nan(grad, dropped, r),
+                       torch.zeros((r, d), dtype=dtype, device=dev))
+    perm = torch.randperm(r, generator=g, device=dev)
+    want = torch.empty_like(grad)
+    want[perm] = grad
+    assert torch.equal(_bwd_into_nan(grad, perm, r), want)
+
+
+@pytest.mark.parametrize("d,dtype", [(10, torch.bfloat16),
+                                     (18, torch.float32),
+                                     (3, torch.bfloat16),
+                                     (128, torch.bfloat16)])
+def test_embedding_bag_backward_runs_at_the_long_threshold(dev, d, dtype):
+    """Runs of LONG_RUN - 1, LONG_RUN (the tile's warp sums them) and
+    LONG_RUN + 1, 2 LONG_RUN + 1 (their own warp and ring) ids, shuffled
+    among short ones: bit-equal, every element written."""
+    from repro_torch.kernels.embedding_bag.ref import (
+        embedding_bag_backward_ref)
+
+    g = torch.Generator(device=dev).manual_seed(d + 1)
+    lens = [eb.LONG_RUN - 1, eb.LONG_RUN, eb.LONG_RUN + 1,
+            2 * eb.LONG_RUN + 1]
+    r = 200
+    runs = torch.cat([torch.full((m,), 3 + 5 * i, dtype=torch.int64)
+                      for i, m in enumerate(lens)]).to(dev)
+    rest = 1 + 5 * (torch.arange(400, device=dev) % 40)   # 10 ids a row
+    ids = torch.cat([runs, rest])
+    ids = ids[torch.randperm(ids.numel(), generator=g, device=dev)]
+    grad = torch.randn((ids.numel(), d), generator=g, device=dev).to(dtype)
+    _, _, ptr = eb.row_offsets(ids, r)
+    assert [int(ptr[3 + 5 * i + 1] - ptr[3 + 5 * i]) for i in
+            range(len(lens))] == lens
+    assert torch.equal(_bwd_into_nan(grad, ids, r),
+                       embedding_bag_backward_ref(grad, ids, r))
+
+
+@pytest.mark.parametrize("d,dtype", [(10, torch.bfloat16),
+                                     (1, torch.bfloat16),
+                                     (16, torch.bfloat16),
+                                     (18, torch.float32)])
+def test_embedding_bag_backward_sparse_table_tiles(dev, d, dtype):
+    """A sparse table (a tenth of an id a row: tiles of 256 rows, most
+    found by scatter), with a hot row of 5,000 ids whose tile has more
+    keys than a scatter takes (binary search), runs at the long
+    threshold, and ids that wrap or drop: bit-equal, every element
+    written."""
+    from repro_torch.kernels.embedding_bag.ref import (
+        embedding_bag_backward_ref)
+
+    g = torch.Generator(device=dev).manual_seed(d + 7)
+    r, n = 400_000, 40_000
+    ids = torch.randint(-r - 50, r + 50, (n,), generator=g, device=dev)
+    ids[:5000] = 123_457
+    ids[5000:5000 + eb.LONG_RUN] = 9
+    ids[6000:6000 + eb.LONG_RUN + 1] = 300_001
+    ids = ids[torch.randperm(n, generator=g, device=dev)]
+    grad = torch.randn((n, d), generator=g, device=dev).to(dtype)
+    el = grad.element_size()
+    assert eb.tile_rows(d * el // eb.vec_bytes(el, d * el, 512, 512), n,
+                        r) >= 128
+    assert torch.equal(_bwd_into_nan(grad, ids, r),
+                       embedding_bag_backward_ref(grad, ids, r))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 10, 16, 18])
+def test_embedding_bag_kernel_every_vector_width(dev, d, dtype):
+    """The forward at every vector width the wrapper picks: D in {1, 2,
+    3, 5, 10, 16, 18} of a table taken as a slice at an element offset,
+    so the base address is only 2- or 4-byte aligned, and of the whole
+    table; bags of one exactly (NaN for ids out of range), weighted bags
+    of 3 within the tolerance."""
+    g = torch.Generator(device=dev).manual_seed(d)
+    r = 4000
+    full = torch.randn((r, d + 1), generator=g, device=dev).to(dtype)
+    flat = torch.randn(r * d + 1, generator=g, device=dev).to(dtype)
+    whole = full[:, :d].contiguous()
+    # a row stride of d + 1, and contiguous rows one element past the
+    # allocation's start (a 2-byte address in bf16, 4-byte in f32)
+    for table in (whole, full[:, 1:], flat[1:].view(r, d)):
+        el = table.element_size()
+        vb = eb.vec_bytes(el, d * el, table.stride(0) * el,
+                          table.data_ptr(), 512)
+        ids = torch.randint(-r - 5, r + 5, (3000, 1), generator=g,
+                            device=dev)
+        _eb_check(table, ids, None, "sum", exact=True)
+        ids3 = torch.randint(0, r, (2000, 3), generator=g, device=dev,
+                             dtype=torch.int32)
+        w = torch.rand((2000, 3), generator=g, device=dev)
+        _eb_check(table, ids3, w, "sum")
+        _eb_check(table, ids3, w, "mean")
+        assert vb in ((2, 4, 8, 16) if el == 2 else (4, 8, 16))
+    if d == 10 and dtype == torch.bfloat16:
+        assert eb.vec_bytes(2, 20, 20, flat[1:].data_ptr(), 512) == 2
+        assert eb.vec_bytes(2, 20, 20, whole.data_ptr(), 512) == 4
+
+
+def test_backward_and_segment_sum_make_no_host_sync(dev):
+    """``embedding_bag_backward`` and ``segment_sum`` (forward and
+    backward) run under ``set_sync_debug_mode("error")``: their plumbing
+    waits for nothing on the card."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    grad = torch.randn((5000, 10), generator=g, device=dev).to(
+        torch.bfloat16)
+    ids = torch.randint(-300, 300, (5000,), generator=g, device=dev)
+    ids[:2000] = 4
+    msgs = torch.randn((5000, 6), generator=g, device=dev,
+                       requires_grad=True)
+    cot = torch.randn((250, 6), generator=g, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = eb.embedding_bag_backward(grad, ids, 250)
+        out = eb.segment_sum(msgs, ids, 250)
+        (gm,) = torch.autograd.grad(out, msgs, cot)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    from repro_torch.kernels.embedding_bag.ref import (
+        embedding_bag_backward_ref)
+    assert torch.equal(a, embedding_bag_backward_ref(grad, ids, 250))
+    assert torch.equal(out.detach().cpu(),
+                       eb.segment_sum(msgs.detach().cpu(), ids.cpu(), 250))
+    assert gm.shape == msgs.shape
 
 
 def test_lookup_autograd_launches_both_kernels(dev):
