@@ -7,7 +7,13 @@ Needs one CUDA card, ``nvcc`` (on PATH or under /usr/local/cuda/bin) and
 the repository's ``src/``; exits non-zero, printing no result, without
 them. Imports nothing of JAX and nothing of the JAX package ``repro``.
 
-Phases (one JSON line each; any failure raises and exits non-zero):
+Phases (one JSON line each; any failure raises and exits non-zero; the
+order below is the order of the checks, but phases 4, 9 and 10's fleets
+run in child processes beside others, ``start_phase``, so that worker
+starts and host work overlap, and a phase line printed while children
+run names them in ``timed_beside``: its times then follow the host; the
+autotune knob sweeps run right after phase 1, before any child shares
+the card):
 
 0. device: the card's name and power limit (nvidia-smi), then the
    kernel library built from ``src/repro_torch/kernels/**/csrc/*.cu``
@@ -65,15 +71,17 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    routing-parity probes: a negative NaN and
    subnormal scores through the CUDA budget_route and budget_topk,
    asserted against the JAX package's answers written in as constants.
-2. ft: ``serve.main`` with ``--variant ft --device cuda`` and with
-   ``--device cpu``: the metric dicts must be equal, and fast_features
-   must have launched at least once per batch.
+2. ft: ``serve.main`` with ``--variant ft --docs 150 --device cuda``
+   and, in a child process started after phase 3, with ``--device cpu``
+   (one intra-op thread, as every cpu child here): the metric
+   dicts must be equal, and fast_features must have launched at least
+   once per batch.
 3. train: the router's three stages (``core/dpo.py``) at full width,
    ``adaparse-router`` as registered (12 layers, d=768, S=512, bf16,
    remat; random init from a seeded generator), on inputs drawn from the
    corpus through the fast_features kernel: SFT and refit at batch 256
    (``sft_4k`` is 4096), DPO at 64 pairs (``dpo_2k`` is 2048), one
-   warm-up and 3 timed steps a stage: ms a step, samples/s, peak GB, the
+   warm-up and 2 timed steps a stage: ms a step, samples/s, peak GB, the
    losses and model TFLOP/s (3x the forward's matmul and attention
    FLOPs, DPO's frozen reference 1x) against 989 TFLOP/s bf16; a
    torch.profiler pass over one SFT step. Holds: finite losses; SFT,
@@ -85,25 +93,30 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    embedding gradient of one SFT batch, taken twice through
    ``index_select`` and through ``embed_lookup`` (the latter must give
    the same bits).
-4. train_small_parity: the reduced f32 ``router-tiny`` from one exported
-   init, 20 steps a stage on cuda and on cpu: losses within rtol 1e-5,
-   params within 1e-4; then ``serve.build_llm_router`` twice on cuda:
-   the two routers must have the same bits.
+4. train_small_parity (in a child process beside phases 2, 5 and 6;
+   its line is printed after phase 6's): the reduced f32 ``router-tiny`` from one exported
+   init, 10 steps a stage on cuda and on cpu over 20 training
+   documents: losses within rtol 1e-5, params within 1e-4; then
+   ``serve.build_llm_router`` twice on cuda (50 SFT and 20 DPO steps;
+   serve's are 150 and 60): the two routers must have the same bits.
 5. serve_llm: ``serve.main`` with ``--variant llm`` (SFT+DPO training of
    the reduced router included) at the ft phase's sizes on cuda and on
-   cpu: fast_features and budget_route must have launched, each cuda
+   cpu (a child process started after phase 3, which records its route
+   steps' encoder): fast_features and budget_route must have launched, each cuda
    batch's device plan must equal ``plan_batch`` on its scores, and
    ``frac_expensive`` <= alpha in both runs.
 6. llm: the full-width bf16 ``adaparse-router`` encoder that phase
-   ``train`` trained behind a fitted CLS-I stage, run by
+   ``train`` trained behind a fitted CLS-I stage, over the 200 test
+   documents of a 300-document corpus, run by
    ``AdaParseEngine(..., device="cuda", probe=QualityProbe(rate 1.0))``
    and evaluated: every kernel must have launched, every batch's device
    plan must equal ``plan_batch`` on the same improvement scores, and
    the predictions must be finite in [0, 1]. A reduced f32 encoder then
    runs the same engine on cuda and on cpu, whose records must agree
    (a flip allowed only within 1e-5 of tau).
-7. campaign: that router over the 3,072 test documents of a 4,608
-   document corpus (12 batches of 256) through the campaign layer, four
+7. campaign: that router over the 2,048 test documents of a 3,072
+   document corpus (8 batches of 256, two controller rounds) through the
+   campaign layer, four
    simulated nodes sharing the card: A1 one ``AdaParseEngine``; A2 a
    ``CampaignController`` (pools cpu:3,gpu:1, speed factors 1/1/3/1,
    prefetch 2, probe rate 0.5, straggler rate 0.5, a DiskResultStore),
@@ -114,25 +127,30 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    fresh controller replaying its telemetry on a cold store: the same
    records, weights and alpha trajectory. Card seconds and documents/s
    (host clock, synchronised) are reported apart from the simulated
-   node-second clocks. B: ``serve.main`` with the campaign flags
-   (``--variant ft --docs 1200 --nodes 4 --adaptive-rounds 3`` ...) on
-   cuda, with the cpu run in a child process beside it: equal metric
+   node-second clocks. B: ``serve`` with the campaign flags
+   (``--variant ft --docs 150 --batch-size 32 --nodes 4 --adaptive-rounds
+   3`` ...) on
+   cuda and on cpu, two child processes beside A1-A4: equal metric
    dicts and report lines, and the two result stores hold the same
    entries. fast_features, budget_route and ngram_score must launch.
 8. fleet: the same router and documents on real worker processes, each
    with its own CUDA context on the one card (no MPS: they time-slice
    it). F1: 4 workers (``runtime="process"``, shm transport, prefetch
-   2, probe rate 0.5, a disk store, 3 controller rounds); F2: F1 over
+   2, probe rate 0.5, a disk store, 2 controller rounds); F2: F1 over
    the pickle transport; F2p: F2 with pools cpu:3,gpu:1, so every
    routed prepare is forwarded from card to card through the
-   coordinator; F3: a crash (``crash_after``) and a flap (mute, then
-   unmute) on 2 workers over the first 1,024 documents, their heartbeat
-   timeouts chosen from F1's measured batch time (the flap's slowdown
-   outlasts the largest deadline its window can grant by one more
-   timeout); F4: 4 loopback TCP fabric workers, then an elastic fabric
-   controller with one join and one crash. Records must equal A1's (or
-   its first 1,024 documents'), every document counted once, something
-   re-issued in F3 and F4's elastic run, and no /dev/shm entry left.
+   coordinator. Then phase fleet_faults: F3, a crash (``crash_after``)
+   and a flap (mute, then unmute) on 2 workers over the first 1,024
+   documents, their heartbeat timeouts from F1's node-seconds a batch
+   (the cost-model clock, which the host's load does not move; the
+   flap's slowdown outlasts the largest deadline its window can grant
+   by one more timeout); F4: 4 loopback TCP fabric workers, then an
+   elastic fabric controller with one join and one crash. Each F-run
+   starts its own workers: what tells the runs apart (transport, node
+   pools, faults, runtime) is fixed when a worker starts. Records must
+   equal A1's (or its first 1,024 documents'), every document counted
+   once, something re-issued in F3 and F4's elastic run, and no
+   /dev/shm entry left.
    Each worker's launches of the three kernels and its peak memory come
    from the worker's own metric snapshot (the gauges it ships when
    tracing is on), never from this process's counters, which must not
@@ -141,24 +159,32 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    inline payload counts are printed (F1 must carry all by shm, F2 all
    inline). F5: ``serve --workers 2`` and ``serve --fabric-workers 2``
    with the ``campaign`` phase's serve flags on cuda and on cpu, all
-   four at once in child processes but one: equal metric dicts and
+   four at once in child processes beside F1-F2p: equal metric dicts and
    report lines but for what they measure (wall, documents/s, busy, the
    adaptive weights that follow the measured clocks, and
    ``throughput_docs_per_node_s``), and equal result stores.
-9. scenarios: the scenario lab's eight scenarios (``run_scenario`` on
+9. scenarios (in a child process beside phases 3-6; its lines are
+   printed after phase 6's): the scenario lab's eight
+   scenarios (``run_scenario`` on
    cuda: the local, process and fabric runtimes, each over its spec's
    150-document corpus and an ft router trained on its first half; each
    holds its records to its single-node reference), with each one's
    seconds, goodput, re-issues, duplicates dropped, cache hits and
    misses, and whether the elastic joiner served a batch (it must);
-   ``serve --scenario bursty_arrivals`` on cuda beside cpu, equal but for
-   the goodput; ``serve --workers 2 --status-interval 0.5`` on cuda at
-   2,400 documents, which must print the live status line.
-10. autotune: every candidate of the three main-path kernels' launch
+   ``serve --scenario bursty_arrivals`` on cuda and on cpu, equal but for
+   the goodput; ``serve --workers 2 --status-interval 0.25`` on cuda at
+   1,200 documents in batches of 4, which must print the live status
+   line; the three
+   serves in child processes beside the scenarios.
+10. autotune (its fleets in a child process beside phase fleet_faults,
+   their lines printed after its line): every candidate of the
+   three main-path kernels' launch
    knobs (fast_features and ngram_score threads a block, budget_route
    rows a block of its grid) at the path's shapes and at route_64k:
    bit-equal to the default launch, held against the plain version, with
-   its ``ms_device`` and the fastest; then a 2-worker process fleet over
+   its ``ms_device`` and the fastest (these ``autotune_knob`` lines come
+   right after phase 1's edge cases, before any child process shares
+   the card); then a 2-worker process fleet over
    one ``tuning_dir`` with the ``campaign`` phase's router and documents,
    twice: the cold fleet sweeps and publishes a fast_features key for
    this card, the warm one sweeps nothing and leaves the store's bytes
@@ -281,7 +307,7 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    ``launch.specs.gnn_train_step`` (remat, ``chain_clip(adamw(3e-4,
    0.1), 1.0)``) on ``_gnn_batch`` batches of the reference's cells:
    minibatch_lg (N = 169,984, E = 168,960; batch_nodes cut only if the
-   peak reckoned from two small steps does not fit) one warm-up and 3
+   peak reckoned from two small steps does not fit) one warm-up and 2
    timed steps, full_graph_sm and molecule a warm-up and one timed step
    each: ms a step, model TFLOP/s (3x the forward's matmul FLOPs, the
    remat recompute not counted) against 989 TFLOP/s bf16, peak GB,
@@ -312,7 +338,7 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    through ``launch.specs.vit_parser_train_step`` (``chain_clip(adamw(
    3e-4, 0.1), 1.0)``) on ``_nougat_batch`` batches at the page batch
    the peaks of steps at 4 and 8 pages reckon within 85% of the card
-   (``train_pages`` is 256 x 2,048), one warm-up and 3 timed steps:
+   (``train_pages`` is 256 x 2,048), one warm-up and 2 timed steps:
    finite losses and model TFLOP/s (3x the forward's matmul and
    attention FLOPs) against 989 TFLOP/s bf16; ``parse_encode`` (the
    encoder and the cross keys and values) and one ``parse_decode`` step
@@ -330,6 +356,27 @@ Phases (one JSON line each; any failure raises and exits non-zero):
    forward of one page x 64 tokens on cuda against the port's cpu path
    (run in a spawned child beside phase ``vit_parser``), within 2e-2 of
    the cpu logits' largest magnitude.
+23. cells: the cell factory (``launch/specs.py``). Every cell of
+   ``all_cells()`` (42) built on meta at full size, with each cell's
+   argument bytes and no card memory allocated; every reduced cell
+   built on the cpu, one step there and one on cuda from a copy of its
+   arguments: outputs within 2e-5 (the f32 tiny configs), integer
+   outputs (top-k ids, route plans) equal; a train cell's step must
+   move its params on cuda, its loss within 2e-5, its params within
+   2e-5 but for at most 4 elements a rounding-level gradient moved
+   (counted; each held to the cpu step's largest move); the dpo_2k
+   cell from distinct preferred and rejected sides and a frozen
+   reference that differs from the params (its own batch draws both
+   sides from one seed, which makes the loss ln 2 for any policy); then the
+   serve, prefill and decode cells at full width on the card, one step
+   each, finite: the recsys serve_p99, serve_bulk and retrieval_cand
+   cells of DeepFM, AutoInt, DIEN (serve_bulk at the recsys_zoo phase's
+   cut) and dlrm-mlperf at their own shapes, qwen3-1.7b's prefill and
+   decode cells with ``attention_impl="pallas"`` at 4 x 4096,
+   nougat-base's parse_encode and parse_decode at 256 pages and
+   route_64k at batch 1,024 (each cut and its reckoning in
+   ``reduced``); flash_attention (28), budget_route and embedding_bag
+   must launch.
 
 The phases free the card's memory between them: the DLRM table and the
 GNN step's ~60 GB (with its plain version) do not fit together.
@@ -345,7 +392,9 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from contextlib import ExitStack
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -367,11 +416,20 @@ DIEN_TRAIN_BATCH = 32768
 T_START = time.perf_counter()
 
 
+# the child processes that run beside the phases now running (``main``
+# keeps it): a phase line emitted meanwhile carries it as
+# ``timed_beside``, since its host-clock and card times then follow the
+# host's load and the card's sharing
+BESIDE: list[str] = []
+
+
 def emit(obj) -> None:
     """One JSON line; a phase's line also carries ``t_s``, the seconds
-    since the script started."""
+    since the script started, and ``timed_beside`` (``BESIDE``)."""
     if "phase" in obj:
         obj = {**obj, "t_s": time.perf_counter() - T_START}
+        if BESIDE:
+            obj["timed_beside"] = list(BESIDE)
     print(json.dumps(obj), flush=True)
 
 
@@ -1522,28 +1580,53 @@ def read_counts() -> dict:
     return {name: k.launches for name, k in kernels().items()}
 
 
-def phase_ft() -> dict:
+SERVE_DOCS = 150         # ft and serve_llm: 2 of 3 documents are test
+SERVE_CUT = {"docs": "600 -> 150 (one test batch of 100 where there were "
+                     "two of 256 and 144; the cpu run in a child process "
+                     "started with phase train_small_parity)"}
+
+
+def serve_argv(variant: str) -> list[str]:
+    return ["--docs", str(SERVE_DOCS), "--batch-size", "256", "--variant",
+            variant, "--seed", str(SEED)]
+
+
+def start_cpu_serves(tmp: Path) -> dict:
+    """The cpu runs of phases ft and serve_llm, in child processes
+    started ahead of them: {"ft": process, "llm": (``start_phase``'s
+    child running ``serve_llm_cpu``, the .npz its route steps' encoder
+    goes to)}."""
+    enc_file = str(tmp / "cpu_encoder.npz")
+    return {"ft": serve_process(serve_argv("ft") + ["--device", "cpu"]),
+            "llm": (start_phase("serve_llm_cpu", tmp, (enc_file,),
+                                cpu=True), enc_file)}
+
+
+def phase_ft(cpu) -> dict:
+    """``cpu``: the cpu run's process (``start_cpu_serves``)."""
     import io
     from contextlib import redirect_stdout
 
     from repro_torch.launch import serve
 
-    argv = ["--docs", "600", "--batch-size", "256", "--variant", "ft",
-            "--seed", str(SEED)]
-    reset_counts()
-    t0 = time.perf_counter()
-    with redirect_stdout(io.StringIO()):
-        res_cuda = serve.main(argv + ["--device", "cuda"])
-    counts = read_counts()
-    wall = time.perf_counter() - t0
-    with redirect_stdout(io.StringIO()):
-        res_cpu = serve.main(argv + ["--device", "cpu"])
-    assert res_cuda == res_cpu, f"ft metrics differ: {res_cuda} vs {res_cpu}"
-    n_batches = math.ceil((600 - 600 // 3) / 256)
+    argv = serve_argv("ft")
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        with redirect_stdout(io.StringIO()):
+            res_cuda = serve.main(argv + ["--device", "cuda"])
+        counts = read_counts()
+        wall = time.perf_counter() - t0
+        res_cpu, _ = finish(cpu)
+    finally:
+        reap_children([cpu])
+    assert json.loads(json.dumps(res_cuda)) == res_cpu, \
+        f"ft metrics differ: {res_cuda} vs {res_cpu}"
+    n_batches = math.ceil((SERVE_DOCS - SERVE_DOCS // 3) / 256)
     assert counts["fast_features"] >= n_batches, counts
     emit({"phase": "ft", "metrics": res_cuda, "launches": counts,
           "batches": n_batches, "cuda_wall_s": wall,
-          "equal_to_cpu": True})
+          "equal_to_cpu": True, "reduced": SERVE_CUT})
     return counts
 
 
@@ -1652,6 +1735,10 @@ def batch_stage_times(eng, docs) -> dict:
             "complete_with_probe_s": complete_s, "probe_s": probe_s}
 
 
+LLM_DOCS = 300          # 200 test documents, one batch (600 before the
+#                         cut: 400, two batches)
+
+
 def phase_llm(trained):
     """``trained``: the full-width encoder that phase ``train`` trained.
     Returns the launch counts and the router (the fitted CLS-I stage
@@ -1665,7 +1752,7 @@ def phase_llm(trained):
 
     cfg = get_config("adaparse-router").model          # full width, bf16
     assert trained.cfg == cfg, trained.cfg
-    eng, test = build_llm_engine(cfg, 600, "cuda", probe_rate=1.0,
+    eng, test = build_llm_engine(cfg, LLM_DOCS, "cuda", probe_rate=1.0,
                                  prefetch_depth=2, encoder=trained)
     reset_counts()
     torch.cuda.synchronize()
@@ -1694,6 +1781,7 @@ def phase_llm(trained):
                for q in qual for v in q.values()), qual
     stages = batch_stage_times(eng, test[:bs])
     emit({"phase": "llm", "config": cfg.name, "weights": "phase train",
+          "reduced": {"docs": f"600 -> {LLM_DOCS}"},
           "outputs": [eng.router.cheap_idx, eng.router.expensive_idx],
           "docs": len(test),
           "batches": len(plans), "launches": counts, "wall_s": wall,
@@ -1732,17 +1820,30 @@ def phase_llm(trained):
 
 # -------------------------------------------------------------- campaign
 
-CAMPAIGN_DOCS = 4608    # 3,072 test documents: 12 batches of 256, so
-#                         three rounds of several batches a node
+CAMPAIGN_DOCS = 3072    # 2,048 test documents: 8 batches of 256, so
+#                         two rounds of a batch for each of 4 nodes
 CAMPAIGN_NODES = ["cpu", "cpu", "cpu", "gpu"]        # --pools cpu:3,gpu:1
 CAMPAIGN_SPEEDS = [1.0, 1.0, 3.0, 1.0]
-CAMPAIGN_ROUNDS = 3
+CAMPAIGN_ROUNDS = 2
 STRAGGLER_RATE = 0.5
 HUNG_SLOWDOWN = 50.0    # A2r: a hung batch, far past the re-issue deadline
-SERVE_CAMPAIGN = ["--variant", "ft", "--docs", "1200", "--nodes", "4",
+SERVE_CAMPAIGN = ["--variant", "ft", "--docs", "150", "--batch-size", "32",
+                  "--nodes", "4",
                   "--adaptive-rounds", "3", "--quality-probe-rate", "0.5",
                   "--alpha-bounds", "0.02:0.2", "--alpha-step", "0.05",
                   "--warm-cache", "--seed", str(SEED)]
+# the cuts of the campaign, fleet and scenario phases (ROADMAP 3j: their
+# worker starts and host BLEU made the script's time swing with the host)
+CAMPAIGN_CUTS = {
+    "campaign_docs": "4,608 (3,072 test documents, 12 batches) -> 3,072 "
+                     "(2,048 test documents, 8 batches)",
+    "controller_rounds": "3 -> 2 (each round still gives each of the 4 "
+                         "nodes one batch)",
+    "serve_docs": "serve --docs 1,200 --batch-size 256 -> --docs 150 "
+                  "--batch-size 32 (4 batches of 100 test documents where "
+                  "there were 4 of 800; the campaign flags of B and of the "
+                  "fleet's F5, which run in child processes beside A1-A4 "
+                  "and F1-F2p)"}
 
 
 def same_records(a: dict, b: dict) -> bool:
@@ -1780,22 +1881,34 @@ def campaign_run(label, fn, n_docs) -> tuple:
     return res, row
 
 
+SERVE_CODE = ("import json, sys\n"
+              "from repro_torch.launch import serve\n"
+              "res = serve.main(sys.argv[1:])\n"
+              "print('RESULT ' + json.dumps(res))\n")
 def serve_process(argv, card: bool = False):
-    """``serve.main(argv)`` in a child process, which cannot see the card
-    unless ``card`` (host-bound BLEU runs beside the card's run there);
-    ``finish`` reads its metric dict and report lines."""
+    """``serve.main(argv)`` in a child process, which cannot
+    see the card unless ``card`` (host-bound BLEU runs beside the card's
+    run there); ``finish`` reads its metric dict and report lines."""
     import os
 
-    code = ("import json, sys\n"
-            "from repro_torch.launch import serve\n"
-            "res = serve.main(sys.argv[1:])\n"
-            "print('RESULT ' + json.dumps(res))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     if not card:
-        env["CUDA_VISIBLE_DEVICES"] = ""
-    return subprocess.Popen([sys.executable, "-c", code, *argv],
+        # one intra-op thread a process (its workers inherit it): several
+        # cpu serves run beside the card's phases on the host's cores
+        env.update(CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+                   MKL_NUM_THREADS="1")
+    return subprocess.Popen([sys.executable, "-c", SERVE_CODE, *argv],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, env=env, cwd=ROOT)
+
+
+def reap_children(procs) -> None:
+    """Kill and wait for child processes still running (a phase that
+    failed leaves none behind)."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
 
 
 def finish(proc, timeout: float = 600.0):
@@ -1804,30 +1917,10 @@ def finish(proc, timeout: float = 600.0):
     finally:
         proc.kill()
     if proc.returncode:
-        raise RuntimeError(f"cpu serve exited {proc.returncode}:\n"
+        raise RuntimeError(f"serve exited {proc.returncode}:\n"
                            f"{err[-3000:]}")
     lines = out.splitlines()
     return json.loads(lines[-1][len("RESULT "):]), lines
-
-
-def serve_with_cpu_beside(cuda_argv, cpu_argv):
-    """``serve.main`` on the card in this process while the cpu run goes
-    on in a child: ((metrics, lines) on cuda, (metrics, lines) on cpu)."""
-    import io
-    from contextlib import redirect_stdout
-
-    from repro_torch.launch import serve
-
-    proc = serve_process(cpu_argv + ["--device", "cpu"])
-    try:
-        buf = io.StringIO()
-        with redirect_stdout(buf):
-            res = serve.main(cuda_argv + ["--device", "cuda"])
-    except BaseException:
-        proc.kill()
-        proc.wait()
-        raise
-    return (res, buf.getvalue().splitlines()), finish(proc)
 
 
 def report_lines(lines) -> list[str]:
@@ -1861,9 +1954,9 @@ def phase_campaign(router) -> dict:
     probe rate 0.5, a disk store), A2r the same fleet with a two-node
     GPU pool so that the seeded stragglers re-issue, A3 a warm replay of
     A2's store on the card and on the CPU, A4 α retuning and its replay;
-    B ``serve`` with the campaign flags on cuda and cpu."""
+    B ``serve`` with the campaign flags on cuda and cpu, two child
+    processes that run beside A1-A4."""
     import dataclasses
-    import tempfile
 
     import torch
 
@@ -1900,8 +1993,20 @@ def phase_campaign(router) -> dict:
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, ExitStack() as stack:
         tmp = Path(tmp)
+
+        def argv(tag):
+            return SERVE_CAMPAIGN + [
+                "--cache-dir", str(tmp / f"store_{tag}"),
+                "--trace-dir", str(tmp / f"trace_{tag}"),
+                "--metrics-out", str(tmp / f"metrics_{tag}.txt"),
+                "--device", tag]
+
+        # B's two serves run in child processes beside A1-A4
+        b_procs = {d: serve_process(argv(d), card=d == "cuda")
+                   for d in ("cuda", "cpu")}
+        stack.callback(reap_children, b_procs.values())
         eng = AdaParseEngine(ecfg, router, ccfg, device="cuda")
         single, seconds = synced(lambda: eng.run(test))
         # one node: its clock is the engine's charged node-seconds
@@ -1973,16 +2078,9 @@ def phase_campaign(router) -> dict:
         assert all(t.decision == "replay" for t in a4r.telemetry)
         assert same_records(a4r.records, a4.records), "A4 replay differs"
 
-        def argv(tag):
-            return SERVE_CAMPAIGN + [
-                "--cache-dir", str(tmp / f"store_{tag}"),
-                "--trace-dir", str(tmp / f"trace_{tag}"),
-                "--metrics-out", str(tmp / f"metrics_{tag}.txt")]
-
-        t0 = time.perf_counter()
-        (b_cuda, l_cuda), (b_cpu, l_cpu) = serve_with_cpu_beside(
-            argv("cuda"), argv("cpu"))
-        b_s = time.perf_counter() - t0
+        (b_cuda, l_cuda), (b_cpu, l_cpu) = (finish(b_procs[d])
+                                            for d in ("cuda", "cpu"))
+        b_s = time.perf_counter() - t_phase
         assert b_cuda == b_cpu, f"serve metrics differ: {b_cuda} {b_cpu}"
         assert report_lines(l_cuda) == report_lines(l_cpu), \
             (report_lines(l_cuda), report_lines(l_cpu))
@@ -2000,13 +2098,14 @@ def phase_campaign(router) -> dict:
         assert counts[name] > 0, \
             f"{name} did not launch in phase campaign: {counts}"
     emit({"phase": "campaign", "config": router.enc_cfg.name,
+          "reduced": CAMPAIGN_CUTS,
           "docs": n, "batches": n_batches, "nodes": CAMPAIGN_NODES,
           "speed_factors": CAMPAIGN_SPEEDS, "straggler_rate": STRAGGLER_RATE,
           "runs": runs, "launches": counts,
           "phase_s": time.perf_counter() - t_phase,
           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
           "serve": {"argv": SERVE_CAMPAIGN, "metrics": b_cuda,
-                    "equal_on_cpu": True, "wall_s_both": b_s,
+                    "equal_on_cpu": True, "wall_s_from_phase_start": b_s,
                     "report": report_lines(l_cuda),
                     "cache": cache_counts(l_cuda),
                     "store_entries_equal_to_cpu": len(stored["cuda"]),
@@ -2086,54 +2185,109 @@ def masked_report(lines) -> list[str]:
     return out
 
 
-def phase_fleet(router, ccfg, test, single) -> dict:
+# F5: the campaign phase's serve flags with the fleet in worker
+# processes instead of 4 in-process nodes
+FLEET_SERVE_FLAGS = ("--workers", "--fabric-workers")
+
+
+def start_serve_fleets(tmp: Path) -> tuple[list[str], dict]:
+    """F5's four serves (``--workers 2`` and ``--fabric-workers 2``, each
+    on cuda and on cpu), each in a child process: (their flags, the
+    processes by (flag, device)). Their time is mostly worker starts and
+    host BLEU, so they run beside phase ``campaign`` and F1-F2p."""
+    i = SERVE_CAMPAIGN.index("--nodes")
+    serve_argv = SERVE_CAMPAIGN[:i] + SERVE_CAMPAIGN[i + 2:]
+    return serve_argv, {
+        (f, dev): serve_process(serve_argv + [
+            f, "2", "--device", dev, "--cache-dir",
+            str(tmp / f"serve{f}_{dev}")], card=dev == "cuda")
+        for f in FLEET_SERVE_FLAGS for dev in ("cuda", "cpu")}
+
+
+def check_serve_fleets(procs: dict, tmp: Path) -> dict:
+    """F5's results: for each flag, the cuda and cpu metric dicts and
+    report lines equal but for what they measure, and their result
+    stores equal."""
+    out = {key: finish(proc) for key, proc in procs.items()}
+    served = {}
+    for flag in FLEET_SERVE_FLAGS:
+        (m_cuda, l_cuda), (m_cpu, l_cpu) = out[flag, "cuda"], \
+            out[flag, "cpu"]
+        measured = {d: m.pop("throughput_docs_per_node_s")
+                    for d, m in (("cuda", m_cuda), ("cpu", m_cpu))}
+        assert m_cuda == m_cpu, (flag, m_cuda, m_cpu)
+        assert masked_report(l_cuda) == masked_report(l_cpu), \
+            (masked_report(l_cuda), masked_report(l_cpu))
+        stored = {d: store_entries(tmp / f"serve{flag}_{d}")
+                  for d in ("cuda", "cpu")}
+        assert stored["cuda"].keys() == stored["cpu"].keys(), flag
+        assert all(same_records(stored["cuda"][k], stored["cpu"][k])
+                   for k in stored["cuda"]), flag
+        served[flag] = {"metrics": m_cuda,
+                        "throughput_docs_per_node_s": measured,
+                        "report_cuda": report_lines(l_cuda),
+                        "report_cpu": report_lines(l_cpu),
+                        "store_entries_equal_to_cpu": len(stored["cuda"])}
+    return served
+
+
+def fleet_configs(test) -> tuple:
+    """(engine config, the 4-worker process fleet's config, the number
+    of batches of ``test``) of phases fleet and fleet_faults."""
+    from repro_torch.core.campaign import ExecutorConfig
+    from repro_torch.core.engine import EngineConfig
+
+    ecfg = EngineConfig(alpha=ALPHA, batch_size=256, seed=SEED)
+    fleet = ExecutorConfig(n_nodes=FLEET_WORKERS, runtime="process",
+                           transport="shm", prefetch_depth=2, obs=True,
+                           seed=SEED)
+    return ecfg, fleet, -(-len(test) // ecfg.batch_size)
+
+
+def worker_totals(rows) -> dict:
+    """The main-path kernels' launches summed over the fleet runs'
+    workers (``fleet_run`` rows)."""
+    totals = dict.fromkeys(MAIN_KERNELS, 0)
+    for row in rows:
+        for wk in row["workers"]:
+            for k, v in wk["launches"].items():
+                totals[k] = totals.get(k, 0) + v
+    return totals
+
+
+def phase_fleet(router, ccfg, test, single, serve_fleets,
+                serve_tmp: Path) -> tuple:
     """The campaign on real worker processes, each with its own CUDA
     context on the one card, with the router of phase ``campaign`` and
     its single-node records (A1). F1: 4 workers, shm transport,
-    prefetch 2, probe 0.5, a disk store, 3 controller rounds. F2: F1 on
+    prefetch 2, probe 0.5, a disk store, 2 controller rounds. F2: F1 on
     the pickle transport; F2p the same with pools cpu:3,gpu:1, so that
     every routed batch's prepare is forwarded (from card to card through
-    the coordinator) to the GPU-pool worker. F3: a crash run and a flap
-    run (2 workers, 1,024 documents), their heartbeat timeouts chosen
-    from F1's measured batch time. F4: 4 loopback fabric workers, then
-    an elastic fabric campaign with one join and one crash. F5: ``serve
-    --workers 2`` and ``serve --fabric-workers 2`` on cuda, each beside
-    the same on the cpu in a child process."""
+    the coordinator) to the GPU-pool worker. F5: ``serve --workers 2``
+    and ``serve --fabric-workers 2`` on cuda and on cpu, four child
+    processes (``serve_fleets``, started before phase ``campaign``,
+    their stores under ``serve_tmp``) that run beside it and F1-F2p and
+    are read after F2p. Each F-run starts its own workers: what tells
+    the runs apart (transport, node pools) is fixed when a worker
+    starts. Returns (the workers' launches, F1's node-seconds a batch,
+    which phase ``fleet_faults`` takes its heartbeat timeouts from)."""
     import dataclasses
-    import tempfile
 
     from repro_torch.core.backends import DiskResultStore
     from repro_torch.core.campaign import (CampaignController,
-                                           CampaignExecutor,
-                                           ControllerConfig, ExecutorConfig,
-                                           FaultInjection)
-    from repro_torch.core.engine import EngineConfig
-    from repro_torch.core.fabric import FabricElastic
+                                           ControllerConfig)
     from repro_torch.core.quality import QualityProbe, QualityProbeConfig
 
     free_cuda()
-    n, bs = len(test), 256
-    n_batches = -(-n // bs)
-    ecfg = EngineConfig(alpha=ALPHA, batch_size=bs, seed=SEED)
+    n = len(test)
+    ecfg, fleet, n_batches = fleet_configs(test)
     probe_cfg = QualityProbeConfig(probe_rate=0.5, seed=SEED)
     probed = ControllerConfig(rounds=CAMPAIGN_ROUNDS, probe=probe_cfg)
     n_probed = sum(QualityProbe(probe_cfg, device="cpu").should_probe(k)
                    for k in range(n_batches))
-    fleet = ExecutorConfig(n_nodes=FLEET_WORKERS, runtime="process",
-                           transport="shm", prefetch_depth=2, obs=True,
-                           seed=SEED)
-    runs, totals = [], dict.fromkeys(MAIN_KERNELS, 0)
-
-    def add(row):
-        runs.append(row)
-        for wk in row["workers"]:
-            for k, v in wk["launches"].items():
-                totals[k] += v
-
-    def sub_single(docs):
-        return {d.doc_id: single[d.doc_id] for d in docs}
-
+    runs = []
     t_phase = time.perf_counter()
+    serve_argv, serve_procs = serve_fleets
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         f1, row = fleet_run(
@@ -2141,164 +2295,41 @@ def phase_fleet(router, ccfg, test, single) -> dict:
                 ecfg, fleet, probed, router, ccfg, device="cuda").run(
                     test, cache=DiskResultStore(tmp / "f1")),
             n, FLEET_WORKERS)
-        add(row)
+        runs.append(row)
         assert same_records(f1.records, single), "F1 records differ from A1"
         assert f1.cache_misses == n_batches, f1.cache_misses
         for wk in row["workers"]:
             assert wk["launches"]["fast_features"] > 0, wk
             assert wk["launches"]["budget_route"] > 0, wk
-        assert totals["ngram_score"] >= n_probed, (totals, n_probed)
+        assert worker_totals([row])["ngram_score"] >= n_probed, \
+            (row, n_probed)
         assert row["payloads_shm"] == 2 * n_batches, row
         assert row["payloads_inline"] == 0, row
 
-        pickled = dataclasses.replace(fleet, transport="pickle")
-        f2, row = fleet_run(
-            "F2 process, pickle", lambda: CampaignController(
-                ecfg, pickled, probed, router, ccfg, device="cuda").run(test),
-            n, FLEET_WORKERS)
-        add(row)
-        assert same_records(f2.records, f1.records), "F2 records differ"
-        assert (row["payloads_shm"], row["payloads_inline"]) == \
-            (0, 2 * n_batches), row
+    pickled = dataclasses.replace(fleet, transport="pickle")
+    f2, row = fleet_run(
+        "F2 process, pickle", lambda: CampaignController(
+            ecfg, pickled, probed, router, ccfg, device="cuda").run(test),
+        n, FLEET_WORKERS)
+    runs.append(row)
+    assert same_records(f2.records, f1.records), "F2 records differ"
+    assert (row["payloads_shm"], row["payloads_inline"]) == \
+        (0, 2 * n_batches), row
 
-        pooled = dataclasses.replace(pickled, node_pools=CAMPAIGN_NODES)
-        f2p, row = fleet_run(
-            "F2p process, pickle, pools cpu:3,gpu:1", lambda:
-            CampaignController(ecfg, pooled, probed, router, ccfg,
-                               device="cuda").run(test),
-            n, FLEET_WORKERS)
-        add(row)
-        assert same_records(f2p.records, single), "F2p records differ"
-        assert f2p.node_stats[3].n_expensive > 0, "nothing was forwarded"
+    pooled = dataclasses.replace(pickled, node_pools=CAMPAIGN_NODES)
+    f2p, row = fleet_run(
+        "F2p process, pickle, pools cpu:3,gpu:1", lambda:
+        CampaignController(ecfg, pooled, probed, router, ccfg,
+                           device="cuda").run(test),
+        n, FLEET_WORKERS)
+    runs.append(row)
+    assert same_records(f2p.records, single), "F2p records differ"
+    assert f2p.node_stats[3].n_expensive > 0, "nothing was forwarded"
+    served = check_serve_fleets(serve_procs, serve_tmp)
+    serve_s = time.perf_counter() - t_phase
 
-        # F3: the fault runs' heartbeat timeouts follow the measured
-        # batch time (F1's busy seconds a batch, four workers sharing
-        # the card, so an upper estimate for two)
-        batch_s = float(sum(st.node_seconds for st in f1.node_stats)
-                        / n_batches)
-        fault_docs = test[:FAULT_DOCS]
-        crash_timeout = max(5.0, 10 * batch_s)
-        crash = dataclasses.replace(
-            fleet, n_nodes=2, prefetch_depth=0,
-            heartbeat_timeout_s=crash_timeout, heartbeat_interval_s=0.1,
-            fault_injection=FaultInjection(crash_after=((1, 1),)))
-        f3c, row = fleet_run(
-            "F3 crash", lambda: CampaignExecutor(
-                ecfg, crash, router, ccfg, device="cuda").run(fault_docs),
-            FAULT_DOCS, 2, batch_s=batch_s,
-            heartbeat_timeout_s=crash_timeout)
-        add(row)
-        assert f3c.reissued >= 1, row
-        assert same_records(f3c.records, sub_single(fault_docs)), \
-            "F3 crash records differ"
-        # the flap: worker 1 mutes after one task and unmutes after
-        # two; the muted task's slowdown outlasts the largest deadline
-        # _deadline_for can grant at a window of 3 (the timeout times
-        # 1 + 3 queued tasks) by one more timeout
-        flap_timeout = max(1.0, batch_s)
-        slowdown = flap_timeout * (1 + 3) + flap_timeout
-        flap = dataclasses.replace(
-            fleet, n_nodes=2, prefetch_depth=2,
-            heartbeat_timeout_s=flap_timeout, heartbeat_interval_s=0.1,
-            straggler_grace_s=slowdown + 5.0,
-            fault_injection=FaultInjection(mute_after=((1, 0),),
-                                           unmute_after=((1, 2),),
-                                           mute_slowdown_s=slowdown))
-        f3f, row = fleet_run(
-            "F3 flap", lambda: CampaignExecutor(
-                ecfg, flap, router, ccfg, device="cuda").run(fault_docs),
-            FAULT_DOCS, 2, batch_s=batch_s,
-            heartbeat_timeout_s=flap_timeout, mute_slowdown_s=slowdown)
-        add(row)
-        assert f3f.reissued >= 1, row
-        assert same_records(f3f.records, sub_single(fault_docs)), \
-            "F3 flap records differ"
-
-        fabric = dataclasses.replace(fleet, runtime="fabric",
-                                     heartbeat_interval_s=0.2)
-        f4, row = fleet_run(
-            "F4 fabric, 4 loopback workers", lambda: CampaignExecutor(
-                ecfg, fabric, router, ccfg, device="cuda").run(test),
-            n, FLEET_WORKERS)
-        add(row)
-        assert same_records(f4.records, single), "F4 records differ"
-        for wk in row["workers"]:
-            assert wk["launches"]["fast_features"] > 0, wk
-        elastic = dataclasses.replace(
-            fabric, n_nodes=3, heartbeat_timeout_s=crash_timeout,
-            heartbeat_interval_s=0.1,
-            fault_injection=FaultInjection(crash_after=((1, 2),)),
-            fabric=FabricElastic(join_after=((2, 3),)))
-        f4e, row = fleet_run(
-            "F4 fabric, elastic join and crash", lambda: CampaignController(
-                ecfg, elastic, ControllerConfig(rounds=2), router, ccfg,
-                device="cuda").run(test), n, 3)
-        spans = {}
-        for sp in f4e.spans or []:
-            spans[sp.name] = spans.get(sp.name, 0) + 1
-        row["membership_spans"] = {k: spans.get(k, 0)
-                                   for k in ("join", "leave")}
-        add(row)
-        assert same_records(f4e.records, single), "F4 elastic records differ"
-        assert f4e.reissued >= 1 and spans.get("leave") == 1, spans
-
-        # the campaign phase's serve flags, with the fleet in worker
-        # processes instead of 4 in-process nodes (the serve coordinator
-        # itself launches fast_features for its router and evaluation)
-        i = SERVE_CAMPAIGN.index("--nodes")
-        serve_argv = SERVE_CAMPAIGN[:i] + SERVE_CAMPAIGN[i + 2:]
-        served, out = {}, {}
-        counts0 = read_counts()
-        t0 = time.perf_counter()
-        flags = ("--workers", "--fabric-workers")
-
-        def argv(flag, dev):
-            return serve_argv + [flag, "2", "--device", dev, "--cache-dir",
-                                 str(tmp / f"serve{flag}_{dev}")]
-
-        # all four at once (their time is mostly host BLEU): the first
-        # flag's cuda run here, the other three in child processes
-        procs = {(f, "cpu"): serve_process(argv(f, "cpu")) for f in flags}
-        procs[flags[1], "cuda"] = serve_process(argv(flags[1], "cuda"),
-                                                card=True)
-        try:
-            import io
-            from contextlib import redirect_stdout
-
-            from repro_torch.launch import serve
-
-            buf = io.StringIO()
-            with redirect_stdout(buf):
-                res = serve.main(argv(flags[0], "cuda"))
-            out[flags[0], "cuda"] = res, buf.getvalue().splitlines()
-        except BaseException:
-            for proc in procs.values():
-                proc.kill()
-                proc.wait()
-            raise
-        out.update({key: finish(proc) for key, proc in procs.items()})
-        for flag in flags:
-            (m_cuda, l_cuda), (m_cpu, l_cpu) = out[flag, "cuda"], \
-                out[flag, "cpu"]
-            measured = {d: m.pop("throughput_docs_per_node_s")
-                        for d, m in (("cuda", m_cuda), ("cpu", m_cpu))}
-            assert m_cuda == m_cpu, (flag, m_cuda, m_cpu)
-            assert masked_report(l_cuda) == masked_report(l_cpu), \
-                (masked_report(l_cuda), masked_report(l_cpu))
-            stored = {d: store_entries(tmp / f"serve{flag}_{d}")
-                      for d in ("cuda", "cpu")}
-            assert stored["cuda"].keys() == stored["cpu"].keys(), flag
-            assert all(same_records(stored["cuda"][k], stored["cpu"][k])
-                       for k in stored["cuda"]), flag
-            served[flag] = {"metrics": m_cuda,
-                            "throughput_docs_per_node_s": measured,
-                            "report_cuda": report_lines(l_cuda),
-                            "report_cpu": report_lines(l_cpu),
-                            "store_entries_equal_to_cpu":
-                                len(stored["cuda"])}
-        serve_s = time.perf_counter() - t0
-        coordinator = {k: v - counts0[k] for k, v in read_counts().items()}
     assert not shm_entries(), shm_entries()
+    totals = worker_totals(runs)
     for name in MAIN_KERNELS:
         assert totals[name] > 0, f"{name} launched in no worker: {totals}"
     from repro_torch.core import shm, specs
@@ -2307,18 +2338,126 @@ def phase_fleet(router, ccfg, test, single) -> dict:
         return (sum(map(nbytes, x.values())) if isinstance(x, dict)
                 else x.nbytes)
 
+    # F1's node-seconds a batch (the engine's cost-model clock)
+    batch_s = float(sum(st.node_seconds for st in f1.node_stats)
+                    / n_batches)
     emit({"phase": "fleet", "config": router.enc_cfg.name, "docs": n,
           "router_numpy_mb": nbytes(specs.portable_router(router)
                                     .enc_params) / 1e6,
-          "batch_payload_mb": shm.pack_payload(test[:bs])[3] / 1e6,
+          "batch_payload_mb": shm.pack_payload(
+              test[:ecfg.batch_size])[3] / 1e6,
           "batches": n_batches, "workers": FLEET_WORKERS,
-          "fault_docs": FAULT_DOCS, "probed_batches": n_probed,
-          "runs": runs, "worker_launches": totals,
+          "probed_batches": n_probed, "f1_batch_s": batch_s,
+          "reduced": CAMPAIGN_CUTS, "runs": runs,
+          "worker_launches": totals,
           "serve": {"argv": serve_argv, "runs": served,
-                    "wall_s_both": serve_s,
-                    "coordinator_launches": coordinator},
+                    "read_s_from_phase_start": serve_s},
           "phase_s": time.perf_counter() - t_phase})
-    return {k: v + totals.get(k, 0) for k, v in coordinator.items()}
+    return {k: totals.get(k, 0) for k in read_counts()}, batch_s
+
+
+def phase_fleet_faults(router, ccfg, test, single, f1_batch_s: float
+                       ) -> dict:
+    """The fleet's fault runs, with phase ``fleet``'s router, documents
+    and single-node records (A1). F3: a crash run and a flap run (2
+    workers, 1,024 documents), their heartbeat timeouts from
+    ``f1_batch_s``: F1's node-seconds a batch, the engine's cost-model
+    clock (``EngineStats.node_seconds``), which the host's load does
+    not move (the crash's timeout 10 times it, at least 5 s; the
+    flap's, it, at least 1 s). Neither run's re-issue hangs on the real
+    batch time: the crashed worker's tasks are re-issued when it is
+    gone, and the muted task's slowdown outlasts the largest deadline
+    the flap's window can grant. F4: 4 loopback fabric workers, then an
+    elastic fabric campaign with one join and one crash."""
+    import dataclasses
+
+    from repro_torch.core.campaign import (CampaignController,
+                                           CampaignExecutor,
+                                           ControllerConfig, FaultInjection)
+    from repro_torch.core.fabric import FabricElastic
+
+    free_cuda()
+    n = len(test)
+    ecfg, fleet, _ = fleet_configs(test)
+    fault_docs = test[:FAULT_DOCS]
+    sub_single = {d.doc_id: single[d.doc_id] for d in fault_docs}
+    runs = []
+    t_phase = time.perf_counter()
+
+    crash_timeout = max(5.0, 10 * f1_batch_s)
+    crash = dataclasses.replace(
+        fleet, n_nodes=2, prefetch_depth=0,
+        heartbeat_timeout_s=crash_timeout, heartbeat_interval_s=0.1,
+        fault_injection=FaultInjection(crash_after=((1, 1),)))
+    f3c, row = fleet_run(
+        "F3 crash", lambda: CampaignExecutor(
+            ecfg, crash, router, ccfg, device="cuda").run(fault_docs),
+        FAULT_DOCS, 2, batch_s=f1_batch_s,
+        heartbeat_timeout_s=crash_timeout)
+    runs.append(row)
+    assert f3c.reissued >= 1, row
+    assert same_records(f3c.records, sub_single), "F3 crash records differ"
+    # the flap: worker 1 mutes after one task and unmutes after two; the
+    # muted task's slowdown outlasts the largest deadline _deadline_for
+    # can grant at a window of 3 (the timeout times 1 + 3 queued tasks)
+    # by one more timeout
+    flap_timeout = max(1.0, f1_batch_s)
+    slowdown = flap_timeout * (1 + 3) + flap_timeout
+    flap = dataclasses.replace(
+        fleet, n_nodes=2, prefetch_depth=2,
+        heartbeat_timeout_s=flap_timeout, heartbeat_interval_s=0.1,
+        straggler_grace_s=slowdown + 5.0,
+        fault_injection=FaultInjection(mute_after=((1, 0),),
+                                       unmute_after=((1, 2),),
+                                       mute_slowdown_s=slowdown))
+    f3f, row = fleet_run(
+        "F3 flap", lambda: CampaignExecutor(
+            ecfg, flap, router, ccfg, device="cuda").run(fault_docs),
+        FAULT_DOCS, 2, batch_s=f1_batch_s,
+        heartbeat_timeout_s=flap_timeout, mute_slowdown_s=slowdown)
+    runs.append(row)
+    assert f3f.reissued >= 1, row
+    assert same_records(f3f.records, sub_single), "F3 flap records differ"
+
+    fabric = dataclasses.replace(fleet, runtime="fabric",
+                                 heartbeat_interval_s=0.2)
+    f4, row = fleet_run(
+        "F4 fabric, 4 loopback workers", lambda: CampaignExecutor(
+            ecfg, fabric, router, ccfg, device="cuda").run(test),
+        n, FLEET_WORKERS)
+    runs.append(row)
+    assert same_records(f4.records, single), "F4 records differ"
+    for wk in row["workers"]:
+        assert wk["launches"]["fast_features"] > 0, wk
+    elastic = dataclasses.replace(
+        fabric, n_nodes=3, heartbeat_timeout_s=crash_timeout,
+        heartbeat_interval_s=0.1,
+        fault_injection=FaultInjection(crash_after=((1, 2),)),
+        fabric=FabricElastic(join_after=((2, 3),)))
+    f4e, row = fleet_run(
+        "F4 fabric, elastic join and crash", lambda: CampaignController(
+            ecfg, elastic, ControllerConfig(rounds=2), router, ccfg,
+            device="cuda").run(test), n, 3)
+    spans = {}
+    for sp in f4e.spans or []:
+        spans[sp.name] = spans.get(sp.name, 0) + 1
+    row["membership_spans"] = {k: spans.get(k, 0) for k in ("join", "leave")}
+    runs.append(row)
+    assert same_records(f4e.records, single), "F4 elastic records differ"
+    assert f4e.reissued >= 1 and spans.get("leave") == 1, spans
+
+    assert not shm_entries(), shm_entries()
+    totals = worker_totals(runs)
+    for name in ("fast_features", "budget_route"):
+        assert totals[name] > 0, f"{name} launched in no worker: {totals}"
+    emit({"phase": "fleet_faults", "docs": n, "fault_docs": FAULT_DOCS,
+          "workers": FLEET_WORKERS,
+          "reduced": {**CAMPAIGN_CUTS, "fault_docs": "1,024 (unchanged; "
+                      "F3's heartbeat timeouts follow F1's node-seconds "
+                      "a batch, re-derived each run)"},
+          "runs": runs, "worker_launches": totals,
+          "phase_s": time.perf_counter() - t_phase})
+    return {k: totals.get(k, 0) for k in read_counts()}
 
 
 # -------------------------------------------------------------- autotune
@@ -2474,10 +2613,13 @@ def knob_rows(dev, ccfg, docs, pages, exp_pages) -> list[dict]:
 # -------------------------------------------------------------- scenarios
 
 GOODPUT = (r"goodput=[0-9.]+docs/s", "goodput=*")
-# 200 batches of 8: a drain of about a second, so the 0.5 s status
-# pulse fires; the router trains on 800 documents
-STATUS_ARGV = ["--docs", "2400", "--batch-size", "8", "--workers", "2",
-               "--status-interval", "0.5"]
+# 200 batches of 4: a drain of about a second, so the 0.25 s status
+# pulse fires; the router trains on 400 documents (2,400 documents in
+# batches of 8 and a 0.5 s pulse before ROADMAP 3j's cut: the router's
+# fit and the host evaluation made this serve the scenario phase's
+# longest part)
+STATUS_ARGV = ["--docs", "1200", "--batch-size", "4", "--workers", "2",
+               "--status-interval", "0.25"]
 
 
 def phase_scenarios() -> dict:
@@ -2485,11 +2627,13 @@ def phase_scenarios() -> dict:
     scenarios (their own corpus and ft router, every engine and worker on
     cuda; each asserts its records equal its single-node reference), the
     elastic scenario's joiner serving documents; ``serve --scenario
-    bursty_arrivals`` on cuda and on cpu (a child process), equal but for
-    the goodput; and ``serve --workers 2 --status-interval 0.5`` on cuda
-    in a child process, which must print the live status line. Launches:
-    this process's (the local scenarios and the cuda serve); the
-    workers' are not read here."""
+    bursty_arrivals`` on cuda and on cpu, equal but for the goodput; and
+    ``serve --workers 2 --status-interval 0.5`` on cuda, which must print
+    the live status line. The three serves run in child processes beside
+    the scenarios (bursty_arrivals runs the local simulated runtime, so
+    the host's load cannot change its counters). Launches: this
+    process's (the local scenarios); the workers' and the children's are
+    not read here."""
     import re
 
     from repro_torch.core.scenarios import SCENARIOS, run_scenario
@@ -2497,7 +2641,11 @@ def phase_scenarios() -> dict:
     free_cuda()
     t_phase = time.perf_counter()
     counts0 = read_counts()
+    argv = ["--scenario", "bursty_arrivals"]
+    t_serve = time.perf_counter()
     status = serve_process(STATUS_ARGV + ["--device", "cuda"], card=True)
+    bursty = {dev: serve_process(argv + ["--device", dev], card=dev == "cuda")
+              for dev in ("cuda", "cpu")}
     try:
         rows = []
         for name, spec in SCENARIOS.items():
@@ -2517,20 +2665,20 @@ def phase_scenarios() -> dict:
             "crash_storm", "shm_crash_reissue", "slowdown_skew"))
         assert next(r for r in rows if r["scenario"] ==
                     "cold_warm_shared_store")["warm_cache_misses"] == 0
-        t0 = time.perf_counter()
-        argv = ["--scenario", "bursty_arrivals"]
-        (m_cuda, l_cuda), (m_cpu, l_cpu) = serve_with_cpu_beside(argv, argv)
+        (m_cuda, l_cuda), (m_cpu, l_cpu) = (finish(bursty[d])
+                                            for d in ("cuda", "cpu"))
         masked = [[re.sub(*GOODPUT, ln) for ln in ls
                    if ln.startswith("[serve]")] for ls in (l_cuda, l_cpu)]
         assert masked[0] == masked[1], masked
         measured = {d: {k: m.pop(k) for k in ("wall_s", "goodput_docs_per_s")}
                     for d, m in (("cuda", m_cuda), ("cpu", m_cpu))}
         assert m_cuda == m_cpu, (m_cuda, m_cpu)
-        serve_s = time.perf_counter() - t0
+        serve_s = time.perf_counter() - t_serve
         counts = {k: v - counts0[k] for k, v in read_counts().items()}
         out, err = status.communicate(timeout=900)
     finally:
-        status.kill()
+        for proc in (status, *bursty.values()):
+            proc.kill()
     if status.returncode:
         raise RuntimeError(f"serve --status-interval exited "
                            f"{status.returncode}:\n{err[-3000:]}")
@@ -2539,7 +2687,13 @@ def phase_scenarios() -> dict:
     emit({"phase": "scenarios", "runs": rows, "launches": counts,
           "serve_scenario": {"argv": argv, "report": masked[0],
                              "metrics": m_cuda, "measured": measured,
-                             "seconds_both": serve_s},
+                             "seconds_both_from_phase_start": serve_s},
+          "reduced": {"serve_scenario": "runs in two child processes "
+                      "beside the eight scenarios, no longer after them "
+                      "(no cut of size: ROADMAP 3j)",
+                      "serve_status": "--docs 2,400 --batch-size 8 "
+                      "--status-interval 0.5 -> --docs 1,200 --batch-size "
+                      "4 --status-interval 0.25 (the same 200 batches)"},
           "serve_status": {"argv": STATUS_ARGV, "status_lines": len(lines),
                            "first": lines[0], "last": lines[-1],
                            "report": report_lines(out.splitlines())},
@@ -2552,16 +2706,94 @@ def phase_scenarios() -> dict:
 TUNE_WORKERS = 2
 
 
-def phase_autotune(router, ccfg, test, single, knob_inputs) -> tuple:
-    """Every candidate of the three main-path kernels' launch knobs at
-    the path's shapes (``knob_rows``; uncounted), then a 2-worker process
-    fleet over one ``tuning_dir`` with the campaign's router and
+PHASE_CODE = ("import json, pickle, sys\n"
+              "sys.path[:0] = [sys.argv[1], sys.argv[1] + '/src']\n"
+              "import chip_smoke\n"
+              "chip_smoke.bytecode_cache()\n"
+              "args = ()\n"
+              "if len(sys.argv) > 3:\n"
+              "    with open(sys.argv[3], 'rb') as f:\n"
+              "        args = chip_smoke.unship(pickle.load(f))\n"
+              "res = getattr(chip_smoke, sys.argv[2])(*args)\n"
+              "print('COUNTS ' + json.dumps(res), flush=True)\n")
+
+
+def unship(args) -> tuple:
+    """A child phase's arguments as ``start_phase`` pickled them, a
+    shipped router (``core/specs.portable_router``) rebuilt on the
+    card."""
+    import torch
+
+    from repro_torch.core.specs import materialize_router
+
+    return tuple(materialize_router(a, torch.device(DEVICE)) for a in args)
+
+
+def start_phase(name: str, tmp: Path, args=None, cpu: bool = False
+                ) -> tuple:
+    """Function ``name`` of this script in a child process, for a phase
+    (or a phase's cpu run) whose time is mostly worker starts or host
+    work and that asserts no time, so that it runs beside others: (the
+    process, its output files under ``tmp``). ``args`` are pickled for
+    it (a router as ``core/specs.portable_router`` ships it to workers).
+    A ``cpu`` child cannot see the card and has one intra-op thread."""
+    import os
+    import pickle
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    if cpu:
+        env.update(CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+                   MKL_NUM_THREADS="1")
+    argv = [sys.executable, "-c", PHASE_CODE, str(ROOT), name]
+    if args is not None:
+        path = tmp / f"{name}.pkl"
+        with open(path, "wb") as f:
+            pickle.dump(args, f, protocol=pickle.HIGHEST_PROTOCOL)
+        argv.append(str(path))
+    logs = (tmp / f"{name}.out", tmp / f"{name}.err")
+    with open(logs[0], "w") as out, open(logs[1], "w") as err:
+        proc = subprocess.Popen(argv, stdout=out, stderr=err, env=env,
+                                cwd=ROOT)
+    return proc, logs
+
+
+def finish_phase(child: tuple, beside: str):
+    """A child phase's JSON lines, emitted here (``t_s`` this process's;
+    its phase line's ``phase_s`` the child's, with ``ran_beside``), and
+    the phase function's return value."""
+    proc, logs = child
+    try:
+        proc.wait(timeout=900)
+    finally:
+        reap_children([proc])
+    out, err = (p.read_text() for p in logs)
+    if proc.returncode:
+        raise RuntimeError(f"{logs[0].stem} exited {proc.returncode}:\n"
+                           f"{err[-3000:]}")
+    name = logs[0].stem.removeprefix("phase_")
+    res = marker = None
+    for ln in out.splitlines():
+        if ln.startswith("{"):
+            obj = json.loads(ln)
+            obj["t_s"] = time.perf_counter() - T_START
+            if obj.get("phase") == name:
+                obj["ran_beside"] = beside
+            print(json.dumps(obj), flush=True)
+        elif ln.startswith("COUNTS "):
+            res, marker = json.loads(ln[len("COUNTS "):]), True
+    assert marker, out[-2000:]
+    return res
+
+
+def phase_autotune(router, ccfg, test, single, knobs) -> tuple:
+    """``knobs``: the knob sweeps' rows (``knob_rows``, taken right after
+    phase kernels, before any child process shares the card). A 2-worker
+    process fleet over one ``tuning_dir`` with the campaign's router and
     documents on the card, twice: the cold fleet sweeps (the workers'
     ``sweeps_run()`` sum above 0) and publishes a
     ``v1|fast_features|...|<card>|device`` key; a fresh fleet over the
     same directory sweeps 0 times and leaves the store's bytes as they
-    were; both record sets equal A1's. Returns (the fleets' launches,
-    the knob rows)."""
+    were; both record sets equal A1's. Returns the fleets' launches."""
     import tempfile
 
     from repro_torch.core.campaign import CampaignExecutor, ExecutorConfig
@@ -2572,7 +2804,6 @@ def phase_autotune(router, ccfg, test, single, knob_inputs) -> tuple:
 
     free_cuda()
     t_phase = time.perf_counter()
-    knobs = knob_rows(*knob_inputs)
     n = len(test)
     ecfg = EngineConfig(alpha=ALPHA, batch_size=256, seed=SEED)
     totals = dict.fromkeys(MAIN_KERNELS, 0)
@@ -2620,17 +2851,23 @@ def phase_autotune(router, ccfg, test, single, knob_inputs) -> tuple:
     emit({"phase": "autotune", "knobs": knobs, "fleet": runs,
           "fleet_winners": winners, "worker_launches": totals,
           "phase_s": time.perf_counter() - t_phase})
-    return {k: totals.get(k, 0) for k in read_counts()}, knobs
+    return {k: totals.get(k, 0) for k in read_counts()}
 
 
 # -------------------------------------------------------------- train
 
 TRAIN_DOCS = 800        # 266 training docs: one SFT minibatch of 256
-TRAIN_STEPS = 3         # timed steps a stage, after one warm-up step
+TRAIN_STEPS = 2         # timed steps a stage, after one warm-up step (3
+#                         before ROADMAP 3j's cut)
 SFT_BATCH = 256         # cut from sft_4k's 4096 (a TPU pod's global batch)
 DPO_BATCH = 64          # pairs; cut from dpo_2k's 2048; the pairs of the
 #                         first 64 training docs, as build_llm_router makes
-SMALL_STEPS = 20        # train_small_parity: steps a stage
+SMALL_STEPS = 10        # train_small_parity: steps a stage (20 before
+#                         ROADMAP 3j's cut)
+SMALL_TRAIN_DOCS = 20    # its training documents (50 before the cut)
+ROUTER_STEPS = (50, 20)  # its build_llm_router twice: SFT and DPO steps
+#                         (serve's 150 and 60 before the cut; the refit
+#                         takes max(SFT // 3, 10))
 
 
 def encoder_forward_flops(cfg, b: int) -> float:
@@ -2775,7 +3012,8 @@ def phase_train():
           "params": n_params, "docs": len(train), "data_s": data_s,
           "reduced": {"sft_batch": f"{SFT_BATCH} of sft_4k's 4096",
                       "dpo_batch": f"{DPO_BATCH} pairs of dpo_2k's 2048",
-                      "steps": f"1 + {TRAIN_STEPS} a stage"},
+                      "steps": f"1 + {TRAIN_STEPS} a stage (1 + 3 before "
+                               f"ROADMAP 3j's cut)"},
           "launches": counts, "stages": out,
           "sft_step_profile": prof, "embedding_grad_repeats": emb})
     return counts, enc
@@ -2796,8 +3034,8 @@ def phase_train_small_parity() -> None:
                                             init_encoder)
 
     small = get_config("adaparse-router").reduced().model
-    ccfg = CorpusConfig(n_docs=150, seed=SEED)
-    train = generate_corpus(ccfg)[:50]
+    ccfg = CorpusConfig(n_docs=3 * SMALL_TRAIN_DOCS, seed=SEED)
+    train = generate_corpus(ccfg)[:SMALL_TRAIN_DOCS]
     _, reg, pref = llm_training_data(train, ccfg,
                                      np.random.RandomState(SEED + 1),
                                      small.max_len, "cpu")
@@ -2825,14 +3063,20 @@ def phase_train_small_parity() -> None:
     # serve's reduced router, trained twice on the card: the same bits
     t0 = time.perf_counter()
     routers = [build_llm_router(train, ccfg, np.random.RandomState(SEED + 1),
-                                device="cuda") for _ in range(2)]
+                                sft_steps=ROUTER_STEPS[0],
+                                dpo_steps=ROUTER_STEPS[1], device="cuda")
+               for _ in range(2)]
     build_s = (time.perf_counter() - t0) / 2
     a, b = (list(r.encoder.parameters()) for r in routers)
     assert all(torch.equal(x, y) for x, y in zip(a, b)), \
         "two cuda trainings differ"
     assert np.array_equal(routers[0].cls1.w, routers[1].cls1.w)
     emit({"phase": "train_small_parity", "config": small.name,
-          "steps_a_stage": SMALL_STEPS, "loss_max_rel_diff": loss_rel,
+          "steps_a_stage": SMALL_STEPS,
+          "reduced": {"steps_a_stage": f"20 -> {SMALL_STEPS}",
+                      "train_docs": f"50 -> {SMALL_TRAIN_DOCS}",
+                      "build_llm_router_steps": f"SFT/DPO 150/60 -> "
+                      f"{ROUTER_STEPS[0]}/{ROUTER_STEPS[1]}"}, "loss_max_rel_diff": loss_rel,
           "param_max_abs_diff": param_diff, "tolerance":
           {"loss_rtol": 1e-5, "param_atol": 1e-4},
           "cuda_s": wc, "cpu_s": wh, "final_losses":
@@ -2840,21 +3084,17 @@ def phase_train_small_parity() -> None:
           "build_llm_router_s": build_s, "two_cuda_trainings_bit_equal": True})
 
 
-def phase_serve_llm() -> dict:
-    """``serve --variant llm`` at the ft phase's sizes on cuda and on
-    cpu. Each route step the engine makes is recorded (the engine's
-    ``make_route_step`` is wrapped for the run) so that its device plan
-    can be held against ``plan_batch`` on the same scores."""
+def serve_llm_recorded(argv) -> tuple:
+    """``serve.main(argv)`` (its report lines swallowed) with each route
+    step the engine makes recorded (the engine's ``make_route_step``
+    wrapped for the run): (its metric dict, one (alpha, encoder,
+    improvement scores, selected_idx) a route step)."""
     import io
     from contextlib import redirect_stdout
 
-    import numpy as np
-
-    from repro_torch.core import engine, scheduler
+    from repro_torch.core import engine
     from repro_torch.launch import serve
 
-    argv = ["--docs", "600", "--batch-size", "256", "--variant", "llm",
-            "--seed", str(SEED)]
     steps = []
     real = engine.make_route_step
 
@@ -2871,23 +3111,53 @@ def phase_serve_llm() -> dict:
 
     engine.make_route_step = recording
     try:
-        reset_counts()
-        t0 = time.perf_counter()
         with redirect_stdout(io.StringIO()):
-            res_cuda = serve.main(argv + ["--device", "cuda"])
-        wall = time.perf_counter() - t0
-        counts = read_counts()
-        cuda_steps, steps[:] = list(steps), []
-        t0 = time.perf_counter()
-        with redirect_stdout(io.StringIO()):
-            res_cpu = serve.main(argv + ["--device", "cpu"])
-        cpu_wall = time.perf_counter() - t0
+            res = serve.main(argv)
     finally:
         engine.make_route_step = real
+    return res, steps
+
+
+def serve_llm_cpu(enc_file: str) -> dict:
+    """Phase serve_llm's cpu run (a child process, ``start_cpu_serves``):
+    its metric dict; the number of route steps, the encoder's device and
+    its parameters go to ``enc_file``."""
+    import numpy as np
+
+    res, steps = serve_llm_recorded(serve_argv("llm") + ["--device", "cpu"])
+    enc = steps[0][1]
+    np.savez(enc_file, *[p.detach().numpy() for p in enc.parameters()],
+             n_steps=len(steps), device=enc.device.type)
+    return res
+
+
+def phase_serve_llm(cpu) -> dict:
+    """``serve --variant llm`` at the ft phase's sizes on cuda and on
+    cpu (``cpu``: the child of ``start_cpu_serves`` and the .npz it
+    records its route steps' encoder to), both through
+    ``serve_llm_recorded``, so that each cuda route step's device plan
+    can be held against ``plan_batch`` on the same scores."""
+    import numpy as np
+
+    from repro_torch.core import scheduler
+
+    argv = serve_argv("llm")
+    cpu, enc_file = cpu
+    t0 = time.perf_counter()
+    reset_counts()
+    res_cuda, cuda_steps = serve_llm_recorded(argv + ["--device", "cuda"])
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    res_cpu = finish_phase(cpu, "ft and serve_llm")
+    cpu_wall = time.perf_counter() - t0
+    with np.load(enc_file) as z:
+        cpu_steps, cpu_device = int(z["n_steps"]), str(z["device"])
+        cpu_params = [z[f"arr_{i}"] for i in range(len(z.files) - 2)]
     for name in ("fast_features", "budget_route"):
         assert counts[name] > 0, f"{name} did not launch: {counts}"
-    n_batches = math.ceil((600 - 600 // 3) / 256)
-    assert len(cuda_steps) == len(steps) == n_batches, (cuda_steps, steps)
+    n_batches = math.ceil((SERVE_DOCS - SERVE_DOCS // 3) / 256)
+    assert len(cuda_steps) == cpu_steps == n_batches, (cuda_steps,
+                                                         cpu_steps)
     routed = []
     for alpha, enc, imp, idx in cuda_steps:
         assert enc.device.type == "cuda" and np.isfinite(imp).all()
@@ -2898,16 +3168,19 @@ def phase_serve_llm() -> dict:
     for res in (res_cuda, res_cpu):
         assert res["frac_expensive"] <= ALPHA, res
         assert all(math.isfinite(v) for v in res.values()), res
-    cuda_enc, cpu_enc = cuda_steps[0][1], steps[0][1]
-    assert cpu_enc.device.type == "cpu"
-    diff = max(float((p.detach().cpu() - q).abs().max()) for p, q in
-               zip(cuda_enc.parameters(), cpu_enc.parameters()))
+    cuda_enc = cuda_steps[0][1]
+    assert cpu_device == "cpu", cpu_device
+    cuda_params = list(cuda_enc.parameters())
+    assert len(cuda_params) == len(cpu_params)
+    diff = max(float(np.abs(p.detach().cpu().numpy() - q).max())
+               for p, q in zip(cuda_params, cpu_params))
     emit({"phase": "serve_llm", "argv": argv, "metrics_cuda": res_cuda,
           "metrics_cpu": res_cpu, "launches": counts,
           "batches": n_batches, "routed": routed,
           "device_plan_equals_plan_batch": True,
           "router_param_max_abs_diff_cuda_cpu": diff,
-          "cuda_wall_s": wall, "cpu_wall_s": cpu_wall})
+          "cuda_wall_s": wall, "cpu_read_s_from_phase_start": cpu_wall,
+          "reduced": SERVE_CUT})
     return counts
 
 
@@ -4110,11 +4383,12 @@ def check_retrieval(params, cfg, arch, dev) -> dict:
             "tied_in_top": int(k - torch.unique(vals).numel())}
 
 
-def phase_recsys_zoo() -> dict:
+def phase_recsys_zoo() -> tuple:
     """DeepFM, AutoInt and DIEN at full width (random weights from a
     seeded CUDA generator, the tables drawn in place) through
     ``recsys_scores`` at serve_p99 and serve_bulk, and
-    ``recsys_retrieval`` at retrieval_cand."""
+    ``recsys_retrieval`` at retrieval_cand. Returns (the launches, the
+    cut batches: (arch, shape) -> (batch, why))."""
     import torch
 
     from repro_torch.configs import get_config
@@ -4123,7 +4397,7 @@ def phase_recsys_zoo() -> dict:
 
     dev = torch.device(DEVICE)
     total = dict.fromkeys(kernels(), 0)
-    out = {}
+    out, cuts = {}, {}
     for arch_id in ("deepfm", "autoint", "dien"):
         arch = get_config(arch_id)
         cfg = arch.model
@@ -4149,6 +4423,7 @@ def phase_recsys_zoo() -> dict:
                     f"{reckon['reckoned_peak_gb_at_full']:.1f} GB there; "
                     f"cut to the largest power of two under "
                     f"{CUT_BUDGET_GB:.0f} GB")
+                cuts[arch_id, shape] = (b, rec["reduced"][shape]["why"])
             batch = serve_batch(cfg, b, dev)
             reps = 10 if b <= 4096 else 3
             torch.cuda.reset_peak_memory_stats()
@@ -4205,7 +4480,7 @@ def phase_recsys_zoo() -> dict:
     emit({"phase": "recsys_zoo", "configs": out, "launches": total,
           "reduced": {k: v["reduced"] for k, v in out.items()
                       if v["reduced"]} or "none"})
-    return total
+    return total, cuts
 
 
 def recsys_train_run(arch, cfg, b: int, steps: int, dev) -> tuple:
@@ -4377,7 +4652,8 @@ def phase_recsys_zoo_small_parity() -> None:
 
 
 GNN_ARCH = "equiformer-v2"
-GNN_TRAIN_STEPS = 3            # timed minibatch_lg steps, after a warm-up
+GNN_TRAIN_STEPS = 2            # timed minibatch_lg steps, after a warm-up
+#                                (3 before ROADMAP 3j's cut)
 GNN_PROBE_BATCH_NODES = (64, 128)  # the steps whose peaks reckon
 #                                    minibatch_lg's
 GNN_SPLIT = {"embedding_bag_backward": r"bag_long_kernel|bag_tiles_kernel",
@@ -4492,7 +4768,7 @@ def gnn_train_run(arch, shape, steps: int, dev, profile: bool = True):
 def phase_gnn_train() -> dict:
     """Full-width bf16 equiformer-v2 training through
     ``launch.specs.gnn_train_step`` (remat, chain_clip(adamw(3e-4, 0.1),
-    1.0)) at minibatch_lg (one warm-up and 3 timed steps; batch_nodes
+    1.0)) at minibatch_lg (one warm-up and 2 timed steps; batch_nodes
     cut only if the peak reckoned from a 128-seed step does not fit),
     full_graph_sm and molecule (a warm-up and one timed step each): ms a
     step, model TFLOP/s (3x the forward's matmul FLOPs; the remat
@@ -4547,6 +4823,8 @@ def phase_gnn_train() -> dict:
         if bn == full["batch_nodes"] else
         dict(reckon, batch_nodes=bn, why=f"batch_nodes cut to {bn}: the "
              f"peak reckoned at 1024 exceeds {budget / 1e9:.0f} GB"))
+    reduced["timed_steps"] = (f"minibatch_lg 3 -> {GNN_TRAIN_STEPS} "
+                              f"(ROADMAP 3j)")
     cells = [(at(bn), GNN_TRAIN_STEPS),
              (arch.shape("full_graph_sm"), 1), (arch.shape("molecule"), 1)]
     for shape, steps in cells:
@@ -4858,7 +5136,8 @@ def phase_gnn() -> dict:
 # -------------------------------------------------------------- vit parser
 
 VIT_ARCH = "nougat-base"
-VIT_TRAIN_STEPS = 3            # timed train_pages steps, after a warm-up
+VIT_TRAIN_STEPS = 2            # timed train_pages steps, after a warm-up
+#                                (3 before ROADMAP 3j's cut)
 VIT_PROBE_PAGES = (4, 8)       # the steps whose peaks reckon the page
 #                                batch (below 4 pages the optimizer's
 #                                float32 temporaries set the peak)
@@ -5032,6 +5311,7 @@ def phase_vit_parser() -> dict:
         "reckoned_peak_gb": (fixed + per_page * b) / 1e9,
         "reckoned_peak_gb_at_256": (fixed + per_page * 256) / 1e9,
         "budget_gb": budget / 1e9, "pages": b,
+        "timed_steps": f"3 -> {VIT_TRAIN_STEPS} (ROADMAP 3j)",
         "why": f"page batch cut to {b} (the largest power of two whose "
                f"reckoned peak stays within {VIT_HEADROOM:.0%} of the "
                f"card); dec_len {t} kept"}
@@ -5350,6 +5630,288 @@ def phase_vit_parser_small_parity(cpu_forward: tuple) -> None:
 # -------------------------------------------------------------- main
 
 
+# -------------------------------------------------------------- cells
+
+CELL_TOL = 2e-5                 # the small-parity phases' f32 tolerance
+CELL_LM_ARCH = "qwen3-1.7b"
+CELL_LM_DIMS = {"seq_len": 4096, "global_batch": 4}    # the lm phase's cut
+CELL_ROUTE_BATCH = 1024         # route_64k's cut batch
+# train cells' updated params beyond CELL_TOL: the two sound proof runs
+# on an H100 showed at most 1 (h2o-danube-3-4b/train_4k)
+CELL_BEYOND_MAX = 4
+
+
+def args_to(x, dev):
+    """A copy of a cell's arguments (tensors in dicts, lists, tuples and
+    named tuples; other leaves as they are) on ``dev``."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.to(dev, copy=True)
+    if isinstance(x, dict):
+        return {k: args_to(v, dev) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(args_to(v, dev) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(args_to(v, dev) for v in x)
+    return x
+
+
+def cell_bytes(args) -> int:
+    from repro_torch.launch.specs import _tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in _tree_leaves(args))
+
+
+def cell_gap(cuda_out, cpu_out, cell, cpu_before) -> dict:
+    """The cuda step's outputs against the cpu step's. Floating leaves
+    within ``CELL_TOL`` (absolute and relative); integer and boolean
+    leaves (top-k ids, route plans) equal. A train cell's step must have
+    moved its params on cuda; its loss is held within ``CELL_TOL`` and
+    its updated params within ``CELL_TOL`` but for at most
+    ``CELL_BEYOND_MAX`` elements, where a rounding-level gradient moved
+    an element by about lr on one device and less on the other: each
+    of those is held to the most one element moved in the cpu step."""
+    import torch
+
+    from repro_torch.launch.specs import _tree_leaves
+
+    train = cell.kind == "train"
+    out_cuda = _tree_leaves(cuda_out[0] if train else cuda_out)
+    out_cpu = _tree_leaves(cpu_out[0] if train else cpu_out)
+    assert len(out_cuda) == len(out_cpu), (len(out_cuda), len(out_cpu))
+    gap, beyond, moved = 0.0, 0, 0.0
+    if train:
+        moved = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(out_cpu, cpu_before))
+        moved_cuda = max(float((a.detach().cpu().float() - b.float())
+                               .abs().max())
+                         for a, b in zip(out_cuda, cpu_before))
+        assert moved_cuda > 0, "the cuda step left the params as they were"
+    for a, b in zip(out_cuda, out_cpu):
+        a = a.detach().cpu()
+        assert a.shape == b.shape and a.dtype == b.dtype, (a.shape, b.shape)
+        if not b.is_floating_point():
+            assert torch.equal(a, b), "integer outputs differ"
+            continue
+        assert bool(torch.isfinite(a).all()), "non-finite output on cuda"
+        d = (a.float() - b.float()).abs()
+        over = d > CELL_TOL * (1 + b.float().abs())
+        if train:
+            beyond += int(over.sum())
+            assert float(d.max()) <= moved + CELL_TOL, (float(d.max()), moved)
+            gap = max(gap, float(d[~over].max()) if bool((~over).any())
+                      else 0.0)
+        else:
+            assert not bool(over.any()), float(d.max())
+            gap = max(gap, float(d.max()))
+    row = {"max_abs_diff": gap}
+    if train:
+        assert beyond <= CELL_BEYOND_MAX, (beyond, CELL_BEYOND_MAX)
+        la, lb = float(cuda_out[-1]), float(cpu_out[-1])
+        assert abs(la - lb) <= CELL_TOL * max(1.0, abs(lb)), (la, lb)
+        row.update(loss_cuda=la, loss_cpu=lb, elements_beyond_tol=beyond,
+                   beyond_limit=moved, moved_cuda=moved_cuda)
+    return row
+
+
+def distinct_dpo_sides(cell) -> None:
+    """The reduced ``dpo_*`` cell draws its preferred and its rejected
+    side from one seed, as the reference's does: its loss is ln 2 and
+    its gradient rounding noise whatever the params. For the cuda-cpu
+    check its rejected side is drawn at ``SEED + 1`` and the frozen
+    reference's ``pref_w`` is moved off the params, so that the
+    preference term, the encoder differentiated and the frozen argument
+    all show in the step's result."""
+    import numpy as np
+    import torch
+
+    params, ref, opt_state, step, batch = cell.args
+    tok_neg = np.random.RandomState(SEED + 1).randint(
+        2, params["tok_embed"].shape[0], tuple(batch["tok_neg"].shape))
+    g = torch.Generator().manual_seed(SEED + 2)
+    ref = {**ref, "pref_w": ref["pref_w"] + 0.5 * torch.randn(
+        ref["pref_w"].shape, generator=g)}
+    cell.args = (params, ref, opt_state, step, {
+        **batch, "tok_neg": torch.from_numpy(tok_neg.astype(np.int32))})
+
+
+def reduced_cell_rows() -> list[dict]:
+    """(b): every reduced cell built on the cpu, one step there and one
+    on cuda from a copy of the same arguments (the DPO cell's from
+    distinct sides, ``distinct_dpo_sides``)."""
+    from repro_torch.launch.specs import _tree_leaves, all_cells, build_cell
+
+    rows = []
+    for arch, shape in all_cells():
+        cell = build_cell(arch, shape, abstract=False, reduced=True,
+                          seed=SEED, device="cpu")
+        if shape.startswith("dpo"):
+            distinct_dpo_sides(cell)
+        on_cuda = args_to(cell.args, DEVICE)
+        before = ([t.clone() for t in _tree_leaves(cell.args[0])]
+                  if cell.kind == "train" else None)
+        cuda_out, cuda_s = synced(lambda: cell.fn(*on_cuda))
+        t0 = time.perf_counter()
+        cpu_out = cell.fn(*cell.args)
+        cpu_s = time.perf_counter() - t0
+        row = {"cell": f"{arch}/{shape}", "kind": cell.kind,
+               "cuda_ms": cuda_s * 1e3, "cpu_ms": cpu_s * 1e3,
+               **cell_gap(cuda_out, cpu_out, cell, before)}
+        if shape.startswith("dpo"):
+            assert abs(row["loss_cpu"] - math.log(2.0)) > 1e-3, row
+        rows.append(row)
+        del cell, on_cuda, cuda_out, cpu_out, before
+    return rows
+
+
+def full_width_cells(recsys_cuts: dict) -> list[tuple]:
+    """(c): (label, builder, arch, ShapeConfig, note) of each serve,
+    prefill and decode cell run at full width on the card; a recsys cell
+    in ``recsys_cuts`` (phase recsys_zoo's) at its cut batch."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import specs as S
+
+    out = []
+    for arch_id in ("deepfm", "autoint", "dien", "dlrm-mlperf"):
+        arch = get_config(arch_id)
+        for shape in ("serve_p99", "serve_bulk", "retrieval_cand"):
+            sh, note = arch.shape(shape), "its own shape"
+            cut = recsys_cuts.get((arch_id, shape))
+            if cut is not None:
+                b, why = cut
+                sh = ShapeConfig(shape, sh.kind, {**sh.dims, "batch": b})
+                note = (f"batch {b:,} of {arch.shape(shape)['batch']:,}, "
+                        f"the recsys_zoo phase's cut: {why}")
+            out.append((f"{arch_id}/{shape}", S._recsys_cell, arch, sh,
+                        note))
+    lm = get_config(CELL_LM_ARCH)
+    lm = dataclasses.replace(lm, model=dataclasses.replace(
+        lm.model, attention_impl="pallas"))
+    for name, kind, build in (("prefill_32k", "prefill",
+                               S._lm_prefill_cell),
+                              ("decode_32k", "decode", S._lm_decode_cell)):
+        full = lm.shape(name)
+        out.append((f"{CELL_LM_ARCH}/{name}", build, lm,
+                    ShapeConfig(name, kind, dict(CELL_LM_DIMS)),
+                    f"{CELL_LM_DIMS['global_batch']} x "
+                    f"{CELL_LM_DIMS['seq_len']} of {full['global_batch']} x "
+                    f"{full['seq_len']} (the lm phase's cut: the "
+                    f"registered cell's KV cache alone is "
+                    f"{lm.model.n_layers * 2 * full['global_batch'] * full['seq_len'] * lm.model.n_kv_heads * lm.model.head_dim * 2 / 1e9:.0f}"
+                    f" GB in bf16); attention_impl='pallas', the "
+                    f"reference's model_override"))
+    vit = get_config(VIT_ARCH)
+    vc = vit.model
+    for name in ("parse_encode", "parse_decode"):
+        full = vit.shape(name)
+        # bf16 bytes a page: the cross keys and values, and the decode
+        # step's self-attention cache
+        page = 2 * vc.dec_layers * vc.dec_d_model * 2 * (
+            vc.n_patches + (min(full["dec_len"], vc.max_dec_len)
+                            if name == "parse_decode" else 0))
+        out.append((f"{VIT_ARCH}/{name}", S._nougat_cell, vit,
+                    ShapeConfig(name, full.kind, {**full.dims,
+                                                  "global_batch":
+                                                  VIT_SERVE_PAGES}),
+                    f"{VIT_SERVE_PAGES} pages of {full['global_batch']:,} "
+                    f"(the vit_parser phase's cut): the cross keys and "
+                    f"values{' and the cache' if name == 'parse_decode' else ''}"
+                    f" are {page * full['global_batch'] / 1e9:.1f} GB at "
+                    f"the full batch, {page * VIT_SERVE_PAGES / 1e9:.1f} at "
+                    f"the cut"))
+    router = get_config("adaparse-router")
+    full = router.shape("route_64k")
+    s = min(full["seq_len"], router.model.max_len)
+    out.append(("adaparse-router/route_64k", S._router_cell, router,
+                ShapeConfig("route_64k", "serve",
+                            {**full.dims, "global_batch": CELL_ROUTE_BATCH}),
+                f"batch {CELL_ROUTE_BATCH:,} of {full['global_batch']:,}: "
+                f"the encoder's (B, {router.model.n_heads}, {s}, {s}) "
+                f"float32 scores are "
+                f"{full['global_batch'] * router.model.n_heads * s * s * 4 / 1e9:.0f}"
+                f" GB a layer at the full batch, "
+                f"{CELL_ROUTE_BATCH * router.model.n_heads * s * s * 4 / 1e9:.1f}"
+                f" at the cut"))
+    return out
+
+
+def phase_cells(recsys_cuts: dict) -> dict:
+    """The cell factory (``launch/specs.py``): (a) every cell of
+    ``all_cells()`` built on meta at full size, with no card memory
+    allocated; (b) every reduced cell one step on cuda and on cpu from
+    the same arguments (``cell_gap``); (c) the serve, prefill and decode
+    cells at full width on the card, one step each, through the private
+    builders where a cell is cut (each cut in ``reduced``): finite
+    outputs, and flash_attention, budget_route and embedding_bag
+    launched."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import _tree_leaves, all_cells, build_cell
+
+    free_cuda()
+    t_phase = time.perf_counter()
+    reset_counts()
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
+    meta = []
+    for arch, shape in all_cells():
+        cell = build_cell(arch, shape, abstract=True)
+        leaves = _tree_leaves(cell.args)
+        assert all(t.is_meta for t in leaves), (arch, shape)
+        meta.append({"cell": f"{arch}/{shape}", "kind": cell.kind,
+                     "arg_gb": cell_bytes(cell.args) / 1e9,
+                     "note": cell.note})
+    assert torch.cuda.memory_allocated() == alloc0, "a meta cell allocated"
+    assert len(meta) == 42, len(meta)
+    meta_s = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    reduced_rows = reduced_cell_rows()
+    reduced_s = time.perf_counter() - t0
+    free_cuda()
+
+    full, reduced = [], {}
+    counts0 = read_counts()
+    for label, build, arch, shape, note in full_width_cells(recsys_cuts):
+        c0 = read_counts()
+        torch.cuda.reset_peak_memory_stats()
+        cell, build_s = synced(lambda: build(arch, shape, None, False, SEED,
+                                             "cuda"))
+        out, step_s = synced(lambda: cell.fn(*cell.args))
+        leaves = [t for t in _tree_leaves(out) if t.is_floating_point()]
+        assert leaves and all(bool(torch.isfinite(t).all())
+                              for t in leaves), label
+        full.append({"cell": label, "kind": cell.kind, "shape": shape.dims,
+                     "note": cell.note, "build_s": build_s,
+                     "step_ms": step_s * 1e3,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "launches": {k: v - c0[k] for k, v in read_counts()
+                                  .items() if v - c0[k]}})
+        if note != "its own shape":
+            reduced[label] = note
+        del cell, out, leaves
+        free_cuda()
+    counts = read_counts()
+    full_counts = {k: v - counts0[k] for k, v in counts.items()}
+    for name in ("flash_attention", "budget_route", "embedding_bag"):
+        assert full_counts[name] > 0, f"{name} did not launch: {full_counts}"
+    # one flash_attention a layer of the prefill cell
+    n_layers = get_config(CELL_LM_ARCH).model.n_layers
+    assert full_counts["flash_attention"] == n_layers, full_counts
+    emit({"phase": "cells", "meta_cells": len(meta), "meta": meta,
+          "meta_s": meta_s, "card_bytes_moved_by_meta": 0,
+          "reduced_cells": reduced_rows, "reduced_s": reduced_s,
+          "tolerance": CELL_TOL, "full_width": full,
+          "full_width_launches": full_counts, "launches": counts,
+          "reduced": reduced, "phase_s": time.perf_counter() - t_phase})
+    return counts
+
+
 def body_resources(ptxas: list[str]) -> dict:
     """Registers and static shared memory that ptxas reports for the
     bf16 tensor-core flash body (per padded head dim), the segment_mm
@@ -5386,7 +5948,29 @@ def body_resources(ptxas: list[str]) -> dict:
     return out
 
 
+PYCACHE = ROOT / "_pycache"
+
+
+def bytecode_cache() -> None:
+    """Let this process and every process it starts keep compiled
+    bytecode under the checkout's ``_pycache`` (git-ignored). A host
+    that sets ``PYTHONDONTWRITEBYTECODE`` and ships no ``.pyc`` files
+    compiles torch anew in every process, ~7 s each, and this run starts
+    dozens of worker and serve processes (ROADMAP 3j)."""
+    import os
+
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = str(PYCACHE)
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = str(PYCACHE)
+
+
 def main() -> int:
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: {ROOT / 'src' / 'repro_torch'} is missing; run "
+              f"from a checkout of the repository", file=sys.stderr)
+        return 2
+    bytecode_cache()
     try:
         import numpy as np
         import torch
@@ -5396,10 +5980,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs one CUDA card", file=sys.stderr)
-        return 2
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print(f"chip_smoke: {ROOT / 'src' / 'repro_torch'} is missing; run "
-              f"from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import cuda_lib
@@ -5439,17 +6019,56 @@ def main() -> int:
     emit({"phase": "kernels", "card": card, "results": rows})
     phase_kernel_edge_cases(dev)
     phase_routing_parity(dev)
+    knobs = knob_rows(dev, ccfg, docs, pages, exp_pages)
 
-    train_counts, trained = phase_train()
-    phase_train_small_parity()
-    path_counts = [phase_ft(), train_counts, phase_serve_llm()]
-    llm_counts, router = phase_llm(trained)
-    campaign_counts, a1 = phase_campaign(router)
-    path_counts += [llm_counts, campaign_counts, phase_fleet(router, *a1)]
-    path_counts.append(phase_scenarios())
-    tune_counts, knobs = phase_autotune(router, *a1,
-                                        (dev, ccfg, docs, pages, exp_pages))
-    path_counts.append(tune_counts)
+    with ExitStack() as stack:
+        # children that run beside the phases after them (phases whose
+        # time is mostly worker starts or host work, and which assert no
+        # time): phase scenarios from phase train on; phase
+        # train_small_parity and the cpu runs of phases ft and serve_llm
+        # from phase ft on; the fleet's F5 serves from phase campaign on;
+        # phase autotune beside phase fleet_faults. BESIDE names them on
+        # the lines of the phases they run beside.
+        tmp = Path(tempfile.mkdtemp())
+        stack.callback(shutil.rmtree, tmp, ignore_errors=True)
+        children = []
+        stack.callback(lambda: reap_children(children))
+        stack.callback(BESIDE.clear)
+        scenarios = start_phase("phase_scenarios", tmp)
+        children.append(scenarios[0])
+        BESIDE[:] = ["phase scenarios"]
+        train_counts, trained = phase_train()
+        small_parity = start_phase("phase_train_small_parity", tmp)
+        cpu_serves = start_cpu_serves(tmp)
+        children += [small_parity[0], cpu_serves["ft"],
+                     cpu_serves["llm"][0][0]]
+        BESIDE[:] = ["phase scenarios", "phase train_small_parity",
+                     "the cpu runs of ft and serve_llm"]
+        path_counts = [phase_ft(cpu_serves["ft"]), train_counts,
+                       phase_serve_llm(cpu_serves["llm"])]
+        BESIDE[:] = ["phase scenarios", "phase train_small_parity"]
+        llm_counts, router = phase_llm(trained)
+        BESIDE.clear()
+        finish_phase(small_parity, "ft to llm")
+        path_counts.append(finish_phase(scenarios, "train to llm"))
+        serve_fleets = start_serve_fleets(tmp)
+        children += list(serve_fleets[1].values())
+        BESIDE[:] = ["the fleet's F5 serves",
+                     "phase campaign's B serves (beside A1-A4)"]
+        campaign_counts, a1 = phase_campaign(router)
+        BESIDE[:] = ["the fleet's F5 serves"]
+        fleet_counts, f1_batch_s = phase_fleet(router, *a1, serve_fleets,
+                                               tmp)
+        from repro_torch.core.specs import portable_router
+
+        autotune = start_phase("phase_autotune", tmp, (
+            portable_router(router), *a1, knobs))
+        children.append(autotune[0])
+        BESIDE[:] = ["phase autotune"]
+        path_counts += [llm_counts, campaign_counts, fleet_counts,
+                        phase_fleet_faults(router, *a1, f1_batch_s)]
+        BESIDE.clear()
+        path_counts.append(finish_phase(autotune, "fleet_faults"))
     del trained, router, a1
     free_cuda()
     path_counts.append(phase_lm())
@@ -5461,7 +6080,8 @@ def main() -> int:
     path_counts.append(phase_lm_phi3())
     path_counts.append(phase_recsys())
     phase_recsys_small_parity()
-    path_counts.append(phase_recsys_zoo())
+    zoo_counts, recsys_cuts = phase_recsys_zoo()
+    path_counts.append(zoo_counts)
     path_counts.append(phase_recsys_train())
     phase_recsys_zoo_small_parity()
     cpu_forward = start_gnn_cpu_forward()
@@ -5471,6 +6091,7 @@ def main() -> int:
     cpu_forward = start_vit_cpu_forward()
     path_counts.append(phase_vit_parser())
     phase_vit_parser_small_parity(cpu_forward)
+    path_counts.append(phase_cells(recsys_cuts))
 
     # name -> (the directory of its source, the TPU kernel it replaces)
     replaces = {

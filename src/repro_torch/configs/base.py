@@ -248,6 +248,9 @@ class ArchConfig:
         raise KeyError(f"{self.arch_id}: unknown shape {name!r}; "
                        f"have {[s.name for s in self.shapes]}")
 
+    def runnable_shapes(self) -> list[ShapeConfig]:
+        return [s for s in self.shapes if s.name not in self.skips]
+
 
 def round_up(a: int, b: int) -> int:
     """The least multiple of ``b`` that is at least ``a``."""
@@ -270,6 +273,12 @@ def get_config(arch_id: str) -> ArchConfig:
     if arch_id not in _REGISTRY:
         raise KeyError(f"unknown arch {arch_id!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[arch_id]()
+
+
+def list_archs() -> list[str]:
+    """Every registered arch id, sorted."""
+    import repro_torch.configs  # noqa: F401
+    return sorted(_REGISTRY)
 
 
 # LM-family shared shape set -------------------------------------------------

@@ -2,6 +2,8 @@
 
 Entry points run on ``cuda`` unless the caller asks for ``cpu``; asking
 for ``cuda`` without a card raises — nothing falls back to the CPU.
+``meta`` gives shape-only tensors (the cell factory's abstract cells,
+``launch/specs.build_cell``), which allocate nothing.
 
 TF32 is switched off for matmuls and cuDNN: the f32 parity tolerances
 (2e-5 against the JAX package's f32 encoder) assume full-f32 products,
@@ -25,6 +27,7 @@ def resolve(device: str | torch.device | None = None) -> torch.device:
         raise RuntimeError(
             f"device {str(dev)!r} requested but torch.cuda.is_available() "
             f"is False; pass device='cpu' to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {str(dev)!r} (cuda or cpu)")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {str(dev)!r} (cuda, cpu or "
+                         f"meta)")
     return dev

@@ -1,7 +1,21 @@
-"""Workload batches and the training and retrieval steps, the port of
-the seeded batch functions and of the LM, GNN, recsys, ViT-parser and
-router train cells of ``repro/launch/specs.py`` (its abstract and
-sharded cells are the JAX package's own lowering and are not ported).
+"""Cell factory: (arch x shape) -> a step function and its inputs, the
+port of ``repro/launch/specs.py`` on one card.
+
+``build_cell`` gives every (arch, shape) pair of ``all_cells`` as a
+``Cell``: its step (train, prefill, decode or serve) and the step's
+arguments (params, optimizer state, the step as a 0-d int32 tensor,
+batches, caches). ``abstract=True`` builds every argument on
+``torch.device("meta")``, where the reference builds
+``jax.ShapeDtypeStruct``s, so a full-size cell allocates nothing (the
+optimizer state is ``opt.init`` of the meta params, where the reference
+takes ``jax.eval_shape`` of it);
+``abstract=False`` builds them on ``device`` (cuda unless "cpu"), with
+the reference's batches bit for bit (both draw them from numpy
+``RandomState(seed)``) and params from a generator seeded with ``seed``
+(JAX's PRNG is not reproduced: tests carry the reference's params
+across with the ``*_from_jax_params`` functions). Shardings wait for the
+mesh layer (ROADMAP.md item 13e-4): ``in_shardings`` is always None and
+``rules`` must be None.
 
 Params are dict trees (a recsys MLP is a list of layer dicts; the
 router's ``Encoder`` module is carried as the JAX package's raw dict,
@@ -16,6 +30,7 @@ and ``opt_state_from_jax`` carries a JAX run's optimizer state across.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -23,15 +38,22 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.configs.base import (ArchConfig, EncoderConfig, GNNConfig,
                                       LMConfig, RecsysConfig, ShapeConfig,
-                                      VitParserConfig, round_up)
+                                      VitParserConfig, get_config, round_up)
+from repro_torch.core.dpo import dpo_loss
+from repro_torch.core.router import make_route_step
+from repro_torch.models import vit_parser as vp_lib
+from repro_torch.models.attention import KVCache
 from repro_torch.models.encoder import Encoder, _named_params, init_encoder
 from repro_torch.models.gnn import sampler as sampler_lib
-from repro_torch.models.gnn.equiformer import equiformer_loss
+from repro_torch.models.gnn.equiformer import equiformer_loss, init_equiformer
 from repro_torch.models.gnn.so3 import n_coeff_full
 from repro_torch.models.layers import from_numpy, torch_dtype
-from repro_torch.models.recsys.models import recsys_loss, recsys_retrieval
-from repro_torch.models.transformer import lm_loss
-from repro_torch.models.vit_parser import parser_loss
+from repro_torch.models.recsys.models import (init_recsys, recsys_loss,
+                                              recsys_retrieval,
+                                              recsys_scores)
+from repro_torch.models.transformer import (decode_step, init_lm, lm_loss,
+                                            prefill)
+from repro_torch.models.vit_parser import init_vit_parser, parser_loss
 from repro_torch.optim import adafactor, adamw, apply_updates, chain_clip
 
 
@@ -199,12 +221,20 @@ def _nougat_batch(cfg: VitParserConfig, shape: ShapeConfig, seed: int = 0,
     are also the ``labels``. Tensors on ``device`` (cuda unless "cpu")."""
     dev = device_lib.resolve(device)
     b, t = shape["global_batch"], min(shape["dec_len"], cfg.max_dec_len)
+    toks = torch.zeros((b, t), dtype=torch.int32, device=dev)
+    return {"patches": _nougat_patches(cfg, b, seed, dev),
+            "tokens": toks, "labels": toks}
+
+
+def _nougat_patches(cfg: VitParserConfig, b: int, seed: int = 0,
+                    device=None) -> torch.Tensor:
+    """The JAX ``_nougat_cell``'s page patches: (b, n_patches, patch *
+    patch * 3) from numpy ``RandomState(seed).randn``, rounded once to
+    the compute dtype, on ``device`` (cuda unless "cpu")."""
     patches = np.random.RandomState(seed).randn(
         b, cfg.n_patches, cfg.patch * cfg.patch * 3)
-    toks = torch.zeros((b, t), dtype=torch.int32, device=dev)
-    return {"patches": torch.from_numpy(patches).to(
-                torch_dtype(cfg.compute_dtype)).to(dev),
-            "tokens": toks, "labels": toks}
+    return torch.from_numpy(patches).to(torch_dtype(cfg.compute_dtype)).to(
+        device_lib.resolve(device))
 
 
 def _router_batch(cfg: EncoderConfig, shape: ShapeConfig, seed: int = 0,
@@ -267,50 +297,106 @@ def vit_parser_train_step(cfg: VitParserConfig, opt):
                        vit_parser_param_leaves, opt)
 
 
+def _encoder_of(encoders: dict, cfg: EncoderConfig, params: dict,
+                slot: int = 0) -> Encoder:
+    """An ``Encoder`` on the tree's device (one kept per device and
+    ``slot`` in ``encoders``) holding a copy of ``router_param_tree``
+    params."""
+    dev = params["tok_embed"].device
+    if (dev, slot) not in encoders:
+        encoders[dev, slot] = Encoder(cfg, dev)
+    enc = encoders[dev, slot]
+    with torch.no_grad():
+        for name, i, prm in _named_params(enc):
+            prm.copy_(params[name] if i is None
+                      else params["layers"][name][i])
+    return enc
+
+
+def _router_update(opt, enc: Encoder, params: dict, loss_of, opt_state,
+                   step):
+    """Differentiate ``loss_of(enc)`` with respect to the encoder's
+    parameters, stack each per-layer leaf's gradients as the tree stacks
+    the leaf (a parameter the loss does not reach gets none: a zero
+    gradient that still decays), apply one update of ``opt`` to the
+    tree in place; returns (opt_state, loss)."""
+    named = list(_named_params(enc))
+    prms = [prm for _, _, prm in named]
+    for p in prms:
+        p.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            loss = loss_of(enc)
+            grads = torch.autograd.grad(loss, prms, allow_unused=True)
+    finally:
+        for p in prms:
+            p.requires_grad_(False)
+    grad_tree: dict = {}
+    per_layer: dict = {}
+    for (name, i, _), g in zip(named, grads):
+        if i is None:
+            grad_tree[name] = g
+        else:
+            per_layer.setdefault(name, []).append(g)
+    grad_tree["layers"] = {k: torch.stack(gs)
+                           for k, gs in per_layer.items()}
+    opt_state = _update(opt, router_param_leaves(params),
+                        router_param_leaves(grad_tree), opt_state, step)
+    return opt_state, loss.detach()
+
+
 def router_train_step(cfg: EncoderConfig, opt):
     """The router's ``sft_4k`` step on ``router_param_tree`` params:
     the tree's values are copied into an ``Encoder`` on the params'
     device, ``Encoder.regression_loss`` is differentiated with respect to
-    its parameters, each stacked leaf's gradient is the stack of its
-    layers' (the preference head, which the loss does not reach, gets
-    none: a zero gradient that still decays), and one update of ``opt``
+    its parameters (the preference head, which the loss does not reach,
+    gets a zero gradient that still decays), and one update of ``opt``
     is applied to the tree in place."""
     encoders: dict = {}
 
     def train_step(params, opt_state, step, batch):
-        leaves = router_param_leaves(params)
-        dev = leaves[0].device
-        if dev not in encoders:
-            encoders[dev] = Encoder(cfg, dev)
-        named = list(_named_params(encoders[dev]))
-        with torch.no_grad():
-            for name, i, prm in named:
-                prm.copy_(params[name] if i is None
-                          else params["layers"][name][i])
-        prms = [prm for _, _, prm in named]
-        for p in prms:
-            p.requires_grad_(True)
-        try:
-            with torch.enable_grad():
-                loss = encoders[dev].regression_loss(batch)
-                grads = torch.autograd.grad(loss, prms, allow_unused=True)
-        finally:
-            for p in prms:
-                p.requires_grad_(False)
-        grad_tree: dict = {}
-        per_layer: dict = {}
-        for (name, i, _), g in zip(named, grads):
-            if i is None:
-                grad_tree[name] = g
-            else:
-                per_layer.setdefault(name, []).append(g)
-        grad_tree["layers"] = {k: torch.stack(gs)
-                               for k, gs in per_layer.items()}
-        opt_state = _update(opt, leaves, router_param_leaves(grad_tree),
-                            opt_state, step)
-        return params, opt_state, loss.detach()
+        enc = _encoder_of(encoders, cfg, params)
+        opt_state, loss = _router_update(
+            opt, enc, params, lambda e: e.regression_loss(batch), opt_state,
+            step)
+        return params, opt_state, loss
 
     return train_step
+
+
+def router_dpo_step(cfg: EncoderConfig, opt):
+    """The router's ``dpo_*`` step ``(params, ref_params, opt_state,
+    step, batch) -> (params, opt_state, loss)``, the reference's
+    five-argument step: ``core/dpo.dpo_loss`` of the params against the
+    frozen ``ref_params`` (both ``router_param_tree``s), differentiated
+    with respect to the params only, one update of ``opt`` applied to
+    them in place."""
+    encoders: dict = {}
+
+    def train_step(params, ref_params, opt_state, step, batch):
+        enc = _encoder_of(encoders, cfg, params)
+        ref = _encoder_of(encoders, cfg, ref_params, slot=1)
+        opt_state, loss = _router_update(
+            opt, enc, params, lambda e: dpo_loss(e, ref, batch), opt_state,
+            step)
+        return params, opt_state, loss
+
+    return train_step
+
+
+def router_route_step(cfg: EncoderConfig, alpha: float):
+    """The router's ``route_*`` step ``(params, tokens, mask,
+    valid_logit) -> dict``: ``core/router.make_route_step(alpha)`` (the
+    encoder, then the ``budget_route`` kernel) on an ``Encoder`` holding
+    the ``router_param_tree`` params."""
+    encoders: dict = {}
+    route = make_route_step(alpha)
+
+    def route_step(params, tokens, mask, valid_logit):
+        return route(_encoder_of(encoders, cfg, params), tokens, mask,
+                     valid_logit)
+
+    return route_step
 
 
 def gnn_train_step(cfg: GNNConfig, opt):
@@ -477,3 +563,390 @@ def gnn_batch_arrays(shape: ShapeConfig, seed: int = 0) -> dict:
             np.arange(shape["batch"], dtype=np.int32), shape["n_nodes"])
         batch["n_graphs"] = shape["batch"]
     return batch
+
+
+# ---------------------------------------------------------------------------
+# Cells
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Cell:
+    arch_id: str
+    shape_name: str
+    kind: str                         # train | prefill | decode | serve
+    fn: Callable
+    args: tuple                       # on meta (abstract) or concrete
+    in_shardings: Any = None          # None until the mesh layer
+    donate_argnums: tuple = ()        # the args the step may overwrite
+    note: str = ""
+
+
+def _no_rules(rules) -> None:
+    if rules is not None:
+        raise NotImplementedError(
+            "launch.specs: sharding rules wait for the mesh layer "
+            "(ROADMAP.md item 13e-4); on one card pass rules=None")
+
+
+def _cell_device(abstract: bool, device) -> torch.device:
+    return torch.device("meta") if abstract else device_lib.resolve(device)
+
+
+def _generator(seed: int, dev: torch.device) -> torch.Generator:
+    """A generator seeded with ``seed`` where the inits draw: on the
+    card for card params, on the CPU for cpu ones and for meta ones
+    (which draw nothing)."""
+    return torch.Generator(device=dev if dev.type == "cuda" else "cpu"
+                           ).manual_seed(seed)
+
+
+def _sds(shape, dtype) -> torch.Tensor:
+    """The shape and dtype of an argument, on meta."""
+    return torch.empty(tuple(int(s) for s in shape), dtype=dtype,
+                       device="meta")
+
+
+def _step0(dev: torch.device) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32, device=dev)
+
+
+def _meta_batch(spec: dict) -> dict:
+    return {k: _sds(shape, dtype) for k, (shape, dtype) in spec.items()}
+
+
+def _train_batch(arch: ArchConfig, shape: ShapeConfig, seed: int,
+                 device) -> dict:
+    """A train cell's concrete batch, the builder the cell and each step
+    of ``launch/train.py`` (at ``seed = step + 1``) share: the GNN
+    cell's without ``n_graphs``, which its step adds."""
+    cfg = arch.model
+    if arch.family == "lm":
+        return _lm_train_batch(cfg, shape["global_batch"], shape["seq_len"],
+                               seed, device)
+    if arch.family == "gnn":
+        return {k: v for k, v in _gnn_batch(shape, seed, device).items()
+                if k != "n_graphs"}
+    if arch.family == "recsys":
+        return _recsys_batch(cfg, shape["batch"], seed, device)
+    if arch.family == "vit_parser":
+        return _nougat_batch(cfg, shape, seed, device)
+    if arch.family == "encoder" and shape.name.startswith("sft"):
+        return _router_batch(cfg, shape, seed, device)
+    raise ValueError(f"{arch.arch_id}/{shape.name}: no train batch")
+
+
+def _lm_train_cell(arch: ArchConfig, shape: ShapeConfig, rules, abstract,
+                   seed=0, device=None) -> Cell:
+    _no_rules(rules)
+    cfg: LMConfig = arch.model
+    dev = _cell_device(abstract, device)
+    opt, _ = _optimizer_for(arch)
+    params = init_lm(cfg, _generator(seed, dev), dev)
+    opt_state = opt.init(lm_param_leaves(params))
+    b, s = shape["global_batch"], shape["seq_len"]
+    batch = (_meta_batch({"tokens": ((b, s), torch.int32),
+                          "labels": ((b, s), torch.int32)}) if abstract
+             else _train_batch(arch, shape, seed, dev))
+    return Cell(arch.arch_id, shape.name, "train", lm_train_step(cfg, opt),
+                (params, opt_state, _step0(dev), batch),
+                donate_argnums=(0, 1))
+
+
+def _lm_prefill_cell(arch, shape, rules, abstract, seed=0,
+                     device=None) -> Cell:
+    _no_rules(rules)
+    cfg: LMConfig = arch.model
+    dev = _cell_device(abstract, device)
+    params = init_lm(cfg, _generator(seed, dev), dev)
+    b, s = shape["global_batch"], shape["seq_len"]
+
+    @torch.no_grad()
+    def prefill_step(params, tokens):
+        return prefill(params, cfg, tokens)
+
+    tokens = (_sds((b, s), torch.int32) if abstract else
+              torch.from_numpy(np.random.RandomState(seed).randint(
+                  0, cfg.vocab_size, size=(b, s)).astype(np.int32)).to(dev))
+    return Cell(arch.arch_id, shape.name, "prefill", prefill_step,
+                (params, tokens))
+
+
+def _lm_decode_cell(arch, shape, rules, abstract, seed=0,
+                    device=None) -> Cell:
+    """One decode step at ``pos = seq_len - 1`` over a zero cache of
+    ``seq_len`` positions; the step writes its keys and values into the
+    cache in place (``attention.cache_update``)."""
+    _no_rules(rules)
+    cfg: LMConfig = arch.model
+    dev = _cell_device(abstract, device)
+    params = init_lm(cfg, _generator(seed, dev), dev)
+    b, s = shape["global_batch"], shape["seq_len"]
+    dims = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim,
+            torch_dtype(cfg.compute_dtype))
+
+    def serve_step(params, tokens, cache, pos):
+        return decode_step(params, cfg, tokens, cache, int(pos))
+
+    if abstract:
+        tokens, cache = _sds((b, 1), torch.int32), KVCache.abstract(*dims)
+        pos = _sds((), torch.int32)
+    else:
+        tokens = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+        cache = KVCache.zeros(*dims, device=dev)
+        pos = torch.tensor(s - 1, dtype=torch.int32, device=dev)
+    return Cell(arch.arch_id, shape.name, "decode", serve_step,
+                (params, tokens, cache, pos), donate_argnums=(2,))
+
+
+def _gnn_train_cell(arch, shape, rules, abstract, seed=0,
+                    device=None) -> Cell:
+    _no_rules(rules)
+    d_in, n_out, is_cls = GNN_DATASETS[shape.name]
+    cfg = gnn_cell_config(arch, shape)
+    dev = _cell_device(abstract, device)
+    opt, _ = _optimizer_for(arch)
+    params = init_equiformer(cfg, _generator(seed, dev), dev)
+    opt_state = opt.init(gnn_param_leaves(params))
+    n, e = _gnn_dims(shape)
+    mol = shape.name == "molecule"
+    step = gnn_train_step(cfg, opt)
+
+    def train_step(params, opt_state, step_no, batch):
+        if mol:
+            batch = dict(batch, n_graphs=shape["batch"])
+        return step(params, opt_state, step_no, batch)
+
+    if abstract:
+        lbl = (((shape["batch"], n_out) if mol else (n,)),
+               torch.int32 if is_cls else torch.float32)
+        spec = {"pos": ((n, 3), torch.float32),
+                "src": ((e,), torch.int32), "dst": ((e,), torch.int32),
+                "node_feat": ((n, d_in), torch.float32), "labels": lbl}
+        if mol:
+            spec["graph_ids"] = ((n,), torch.int32)
+        batch = _meta_batch(spec)
+    else:
+        batch = _train_batch(arch, shape, seed, dev)
+    return Cell(arch.arch_id, shape.name, "train", train_step,
+                (params, opt_state, _step0(dev), batch),
+                donate_argnums=(0, 1), note=f"N={n} E={e}")
+
+
+def _recsys_meta_batch(cfg: RecsysConfig, b: int) -> dict:
+    spec = {"sparse": ((b, cfg.n_sparse), torch.int32),
+            "labels": ((b,), torch.float32)}
+    if cfg.kind == "dlrm":
+        spec["dense"] = ((b, cfg.n_dense), torch.float32)
+    if cfg.kind == "dien":
+        t = cfg.seq_len
+        spec.update(hist=((b, t), torch.int32),
+                    hist_cat=((b, t), torch.int32),
+                    hist_mask=((b, t), torch.float32),
+                    target=((b,), torch.int32),
+                    target_cat=((b,), torch.int32))
+    return _meta_batch(spec)
+
+
+def _recsys_cell(arch, shape, rules, abstract, seed=0,
+                 device=None) -> Cell:
+    _no_rules(rules)
+    cfg: RecsysConfig = arch.model
+    dev = _cell_device(abstract, device)
+    params = init_recsys(cfg, _generator(seed, dev), dev)
+
+    if shape.name == "retrieval_cand":
+        step, n_cand = recsys_retrieval_step(cfg, shape)
+        b = shape["batch"]
+        batch = ({"user_query": _sds((b, cfg.embed_dim), torch.float32)}
+                 if abstract else _retrieval_query(cfg, b, seed, dev))
+        return Cell(arch.arch_id, shape.name, "serve", step,
+                    (params, batch), note=f"n_cand={n_cand}")
+
+    b = shape["batch"]
+    batch = (_recsys_meta_batch(cfg, b) if abstract
+             else _recsys_batch(cfg, b, seed, dev))
+    if shape.kind == "train":
+        opt, _ = _optimizer_for(arch)
+        opt_state = opt.init(recsys_param_leaves(params))
+        return Cell(arch.arch_id, shape.name, "train",
+                    recsys_train_step(cfg, opt),
+                    (params, opt_state, _step0(dev), batch),
+                    donate_argnums=(0, 1))
+
+    @torch.no_grad()
+    def serve_step(params, batch):
+        return recsys_scores(params, cfg, batch)
+
+    serve_batch = {k: v for k, v in batch.items() if k != "labels"}
+    return Cell(arch.arch_id, shape.name, "serve", serve_step,
+                (params, serve_batch))
+
+
+ROUTE_ALPHA = 0.05      # the route_* cell's budget, as the reference's
+
+
+def _router_cell(arch, shape, rules, abstract, seed=0,
+                 device=None) -> Cell:
+    _no_rules(rules)
+    cfg: EncoderConfig = arch.model
+    dev = _cell_device(abstract, device)
+    params = init_router_params(cfg, _generator(seed, dev), dev)
+    b = shape["global_batch"]
+    s = min(shape["seq_len"], cfg.max_len)
+
+    def mk_tok():
+        if abstract:
+            return _sds((b, s), torch.int32), _sds((b, s), torch.float32)
+        toks = np.random.RandomState(seed).randint(2, cfg.vocab_size, (b, s))
+        return (torch.from_numpy(toks.astype(np.int32)).to(dev),
+                torch.ones((b, s), dtype=torch.float32, device=dev))
+
+    if shape.name.startswith(("sft", "dpo")):
+        opt, _ = _optimizer_for(arch)
+        opt_state = opt.init(router_param_leaves(params))
+        if shape.name.startswith("sft"):
+            batch = (_meta_batch({"tokens": ((b, s), torch.int32),
+                                  "mask": ((b, s), torch.float32),
+                                  "targets": ((b, cfg.n_outputs),
+                                              torch.float32)})
+                     if abstract else _train_batch(arch, shape, seed, dev))
+            return Cell(arch.arch_id, shape.name, "train",
+                        router_train_step(cfg, opt),
+                        (params, opt_state, _step0(dev), batch),
+                        donate_argnums=(0, 1))
+        # the reference draws both sides from one seed: pos == neg
+        tp, mp = mk_tok()
+        tn, mn = mk_tok()
+        batch = {"tok_pos": tp, "mask_pos": mp, "tok_neg": tn,
+                 "mask_neg": mn}
+        # the frozen reference is a copy: the step updates params in place
+        ref = {k: ({n: t.clone() for n, t in v.items()} if k == "layers"
+                   else v.clone()) for k, v in params.items()}
+        return Cell(arch.arch_id, shape.name, "train",
+                    router_dpo_step(cfg, opt),
+                    (params, ref, opt_state, _step0(dev), batch),
+                    donate_argnums=(0, 2))
+
+    toks, mask = mk_tok()
+    valid = (_sds((b,), torch.float32) if abstract
+             else torch.ones((b,), dtype=torch.float32, device=dev))
+    return Cell(arch.arch_id, shape.name, "serve",
+                router_route_step(cfg, ROUTE_ALPHA),
+                (params, toks, mask, valid), note=f"alpha={ROUTE_ALPHA}")
+
+
+def _nougat_cell(arch, shape, rules, abstract, seed=0,
+                 device=None) -> Cell:
+    _no_rules(rules)
+    cfg: VitParserConfig = arch.model
+    dev = _cell_device(abstract, device)
+    params = init_vit_parser(cfg, _generator(seed, dev), dev)
+    b = shape["global_batch"]
+    patch_dim = cfg.patch * cfg.patch * 3
+    n_p = cfg.n_patches
+    cdt = torch_dtype(cfg.compute_dtype)
+
+    def mk_patches():
+        if abstract:
+            return _sds((b, n_p, patch_dim), cdt)
+        return _nougat_patches(cfg, b, seed, dev)
+
+    if shape.kind == "train":
+        t = min(shape["dec_len"], cfg.max_dec_len)
+        opt, _ = _optimizer_for(arch)
+        opt_state = opt.init(vit_parser_param_leaves(params))
+        if abstract:
+            toks = _sds((b, t), torch.int32)
+            batch = {"patches": mk_patches(), "tokens": toks,
+                     "labels": toks}
+        else:
+            batch = _train_batch(arch, shape, seed, dev)
+        return Cell(arch.arch_id, shape.name, "train",
+                    vit_parser_train_step(cfg, opt),
+                    (params, opt_state, _step0(dev), batch),
+                    donate_argnums=(0, 1))
+
+    if shape.name == "parse_encode":
+        @torch.no_grad()
+        def encode_step(params, patches):
+            # init_dec_state's cross keys and values, without its zero
+            # self-attention cache, which the step does not return
+            memory = vp_lib.encode_pages(params, cfg, patches)
+            return vp_lib.cross_kv(params, cfg, memory)
+
+        return Cell(arch.arch_id, shape.name, "serve", encode_step,
+                    (params, mk_patches()))
+
+    # parse_decode: one token for the in-flight page batch
+    t = min(shape["dec_len"], cfg.max_dec_len)
+    dh = cfg.dec_d_model // cfg.dec_heads
+
+    def dec_step(params, tok, cache_k, cache_v, xk, xv, pos):
+        state = vp_lib.DecState(KVCache(cache_k, cache_v), xk, xv)
+        logits, state = vp_lib.dec_step(params, cfg, tok, state, int(pos))
+        return logits, state.cache.k, state.cache.v
+
+    cshape = (cfg.dec_layers, b, t, cfg.dec_heads, dh)
+    xshape = (cfg.dec_layers, b, n_p, cfg.dec_heads, dh)
+    if abstract:
+        tok, pos = _sds((b, 1), torch.int32), _sds((), torch.int32)
+        ck, cv = _sds(cshape, cdt), _sds(cshape, cdt)
+        xk, xv = _sds(xshape, cdt), _sds(xshape, cdt)
+    else:
+        tok = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+        ck, cv, xk, xv = (torch.zeros(sh, dtype=cdt, device=dev)
+                          for sh in (cshape, cshape, xshape, xshape))
+        pos = torch.tensor(t - 1, dtype=torch.int32, device=dev)
+    return Cell(arch.arch_id, shape.name, "decode", dec_step,
+                (params, tok, ck, cv, xk, xv, pos), donate_argnums=(2, 3))
+
+
+_BUILDERS = {"gnn": _gnn_train_cell, "recsys": _recsys_cell,
+             "encoder": _router_cell, "vit_parser": _nougat_cell}
+
+
+def cell_shape(arch_id: str, shape_name: str, reduced: bool = False,
+               model_override=None) -> tuple[ArchConfig, ShapeConfig]:
+    """The arch (``model_override`` in place of its model; its tiny
+    config when ``reduced``) and the shape ``build_cell`` builds,
+    ``_reduce_shape`` applied when ``reduced``. A shape the arch skips
+    raises ValueError unless ``reduced``."""
+    arch = get_config(arch_id)
+    if model_override is not None:
+        arch = dataclasses.replace(arch, model=model_override)
+    if reduced:
+        arch = arch.reduced()
+        shape = _reduce_shape(arch.family, arch.shape(shape_name))
+    else:
+        shape = arch.shape(shape_name)
+    if shape_name in arch.skips and not reduced:
+        raise ValueError(f"{arch_id}/{shape_name} skipped: "
+                         f"{arch.skips[shape_name]}")
+    return arch, shape
+
+
+def build_cell(arch_id: str, shape_name: str, rules=None,
+               abstract: bool = True, reduced: bool = False, seed: int = 0,
+               model_override=None, device=None) -> Cell:
+    """The (arch, shape) cell: its step and arguments on meta
+    (``abstract``) or on ``device`` (cuda unless "cpu"). ``rules`` must
+    be None (the mesh layer is ROADMAP.md item 13e-4)."""
+    _no_rules(rules)
+    arch, shape = cell_shape(arch_id, shape_name, reduced, model_override)
+    if arch.family == "lm":
+        build = {"train": _lm_train_cell,
+                 "prefill": _lm_prefill_cell}.get(shape.kind,
+                                                  _lm_decode_cell)
+    elif arch.family in _BUILDERS:
+        build = _BUILDERS[arch.family]
+    else:
+        raise ValueError(arch.family)
+    return build(arch, shape, rules, abstract, seed, device)
+
+
+def all_cells() -> list[tuple[str, str]]:
+    """Every (arch, runnable shape) pair, in the reference's order."""
+    from repro_torch.configs import list_archs
+    return [(a, s.name) for a in list_archs()
+            for s in get_config(a).runnable_shapes()]

@@ -15,9 +15,12 @@ on one card: the LM train cells, the GNN train cells, the recsys
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch adaparse-router --shape sft_4k [--reduced]
 
-A GNN cell's model is the arch's with the dataset's input width and
-output count (``specs.gnn_cell_config``); ``ogb_products`` at full size
-does not fit one card and raises with the reckoning
+As the reference does, the step function and the initial params and
+optimizer state come from the train cell of ``specs.build_cell``, and
+serve, prefill and decode cells are refused: the loop trains train
+cells. A GNN cell's model is the arch's with the dataset's input width
+and output count (``specs.gnn_cell_config``); ``ogb_products`` at full
+size does not fit one card and raises with the reckoning
 (``specs.gnn_refusal``); its reduced cell trains. The router trains its
 ``Encoder`` through ``specs.router_train_step`` on the JAX package's raw
 param layout (``specs.router_param_tree``), so its optimizer state and
@@ -25,11 +28,13 @@ checkpoint line up with the reference's leaves. ``dpo_2k`` is refused:
 the reference's CLI cannot run it (``DPO_REFUSAL``); DPO trains through
 ``core/dpo.py``.
 
-As the reference does:
+Also as the reference does:
 - restart-from-latest: on launch, restores the newest checkpoint in
   --ckpt-dir (params, optimizer state and step) and resumes;
-- the batch of step ``t`` is drawn from seed ``t + 1`` (a stateless
-  pipeline), so a resumed run equals an uninterrupted one bit for bit;
+- the batch of step ``t`` is the cell's batch drawn at seed ``t + 1``
+  by the cell's own batch builder (``specs._train_batch``; the params
+  are not drawn again): a stateless pipeline, so a resumed run equals
+  an uninterrupted one bit for bit;
 - atomic async checkpoints every --ckpt-every steps (the previous write
   joined first), and a final save at the end;
 - SIGTERM: checkpoint and exit;
@@ -38,8 +43,9 @@ As the reference does:
 On one card: ``--device`` (cuda unless "cpu") places the params, the
 optimizer state and each batch; ``--mesh`` takes only ``1x1`` (one card
 has no mesh). There is no gradient accumulation, as in the reference, so
-the shape's global batch is one step's batch. Params are drawn from a
-seed-0 generator on the device. The final checkpoint is written at the
+the shape's global batch is one step's batch. Params are the seed-0
+cell's (``specs.build_cell``: a generator on the device; the router's
+on the CPU). The final checkpoint is written at the
 step reached; the reference writes it at ``--steps`` even after a
 SIGTERM, so that its resume would skip the steps not taken.
 """
@@ -49,27 +55,12 @@ import argparse
 import signal
 import time
 
-import torch
-
 from repro_torch import device as device_lib
 from repro_torch.checkpoint import checkpoint as ckpt_lib
-from repro_torch.configs import get_config
 from repro_torch.distributed.fault import StragglerDetector
-from repro_torch.launch.specs import (_gnn_batch, _lm_train_batch,
-                                      _nougat_batch, _optimizer_for,
-                                      _recsys_batch, _reduce_shape,
-                                      _router_batch, gnn_cell_config,
-                                      gnn_param_leaves, gnn_refusal,
-                                      gnn_train_step, init_router_params,
-                                      lm_param_leaves, lm_train_step,
-                                      recsys_param_leaves, recsys_train_step,
-                                      router_param_leaves, router_train_step,
-                                      vit_parser_param_leaves,
-                                      vit_parser_train_step)
-from repro_torch.models.gnn.equiformer import init_equiformer
-from repro_torch.models.recsys.models import init_recsys
-from repro_torch.models.transformer import init_lm
-from repro_torch.models.vit_parser import init_vit_parser
+from repro_torch.launch.specs import (_lm_train_batch, _train_batch,
+                                      build_cell, cell_shape,
+                                      gnn_cell_config, gnn_refusal)
 
 #: why ``--arch adaparse-router --shape dpo_2k`` is refused
 DPO_REFUSAL = (
@@ -78,6 +69,16 @@ DPO_REFUSAL = (
     "(src/repro/launch/specs.py:456), but src/repro/launch/train.py "
     "passes four; the port does not train it here either. DPO trains "
     "through repro_torch.core.dpo (fit_dpo), as serve --variant llm does")
+
+
+def _step_batch(arch, shape, seed: int, dev) -> dict:
+    """The train cell's batch at ``seed`` (``specs._train_batch``; an
+    LM's through this module's ``_lm_train_batch``, the function that
+    builder calls)."""
+    if arch.family == "lm":
+        return _lm_train_batch(arch.model, shape["global_batch"],
+                               shape["seq_len"], seed, dev)
+    return _train_batch(arch, shape, seed, dev)
 
 
 def _check_mesh(spec: str) -> None:
@@ -105,67 +106,30 @@ def main(argv=None):
     _check_mesh(args.mesh)
     dev = device_lib.resolve(args.device)
 
-    arch = get_config(args.arch)
-    if args.reduced:
-        arch = arch.reduced()
-        shape = _reduce_shape(arch.family, arch.shape(args.shape))
-    else:
-        shape = arch.shape(args.shape)
-    if args.shape in arch.skips and not args.reduced:
-        raise ValueError(f"{args.arch}/{args.shape} skipped: "
-                         f"{arch.skips[args.shape]}")
+    arch, shape = cell_shape(args.arch, args.shape, args.reduced)
     if shape.kind != "train":
         raise NotImplementedError(
-            f"{args.arch}/{args.shape}: the train CLI takes train cells "
-            f"only; the serve cells wait for the port's cell factory "
-            f"(ROADMAP.md item 13e-3)")
+            f"{args.arch}/{args.shape} is a {shape.kind} cell: the train "
+            f"CLI trains train cells, as the reference's loop does; build "
+            f"the others with launch.specs.build_cell (ROADMAP.md item "
+            f"13e-3)")
     if arch.family == "encoder" and shape.name.startswith("dpo"):
         raise NotImplementedError(f"{args.arch}/{args.shape}: "
                                   f"{DPO_REFUSAL}")
-    cfg = arch.model
-    opt, _ = _optimizer_for(arch)
-    if arch.family == "gnn":
-        cfg = gnn_cell_config(arch, shape)
-        why = None if args.reduced else gnn_refusal(cfg, shape)
+    if arch.family == "gnn" and not args.reduced:
+        why = gnn_refusal(gnn_cell_config(arch, shape), shape)
         if why:
             raise ValueError(f"{args.arch}/{why}")
-        init, leaves_of = init_equiformer, gnn_param_leaves
-        train_step = gnn_train_step(cfg, opt)
-
-        def make_batch(seed):
-            return _gnn_batch(shape, seed, device=dev)
-    elif arch.family == "lm":
-        b, s = shape["global_batch"], shape["seq_len"]
-        init, leaves_of = init_lm, lm_param_leaves
-        train_step = lm_train_step(cfg, opt)
-
-        def make_batch(seed):
-            return _lm_train_batch(cfg, b, s, seed=seed, device=dev)
-    elif arch.family == "vit_parser":
-        init, leaves_of = init_vit_parser, vit_parser_param_leaves
-        train_step = vit_parser_train_step(cfg, opt)
-
-        def make_batch(seed):
-            return _nougat_batch(cfg, shape, seed, device=dev)
-    elif arch.family == "encoder":
-        init, leaves_of = init_router_params, router_param_leaves
-        train_step = router_train_step(cfg, opt)
-
-        def make_batch(seed):
-            return _router_batch(cfg, shape, seed, device=dev)
-    else:
-        init, leaves_of = init_recsys, recsys_param_leaves
-        train_step = recsys_train_step(cfg, opt)
-
-        def make_batch(seed):
-            return _recsys_batch(cfg, shape["batch"], seed, device=dev)
 
     stop = {"now": False}
     previous = signal.signal(signal.SIGTERM,
                              lambda *_: stop.update(now=True))
     try:
-        params = init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-        opt_state = opt.init(leaves_of(params))
+        cell = build_cell(args.arch, args.shape, abstract=False,
+                          reduced=args.reduced, device=dev)
+        train_step = cell.fn
+        params, opt_state = cell.args[:2]
+        del cell
         start_step = 0
         if args.ckpt_dir and ckpt_lib.latest_step(args.ckpt_dir) is not None:
             start_step, tree, _ = ckpt_lib.restore(args.ckpt_dir,
@@ -182,7 +146,7 @@ def main(argv=None):
                 print("[train] SIGTERM — checkpointing and exiting")
                 break
             t0 = time.time()
-            batch = make_batch(step + 1)
+            batch = _step_batch(arch, shape, step + 1, dev)
             params, opt_state, loss = train_step(params, opt_state, step,
                                                  batch)
             loss = float(loss)

@@ -27,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import device as device_lib
 from repro_torch.kernels.flash_attention import ops as fa_ops
 
 NEG_INF = -1e30
@@ -189,6 +190,21 @@ class KVCache(NamedTuple):
 
     k: torch.Tensor      # (L, B, S, Hk, D)
     v: torch.Tensor      # (L, B, S, Hk, D)
+
+    @classmethod
+    def zeros(cls, n_layers, batch, max_len, n_kv, d_head,
+              dtype=torch.bfloat16, device=None):
+        shape = (n_layers, batch, max_len, n_kv, d_head)
+        dev = device_lib.resolve(device)
+        return cls(torch.zeros(shape, dtype=dtype, device=dev),
+                   torch.zeros(shape, dtype=dtype, device=dev))
+
+    @classmethod
+    def abstract(cls, n_layers, batch, max_len, n_kv, d_head,
+                 dtype=torch.bfloat16):
+        """The cache's shape and dtype on ``meta`` (nothing allocated)."""
+        return cls.zeros(n_layers, batch, max_len, n_kv, d_head, dtype,
+                         "meta")
 
 
 def cache_update(cache_k, cache_v, new_k, new_v, pos: int):

@@ -193,11 +193,14 @@ def init_encoder(cfg: EncoderConfig, generator: torch.Generator | None = None,
                  device=None) -> Encoder:
     """Random encoder params in ``cfg.param_dtype``: normal(std) weights
     drawn in float32 from ``generator`` (a CPU generator; default seed
-    0), ones for norm scales, zeros for biases."""
+    0), ones for norm scales, zeros for biases. On ``meta`` nothing is
+    drawn."""
     g = generator if generator is not None else torch.Generator().manual_seed(0)
     enc = Encoder(cfg, device)
     shapes = {**_top_shapes(cfg), **_layer_shapes(cfg)}
     for name, _, prm in _named_params(enc):
+        if prm.is_meta:
+            continue
         shape, init = shapes[name]
         if init == "ones":
             prm.fill_(1.0)

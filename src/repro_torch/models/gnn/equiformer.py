@@ -108,11 +108,12 @@ def init_equiformer(cfg: GNNConfig, generator: torch.Generator | None = None,
     """Random params in ``cfg.param_dtype`` on ``device`` (cuda unless
     "cpu"): normal(std) draws in float32 from ``generator``, which must
     live on that device (default: seed 0 there), with the reference's
-    stds; ``norm_scale`` is zero (the norm scales by ``1 + scale``)."""
+    stds; ``norm_scale`` is zero (the norm scales by ``1 + scale``). On
+    ``meta`` (any generator) nothing is drawn."""
     dev = device_lib.resolve(device)
     g = generator if generator is not None else \
         torch.Generator(device=dev).manual_seed(0)
-    if torch.device(g.device).type != dev.type:
+    if dev.type != "meta" and torch.device(g.device).type != dev.type:
         raise ValueError(f"init_equiformer: generator on {g.device}, "
                          f"params on {dev}; draw on the params' device")
     dtype = torch_dtype(cfg.param_dtype)

@@ -1,14 +1,26 @@
-"""Shared neural layers of the port (the subset of ``repro.models.layers``
-the CLS-III encoder and the dense LM use): layer and RMS norms computed
-in float32, rotary embeddings, tanh-GELU, SwiGLU, the logit soft cap,
-the embedding lookup and the LM's cross-entropy loss; plus the
+"""Shared neural layers of the port (``repro.models.layers``): layer and
+RMS norms computed in float32 and their inits, rotary embeddings, the
+dense layer, plain MLP stacks, tanh-GELU, SwiGLU, the logit soft cap,
+the embedding init and lookup and the LM's cross-entropy loss; plus the
 dtype-name map and the numpy-to-tensor copy that carry the JAX package's
-params across."""
+params across.
+
+The inits return plain tensors (the reference's ``Param`` wraps each
+with its logical axes, which wait for the mesh layer, ROADMAP.md item
+13e-4): random ones are drawn in float32 from an explicit
+``torch.Generator`` on ``device`` and cast to ``dtype``; ``abstract=True``
+gives the same shapes and dtypes on ``torch.device("meta")`` and draws
+nothing."""
 from __future__ import annotations
+
+import math
+from typing import Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch import device as device_lib
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -48,6 +60,39 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (y * scale.float() + bias.float()).to(dtype)
 
 
+def _init_device(abstract: bool, device):
+    return torch.device("meta") if abstract else device_lib.resolve(device)
+
+
+def _normal(generator, shape, std: float, dtype, abstract: bool, device):
+    """normal(0, std) drawn in float32 and cast to ``dtype``; on meta
+    (``abstract``) nothing is drawn."""
+    dev = _init_device(abstract, device)
+    if abstract:
+        return torch.empty(shape, dtype=dtype, device=dev)
+    return (torch.randn(shape, generator=generator, device=dev)
+            * std).to(dtype)
+
+
+def init_rms_norm(d: int, dtype, abstract: bool = False,
+                  layers: int | None = None, device=None) -> torch.Tensor:
+    """The RMS norm's scale, zeros of (d,) or (layers, d) (the norm
+    scales by ``1 + scale``)."""
+    shape = (d,) if layers is None else (layers, d)
+    return torch.zeros(shape, dtype=dtype,
+                       device=_init_device(abstract, device))
+
+
+def init_layer_norm(d: int, dtype, abstract: bool = False,
+                    layers: int | None = None, device=None) -> dict:
+    """The layer norm's ``scale`` (ones) and ``bias`` (zeros), (d,) or
+    (layers, d)."""
+    shape = (d,) if layers is None else (layers, d)
+    dev = _init_device(abstract, device)
+    return {"scale": torch.ones(shape, dtype=dtype, device=dev),
+            "bias": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
 def rope_frequencies(d_head: int, theta: float,
                      device=None) -> torch.Tensor:
     half = d_head // 2
@@ -67,6 +112,69 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def init_dense(generator: torch.Generator | None, d_in: int, d_out: int,
+               axes: Sequence[str | None], dtype, abstract: bool = False,
+               bias: bool = False, layers: int | None = None,
+               stddev: float | None = None, device=None) -> dict:
+    """A dense layer ``{"w": (d_in, d_out)}`` (``(layers, d_in, d_out)``
+    with ``layers``), plus a zero ``"b"`` of (d_out,) or (layers, d_out)
+    with ``bias``. ``w`` is normal(stddev), or LeCun-normal on d_in
+    (std ``d_in ** -0.5``) without one. ``axes`` names w's logical axes
+    for the mesh layer and is not used on one card."""
+    del axes
+    shape = (d_in, d_out) if layers is None else (layers, d_in, d_out)
+    std = stddev if stddev is not None else 1.0 / math.sqrt(max(d_in, 1))
+    p = {"w": _normal(generator, shape, std, dtype, abstract, device)}
+    if bias:
+        bshape = (d_out,) if layers is None else (layers, d_out)
+        p["b"] = torch.zeros(bshape, dtype=dtype,
+                             device=_init_device(abstract, device))
+    return p
+
+
+def dense(x: torch.Tensor, p: dict,
+          out_hint: tuple[str | None, ...] | None = None) -> torch.Tensor:
+    """``x @ w`` (w cast to x's dtype), plus ``b`` in the product's
+    dtype when the layer has one. ``out_hint`` names the output's logical
+    axes for the mesh layer; on one card it does nothing, as the
+    reference's ``shard_hint`` does with no rules in force."""
+    del out_hint
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+def mlp_stack(generator: torch.Generator | None, dims: Sequence[int], dtype,
+              abstract: bool = False, in_axis: str | None = None,
+              hidden_axis: str | None = "d_ff", bias: bool = True,
+              device=None) -> list[dict]:
+    """A plain MLP as a list of ``init_dense`` layers dims[i] ->
+    dims[i + 1], drawn from ``generator`` in order. ``in_axis`` and
+    ``hidden_axis`` name the logical axes for the mesh layer."""
+    layers = []
+    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+        last = i == len(dims) - 2
+        axes = (in_axis if i == 0 else hidden_axis,
+                None if last else hidden_axis)
+        layers.append(init_dense(generator, a, b, axes, dtype, abstract,
+                                 bias=bias, device=device))
+    return layers
+
+
+def mlp_apply(x: torch.Tensor, layers: list[dict], act=F.relu,
+              final_act=None) -> torch.Tensor:
+    """``dense`` through each layer, ``act`` between them and
+    ``final_act`` (if any) after the last."""
+    for i, p in enumerate(layers):
+        x = dense(x, p)
+        if i < len(layers) - 1:
+            x = act(x)
+        elif final_act is not None:
+            x = final_act(x)
+    return x
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -97,6 +205,15 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
         mask = mask.float()
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
+
+
+def init_embedding(generator: torch.Generator | None, vocab: int, d: int,
+                   dtype, abstract: bool = False, axes=("vocab", "d_model"),
+                   device=None) -> torch.Tensor:
+    """A (vocab, d) table drawn from normal(0.02). ``axes`` names its
+    logical axes for the mesh layer."""
+    del axes
+    return _normal(generator, (vocab, d), 0.02, dtype, abstract, device)
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor, *,

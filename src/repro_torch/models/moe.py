@@ -77,12 +77,14 @@ def moe_shapes(d_model: int, cfg: MoEConfig) -> dict:
 
 @torch.no_grad()
 def init_moe(generator: torch.Generator, d_model: int, cfg: MoEConfig,
-             dtype: torch.dtype, layers: int | None = None) -> dict:
+             dtype: torch.dtype, layers: int | None = None,
+             device=None) -> dict:
     """Random expert params in ``dtype``, drawn in float32 from
-    ``generator`` on its own device (``init_lm`` passes the params'),
-    with a leading ``layers`` axis when given."""
+    ``generator`` on ``device`` (the generator's own by default;
+    ``init_lm`` passes the params', which may be ``meta``), with a
+    leading ``layers`` axis when given."""
     lead = () if layers is None else (layers,)
-    dev = generator.device
+    dev = generator.device if device is None else device
     return {k: (torch.randn(lead + s, generator=generator, device=dev)
                 * std).to(dtype)
             for k, (s, std) in moe_shapes(d_model, cfg).items()}

@@ -41,7 +41,7 @@ def init_table(vocab_sizes, dim: int, dtype: torch.dtype,
     (a 48 GB bf16 table leaves no room for a float32 draw beside it), and
     the int64 field offsets on the same device."""
     dev = device_lib.resolve(device)
-    if torch.device(generator.device).type != dev.type:
+    if dev.type != "meta" and torch.device(generator.device).type != dev.type:
         raise ValueError(f"init_table: generator on {generator.device}, "
                          f"table on {dev}; draw on the table's device")
     offs, total = table_offsets(vocab_sizes, pad_to)

@@ -101,12 +101,14 @@ def augru_scan(x: torch.Tensor, att: torch.Tensor, p: dict,
 
 @torch.no_grad()
 def draw(shape, std: float | None, dtype: torch.dtype,
-         generator: torch.Generator) -> torch.Tensor:
-    """normal(0, std) drawn in float32 from ``generator`` on its device
-    and cast to ``dtype``; zeros when ``std`` is None."""
+         generator: torch.Generator, device=None) -> torch.Tensor:
+    """normal(0, std) drawn in float32 from ``generator`` on ``device``
+    (the generator's own by default; ``meta`` draws nothing) and cast to
+    ``dtype``; zeros when ``std`` is None."""
+    dev = generator.device if device is None else device
     if std is None:
-        return torch.zeros(shape, dtype=dtype, device=generator.device)
-    return (torch.randn(shape, generator=generator, device=generator.device)
+        return torch.zeros(shape, dtype=dtype, device=dev)
+    return (torch.randn(shape, generator=generator, device=dev)
             * std).to(dtype)
 
 

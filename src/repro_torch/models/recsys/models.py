@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch import device as device_lib
 from repro_torch.configs.base import RecsysConfig
-from repro_torch.models.layers import from_numpy, torch_dtype
+from repro_torch.models.layers import from_numpy, mlp_apply, torch_dtype
 from repro_torch.models.recsys import embedding as emb
 from repro_torch.models.recsys import interactions as inter
 
@@ -82,16 +82,6 @@ def _shapes(cfg: RecsysConfig) -> dict:
     return p
 
 
-def _mlp(x, layers, act=F.relu, final_act=None):
-    for i, p in enumerate(layers):
-        x = x @ p["w"].to(x.dtype) + p["b"].to(x.dtype)
-        if i < len(layers) - 1:
-            x = act(x)
-        elif final_act is not None:
-            x = final_act(x)
-    return x
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -102,7 +92,8 @@ def init_recsys(cfg: RecsysConfig, generator: torch.Generator | None = None,
                 device=None) -> dict:
     """Random params in ``cfg.param_dtype`` on ``device`` (cuda unless
     "cpu"), drawn from ``generator``, which must live there (default:
-    seed 0 there). The tables are drawn in place (``init_table``)."""
+    seed 0 there). The tables are drawn in place (``init_table``). On
+    ``meta`` (any generator) nothing is drawn."""
     dev = device_lib.resolve(device)
     g = generator if generator is not None else \
         torch.Generator(device=dev).manual_seed(0)
@@ -117,7 +108,7 @@ def init_recsys(cfg: RecsysConfig, generator: torch.Generator | None = None,
         if name in _TABLES:
             return emb.init_table(cfg.vocab_sizes, shape[1], dtype, g,
                                   dev)[0]
-        return inter.draw(shape, std, dtype, g)
+        return inter.draw(shape, std, dtype, g, dev)
 
     return build(_shapes(cfg), None)
 
@@ -169,25 +160,26 @@ def recsys_logits(params: dict, cfg: RecsysConfig, batch: dict) -> torch.Tensor:
 
     if cfg.kind == "dlrm":
         dense = batch["dense"].to(cdt)
-        bot = _mlp(dense, params["bot"], final_act=F.relu)
+        bot = mlp_apply(dense, params["bot"], final_act=F.relu)
         vecs = emb.lookup_fields(table, offsets, batch["sparse"])
         z = inter.dot_interaction(torch.cat([bot[:, None, :], vecs], dim=1))
         z = torch.cat([bot, z], dim=-1)
-        return _mlp(z, params["top"])[:, 0]
+        return mlp_apply(z, params["top"])[:, 0]
 
     if cfg.kind == "deepfm":
         vecs = emb.lookup_fields(table, offsets, batch["sparse"])
         lin = emb.lookup_fields(params["lin_table"].to(cdt), offsets,
                                 batch["sparse"])[..., 0].sum(-1)
         fm = inter.fm_interaction(vecs)
-        deep = _mlp(vecs.reshape(vecs.shape[0], -1), params["deep"])[:, 0]
+        deep = mlp_apply(vecs.reshape(vecs.shape[0], -1),
+                         params["deep"])[:, 0]
         return lin + fm + deep + params["bias"].to(cdt)[0]
 
     if cfg.kind == "autoint":
         x = emb.lookup_fields(table, offsets, batch["sparse"])
         for lp in params["attn"]:
             x = inter.autoint_layer(x, lp, cfg.n_attn_heads)
-        return _mlp(x.reshape(x.shape[0], -1), params["out"])[:, 0]
+        return mlp_apply(x.reshape(x.shape[0], -1), params["out"])[:, 0]
 
     if cfg.kind == "dien":
         # the reference's four takes (item and category of the history
@@ -211,7 +203,7 @@ def recsys_logits(params: dict, cfg: RecsysConfig, batch: dict) -> torch.Tensor:
         h_final = inter.augru_scan(hs, att, params["augru"],
                                    unroll=cfg.unroll_gru)
         z = torch.cat([h_final, tgt], dim=-1)
-        return _mlp(z, params["mlp"])[:, 0]
+        return mlp_apply(z, params["mlp"])[:, 0]
 
     raise ValueError(f"{cfg.name}: unknown recsys kind {cfg.kind!r}")
 

@@ -86,11 +86,11 @@ def init_lm(cfg: LMConfig, generator: torch.Generator | None = None,
     "cpu"): normal(std) draws in float32 from ``generator``, which must
     live on that device (default: seed 0 there), so the full width is
     drawn on the card; the norm scales are zero (the norms scale by
-    ``1 + scale``)."""
+    ``1 + scale``). On ``meta`` (any generator) nothing is drawn."""
     dev = device_lib.resolve(device)
     g = generator if generator is not None else \
         torch.Generator(device=dev).manual_seed(0)
-    if torch.device(g.device).type != dev.type:
+    if dev.type != "meta" and torch.device(g.device).type != dev.type:
         raise ValueError(f"init_lm: generator on {g.device}, params on "
                          f"{dev}; draw on the params' device")
     dtype = torch_dtype(cfg.param_dtype)
@@ -103,7 +103,8 @@ def init_lm(cfg: LMConfig, generator: torch.Generator | None = None,
     L = cfg.n_layers
     params = {k: draw(s, std) for k, (s, std) in _top_shapes(cfg).items()}
     params["layers"] = {
-        k: (init_moe(g, cfg.d_model, cfg.moe, dtype, layers=L)
+        k: (init_moe(g, cfg.d_model, cfg.moe, dtype, layers=L,
+                     device=dev)
             if k == "moe" else draw((L,) + spec[0], spec[1]))
         for k, spec in _layer_shapes(cfg).items()}
     return params

@@ -134,11 +134,12 @@ def init_vit_parser(cfg: VitParserConfig,
     """Random params in ``cfg.param_dtype`` on ``device`` (cuda unless
     "cpu"): normal(std) draws in float32 from ``generator``, which must
     live on that device (default: seed 0 there); the norm scales are
-    zero (the norms scale by ``1 + scale``)."""
+    zero (the norms scale by ``1 + scale``). On ``meta`` (any
+    generator) nothing is drawn."""
     dev = device_lib.resolve(device)
     g = generator if generator is not None else \
         torch.Generator(device=dev).manual_seed(0)
-    if torch.device(g.device).type != dev.type:
+    if dev.type != "meta" and torch.device(g.device).type != dev.type:
         raise ValueError(f"init_vit_parser: generator on {g.device}, "
                          f"params on {dev}; draw on the params' device")
     dtype = torch_dtype(cfg.param_dtype)

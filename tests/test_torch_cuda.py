@@ -38,7 +38,10 @@ as the MoE LMs': every element whose nonzero gradients all reached
 gradients, three steps; params as the MoE LMs' but at 2e-5), greedy
 tokens equal, no kernel launched, two cuda runs bit-equal; the router's
 sft_4k cell within 2e-5 (losses) and 1e-4 (params); both cells' train
-CLI restarts bit-equal.
+CLI restarts bit-equal; one reduced ``launch.specs.build_cell`` cell of
+each family (qwen3 prefill, DeepFM retrieval, the EquiformerV2 molecule
+train step, route_64k, parse_decode) on cuda against cpu within 2e-5
+(the train step's params within 1e-4), integer outputs equal.
 """
 import dataclasses
 
@@ -1993,3 +1996,49 @@ def test_parser_and_router_train_main_restart_is_bit_exact_on_cuda(
     b = ckpt._flatten(ckpt.restore(str(tmp_path / "ck"), device="cpu")[1])
     assert [p for p, _ in a] == [p for p, _ in b]
     assert all(torch.equal(x, y) for (_, x), (_, y) in zip(a, b))
+
+
+def _cell_args_to(x, d):
+    if isinstance(x, torch.Tensor):
+        return x.to(d, copy=True)
+    if isinstance(x, dict):
+        return {k: _cell_args_to(v, d) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_cell_args_to(v, d) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_cell_args_to(v, d) for v in x)
+    return x
+
+
+@pytest.mark.parametrize("arch, shape", [
+    ("qwen3-1.7b", "prefill_32k"), ("deepfm", "retrieval_cand"),
+    ("equiformer-v2", "molecule"), ("adaparse-router", "route_64k"),
+    ("nougat-base", "parse_decode")])
+def test_reduced_cell_cuda_matches_cpu(dev, arch, shape):
+    """One reduced cell of each family from ``launch.specs.build_cell``
+    (built on the cpu), one step on cuda and on cpu from the same
+    arguments: floating outputs within 2e-5 (the f32 tiny configs),
+    integer outputs (top-k ids, the route plan) equal; the molecule
+    train cell's loss within 2e-5 and its params within 1e-4 (the router
+    training's bar: AdamW's first step moves an element by about lr
+    whatever its grad)."""
+    from repro_torch.launch import specs as S
+
+    cell = S.build_cell(arch, shape, abstract=False, reduced=True,
+                        device="cpu")
+    on_card = _cell_args_to(cell.args, dev)
+    got, want = cell.fn(*on_card), cell.fn(*cell.args)
+    if cell.kind == "train":
+        assert abs(float(got[-1]) - float(want[-1])) <= 2e-5
+        got, want, tol = got[0], want[0], 1e-4
+    else:
+        tol = 2e-5
+    gl, wl = S._tree_leaves(got), S._tree_leaves(want)
+    assert len(gl) == len(wl) > 0
+    for a, b in zip(gl, wl):
+        a = a.detach().cpu()
+        assert a.shape == b.shape and a.dtype == b.dtype
+        if b.is_floating_point():
+            torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+        else:
+            assert torch.equal(a, b)
