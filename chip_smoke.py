@@ -375,8 +375,20 @@ the card):
    decode cells with ``attention_impl="pallas"`` at 4 x 4096,
    nougat-base's parse_encode and parse_decode at 256 pages and
    route_64k at batch 1,024 (each cut and its reckoning in
-   ``reduced``); flash_attention (28), budget_route and embedding_bag
-   must launch.
+   ``reduced``), each built with the ``AxisRules`` of a NCCL world of
+   one (a 1x1 ``DeviceMesh`` on the card, ``launch/mesh.make_mesh``),
+   a sharding for every argument, and its step profiled;
+   flash_attention (28), budget_route and embedding_bag must launch.
+24. mesh: the mesh layer's one-card half. Beside each of those 17 runs
+   with rules, the dry run of the same cell on a 1x1 mesh
+   (``launch/dryrun.run_cell``, made in a cpu child, ``mesh_dry_runs``,
+   started after phase recsys_zoo): the reckoned ``per_device_mem``
+   against the card's measured peak (``mem_ratio``), ``t_compute`` and
+   ``t_memory`` at the datasheet peaks against the step's profiled
+   device time (``bound_share``); the datasheet figures beside the
+   card's ``total_memory``; ROADMAP's configurations the port does not
+   run with the 1x1 dry run's ``fits_hbm``; whether the private torch
+   modules the dry run relies on import here.
 
 The phases free the card's memory between them: the DLRM table and the
 GNN step's ~60 GB (with its plain version) do not fit together.
@@ -5839,15 +5851,18 @@ def full_width_cells(recsys_cuts: dict) -> list[tuple]:
     return out
 
 
-def phase_cells(recsys_cuts: dict) -> dict:
+def phase_cells(recsys_cuts: dict, rules) -> tuple:
     """The cell factory (``launch/specs.py``): (a) every cell of
     ``all_cells()`` built on meta at full size, with no card memory
     allocated; (b) every reduced cell one step on cuda and on cpu from
     the same arguments (``cell_gap``); (c) the serve, prefill and decode
-    cells at full width on the card, one step each, through the private
-    builders where a cell is cut (each cut in ``reduced``): finite
-    outputs, and flash_attention, budget_route and embedding_bag
-    launched."""
+    cells at full width on the card, built with ``rules`` (phase mesh's
+    ``AxisRules`` on a world of one) and run one step each under them,
+    through the private builders where a cell is cut (each cut in
+    ``reduced``): a sharding for every argument, finite outputs,
+    flash_attention, budget_route and embedding_bag launched, then the
+    step's device time profiled (``full_width_row``). Returns (the
+    phase's counts, the full-width rows)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -5876,40 +5891,221 @@ def phase_cells(recsys_cuts: dict) -> dict:
     free_cuda()
 
     full, reduced = [], {}
-    counts0 = read_counts()
+    full_counts = dict.fromkeys(read_counts(), 0)
     for label, build, arch, shape, note in full_width_cells(recsys_cuts):
-        c0 = read_counts()
-        torch.cuda.reset_peak_memory_stats()
-        cell, build_s = synced(lambda: build(arch, shape, None, False, SEED,
-                                             "cuda"))
-        out, step_s = synced(lambda: cell.fn(*cell.args))
-        leaves = [t for t in _tree_leaves(out) if t.is_floating_point()]
-        assert leaves and all(bool(torch.isfinite(t).all())
-                              for t in leaves), label
-        full.append({"cell": label, "kind": cell.kind, "shape": shape.dims,
-                     "note": cell.note, "build_s": build_s,
-                     "step_ms": step_s * 1e3,
-                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-                     "launches": {k: v - c0[k] for k, v in read_counts()
-                                  .items() if v - c0[k]}})
+        row, launches = full_width_row(label, build, arch, shape, rules)
+        for k, v in launches.items():
+            full_counts[k] += v
+        full.append(row)
         if note != "its own shape":
             reduced[label] = note
-        del cell, out, leaves
         free_cuda()
-    counts = read_counts()
-    full_counts = {k: v - counts0[k] for k, v in counts.items()}
     for name in ("flash_attention", "budget_route", "embedding_bag"):
         assert full_counts[name] > 0, f"{name} did not launch: {full_counts}"
     # one flash_attention a layer of the prefill cell
     n_layers = get_config(CELL_LM_ARCH).model.n_layers
     assert full_counts["flash_attention"] == n_layers, full_counts
+    counts = read_counts()
     emit({"phase": "cells", "meta_cells": len(meta), "meta": meta,
           "meta_s": meta_s, "card_bytes_moved_by_meta": 0,
           "reduced_cells": reduced_rows, "reduced_s": reduced_s,
-          "tolerance": CELL_TOL, "full_width": full,
+          "tolerance": CELL_TOL,
+          "full_width": [{k: r[k] for k in FULL_WIDTH_KEYS} for r in full],
           "full_width_launches": full_counts, "launches": counts,
           "reduced": reduced, "phase_s": time.perf_counter() - t_phase})
-    return counts
+    return counts, full
+
+
+# -------------------------------------------------------------- mesh
+
+PROFILE_ATTEMPTS = 3            # profiler sessions a step may take
+PROFILE_S = 0.25                # host seconds of steps a session holds
+PROFILE_REPS = 20               # at most, for the shortest steps
+#: ROADMAP.md's "Configurations the port does not run": (the cell the
+#: dry run reckons at its registered size, the ROADMAP's reckoning)
+ROADMAP_ENTRIES = [
+    ("qwen3-1.7b/train_4k", "LM train_4k (256 x 4096): no gradient "
+     "accumulation, the smoke trains batch 2"),
+    ("qwen3-1.7b/prefill_32k", "prefill_32k: KV cache 120-137 GB"),
+    ("olmoe-1b-7b/train_4k", "full-width OLMoE training: params, grads "
+     "and AdamW moments 83 GB before any activation"),
+    ("grok-1-314b/train_4k", "grok-1-314b at full width: 633 GB in bf16"),
+    ("dlrm-mlperf/train_batch", "dlrm-mlperf training: the 48.07 GB "
+     "table and its dense gradient need 96 GB"),
+    ("dien/serve_bulk", "DIEN serve_bulk at 262,144: about 84 GB"),
+    ("dien/train_batch", "DIEN train_batch at 65,536: about 69 GB"),
+    ("equiformer-v2/ogb_products", "EquiformerV2 on ogb_products: one "
+     "(E, 49, 128) bf16 edge tensor is 776 GB"),
+    ("nougat-base/train_pages", "nougat train_pages (256 pages): 568 GB"),
+    ("nougat-base/parse_encode", "parse_encode: cross K/V 246.6 GB for "
+     "2,560 pages"),
+    ("nougat-base/parse_decode", "parse_decode: cache and K/V 461 GB"),
+]
+
+
+def free_tcp_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+#: the keys of a full-width row that phase cells prints (phase mesh
+#: prints every key)
+FULL_WIDTH_KEYS = ("cell", "kind", "dims", "note", "build_s", "step_ms",
+                   "peak_gb", "held_before_gb", "launches")
+
+
+def full_width_row(label, build, arch, shape, rules) -> tuple:
+    """One full-width cell built on the card with ``rules`` (a world of
+    one) and its step run once under them: every argument with a
+    sharding, finite outputs, the card's peak above the memory held
+    before the build (read before the finite check allocates
+    temporaries of the outputs' size); then the step's device time from
+    the profiler. Returns (the row, the first step's launches)."""
+    import torch
+
+    from repro_torch.common import tree_leaves
+    from repro_torch.distributed.meshrules import NamedSharding, use_rules
+
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cell, build_s = synced(lambda: build(arch, shape, rules, False, SEED,
+                                         "cuda"))
+    shs = tree_leaves(cell.in_shardings,
+                      lambda x: isinstance(x, NamedSharding))
+    assert len(shs) == len(tree_leaves(cell.args)), label
+    c0 = read_counts()
+    with use_rules(rules):
+        out, step_s = synced(lambda: cell.fn(*cell.args))
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: v - c0[k] for k, v in read_counts().items()}
+        leaves = [t for t in tree_leaves(out)
+                  if isinstance(t, torch.Tensor) and t.is_floating_point()]
+        assert leaves and all(bool(torch.isfinite(t).all())
+                              for t in leaves), label
+        del out, leaves
+        t0 = time.perf_counter()
+        # the device time: ``reps`` steps in one profiler session (a
+        # one-step session of a small step has come back with none or
+        # some of its kernels on an H100 host), again when it saw none;
+        # the steps write no state a second run reads differently (a
+        # decode writes the same keys and values into the same slot)
+        reps = max(1, min(PROFILE_REPS, int(PROFILE_S / max(step_s, 1e-6))))
+        for attempt in range(1, PROFILE_ATTEMPTS + 1):
+            prof = device_profile(
+                lambda: [cell.fn(*cell.args) for _ in range(reps)])
+            if prof["device_ms"] > 0:
+                break
+    assert prof["device_ms"] > 0, f"{label}: no device events profiled"
+    kind, note = cell.kind, cell.note
+    del cell
+    return {"cell": label, "arch": arch.arch_id, "shape": shape.name,
+            "kind": kind, "dims": dict(shape.dims), "note": note,
+            "shardings": len(shs),
+            "specs": sorted({repr(s.spec) for s in shs}),
+            "build_s": build_s, "step_ms": step_s * 1e3,
+            "peak_gb": peak / 1e9, "held_before_gb": base / 1e9,
+            "measured_peak_bytes": peak - base,
+            "device_ms": prof["device_ms"] / reps,
+            "device_ops": prof["device_ops"] / reps, "profile_reps": reps,
+            "profile_attempts": attempt, "wall_ms": prof["wall_ms"] / reps,
+            "profile_s": time.perf_counter() - t0,
+            "launches": {k: v for k, v in launches.items() if v}}, launches
+
+
+def mesh_dry_runs(recsys_cuts: dict) -> dict:
+    """(CPU child) The dry run (``launch/dryrun.run_cell``) on a 1x1 mesh
+    of a world of one (gloo on localhost; the dry run reads only the
+    mesh's dim names and sizes): the 17 full-width cells at the shapes
+    phase cells runs them, and ROADMAP's configurations at their
+    registered sizes. Also whether the private modules of the fake
+    backend and of ``MemTracker`` import on this host."""
+    import importlib
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    private = {}
+    for mod in ("torch.testing._internal.distributed.fake_pg",
+                "torch.distributed._tools.mem_tracker"):
+        try:
+            importlib.import_module(mod)
+            private[mod] = True
+        except ImportError as e:
+            private[mod] = repr(e)
+    dist.init_process_group("gloo",
+                            init_method=f"tcp://localhost:{free_tcp_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+        cut = {}
+        for label, _, arch, shape, _ in full_width_cells(recsys_cuts):
+            cut[label] = dryrun.run_cell(arch.arch_id, shape.name,
+                                         mesh=mesh, arch=arch, shape=shape,
+                                         verbose=False)
+        roadmap = []
+        for label, reckoning in ROADMAP_ENTRIES:
+            rec = dryrun.run_cell(*label.split("/"), mesh=mesh,
+                                  verbose=False)
+            roadmap.append({"cell": label, "roadmap": reckoning,
+                            "fits_hbm": rec["fits_hbm"],
+                            "mem_gb": rec["mem_gb"],
+                            "arg_gb": rec["arg_bytes"] / 1e9,
+                            "temp_gb": rec["temp_bytes"] / 1e9,
+                            "bottleneck": rec["bottleneck"]})
+    finally:
+        dist.destroy_process_group()
+    return {"cut": cut, "roadmap": roadmap, "private_modules": private,
+            "child_s": time.perf_counter() - t0}
+
+
+def phase_mesh(mesh_rows: list, dry: dict) -> None:
+    """The mesh layer's one-card half: each full-width cell's run with
+    ``AxisRules`` on the NCCL world of one (``full_width_row``) beside
+    its 1x1 dry run: the reckoned ``per_device_mem`` against the
+    measured peak, and ``t_compute`` (each dtype's FLOPs at its peak) and
+    ``t_memory`` at the datasheet peaks against the profiled device time
+    (the measured share of the bound); ROADMAP's
+    configurations with the dry run's ``fits_hbm``; the datasheet
+    figures beside the card's own memory."""
+    import torch
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    rows = []
+    for r in mesh_rows:
+        d = dry["cut"][r["cell"]]
+        bound_s = max(d["t_compute"], d["t_memory"])
+        rows.append({**r, "reckoned_per_device_mem": d["per_device_mem"],
+                     "reckoned_arg_bytes": d["arg_bytes"],
+                     "reckoned_temp_bytes": d["temp_bytes"],
+                     "mem_ratio": d["per_device_mem"]
+                     / r["measured_peak_bytes"],
+                     "t_compute_ms": d["t_compute"] * 1e3,
+                     "t_memory_ms": d["t_memory"] * 1e3,
+                     "t_memory_raw_ms": d["t_memory_raw"] * 1e3,
+                     "bottleneck": d["bottleneck"],
+                     "bound_share": bound_s * 1e3 / r["device_ms"],
+                     "fits_hbm": d["fits_hbm"],
+                     "flops_by_dtype": d["flops_by_dtype"],
+                     "kernel_charges": d["kernels"]})
+    emit({"phase": "mesh", "card": card_line(),
+          "datasheet": {"peak_flops_bf16": mesh_lib.PEAK_FLOPS_BF16,
+                        "peak_flops_f32": mesh_lib.PEAK_FLOPS_F32,
+                        "hbm_bw": mesh_lib.HBM_BW,
+                        "hbm_bytes": mesh_lib.HBM_BYTES,
+                        "nvlink_bw": mesh_lib.NVLINK_BW},
+          "card_total_memory": torch.cuda.get_device_properties(0)
+          .total_memory,
+          "world": "nccl, 1 rank", "mesh": "1x1 (data, model)",
+          "cells": rows, "roadmap": dry["roadmap"],
+          "private_modules": dry["private_modules"],
+          "dry_child_s": dry["child_s"]})
 
 
 def body_resources(ptxas: list[str]) -> dict:
@@ -6082,16 +6278,43 @@ def main() -> int:
     phase_recsys_small_parity()
     zoo_counts, recsys_cuts = phase_recsys_zoo()
     path_counts.append(zoo_counts)
-    path_counts.append(phase_recsys_train())
-    phase_recsys_zoo_small_parity()
-    cpu_forward = start_gnn_cpu_forward()
-    path_counts.append(phase_gnn_train())
-    phase_gnn_small_parity(cpu_forward)
-    path_counts.append(phase_gnn())
-    cpu_forward = start_vit_cpu_forward()
-    path_counts.append(phase_vit_parser())
-    phase_vit_parser_small_parity(cpu_forward)
-    path_counts.append(phase_cells(recsys_cuts))
+    # the mesh phase's dry runs (host work on meta tensors) run in a
+    # child beside the card-bound phases from here to phase cells
+    import torch.distributed as dist
+
+    from repro_torch.distributed.meshrules import AxisRules
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh_tmp = Path(tempfile.mkdtemp())
+    dry_child = start_phase("mesh_dry_runs", mesh_tmp, (recsys_cuts,),
+                            cpu=True)
+    try:
+        path_counts.append(phase_recsys_train())
+        phase_recsys_zoo_small_parity()
+        cpu_forward = start_gnn_cpu_forward()
+        path_counts.append(phase_gnn_train())
+        phase_gnn_small_parity(cpu_forward)
+        path_counts.append(phase_gnn())
+        cpu_forward = start_vit_cpu_forward()
+        path_counts.append(phase_vit_parser())
+        phase_vit_parser_small_parity(cpu_forward)
+        # a world of one on NCCL and its 1x1 mesh: phase cells builds
+        # each full-width cell with its rules
+        dist.init_process_group(
+            "nccl", init_method=f"tcp://localhost:{free_tcp_port()}",
+            rank=0, world_size=1,
+            device_id=torch.device("cuda", torch.cuda.current_device()))
+        rules = AxisRules(make_mesh((1, 1), ("data", "model"), "cuda"))
+        cell_counts, mesh_rows = phase_cells(recsys_cuts, rules)
+        path_counts.append(cell_counts)
+        dist.destroy_process_group()
+        phase_mesh(mesh_rows, finish_phase(dry_child,
+                                           "recsys_train to cells"))
+    finally:
+        reap_children([dry_child[0]])
+        shutil.rmtree(mesh_tmp, ignore_errors=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
     # name -> (the directory of its source, the TPU kernel it replaces)
     replaces = {

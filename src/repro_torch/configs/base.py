@@ -3,11 +3,13 @@
 ``EncoderConfig``, ``VitParserConfig``, ``GNNConfig``, ``RecsysConfig``,
 ``ShapeConfig``,
 ``ArchConfig``, ``LM_SHAPES``, ``GNN_SHAPES``, ``RECSYS_SHAPES``,
-``register``/``get_config``), and ``round_up`` of ``repro.common``."""
+``register``/``get_config``); ``round_up`` is ``repro_torch.common``'s."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
+
+from repro_torch.common import round_up  # noqa: F401 (re-exported)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,11 +252,6 @@ class ArchConfig:
 
     def runnable_shapes(self) -> list[ShapeConfig]:
         return [s for s in self.shapes if s.name not in self.skips]
-
-
-def round_up(a: int, b: int) -> int:
-    """The least multiple of ``b`` that is at least ``a``."""
-    return -(-a // b) * b
 
 
 _REGISTRY: dict[str, Callable[[], ArchConfig]] = {}

@@ -19,13 +19,16 @@ floor capacity (floor(alpha*N) == 0 routes nothing), tau clamped to
 the value of the k-th largest score is taken from ``torch.topk``, so its
 unspecified tie order cannot change the selection. The device plan may
 differ from ``plan_batch`` at NaN or subnormal scores, as the JAX
-package's device op differs from its host mirror there.
+package's device op differs from its host mirror there. Meta tensors
+(the dry run) give the kernel's output shapes and charge its work
+(``kernels/meta.py``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import cuda_lib
+from repro_torch.kernels import meta as meta_lib
 from repro_torch.kernels.budget_route import autotune
 from repro_torch.kernels.budget_route.autotune import (DEFAULT_BLOCK_ROWS,
                                                        tuned_block_rows)
@@ -87,7 +90,7 @@ def _check(scores, tokens, tau) -> None:
                              "contiguous")
         if tau.dtype != torch.float32 or tau.numel() != 1:
             raise ValueError("budget_route: tau must be one float32")
-    elif scores.device.type != "cpu":
+    elif scores.device.type not in ("cpu", "meta"):
         raise ValueError(f"budget_route: unsupported device "
                          f"{scores.device}")
 
@@ -204,4 +207,15 @@ def budget_route(scores, tokens, alpha: float, *,
     _check(scores, tokens, tau)
     if scores.device.type == "cpu":
         return budget_route_ref(scores, tokens, tau[0], capacity=capacity)
+    if scores.is_meta:
+        d = tokens.shape[1]
+        out = (meta_lib.empty((capacity, d), tokens.dtype, tokens),
+               meta_lib.empty((capacity,), torch.int32, tokens),
+               meta_lib.empty((), torch.int32, tokens))
+        # the scores and tau read, every kept row read and written (at
+        # most capacity), the ids and the count written
+        meta_lib.charge(KERNEL.name, 0, 4 * n + 4 + 2 * capacity * d
+                        * tokens.element_size() + 4 * capacity + 4,
+                        scores.dtype)
+        return out
     return budget_route_kernel(scores, tokens, tau, capacity=capacity)

@@ -21,6 +21,10 @@ added in the table's dtype in position order as XLA's scatter-add adds.
 Its plumbing (``row_offsets``: the wrap, a stable sort and the first
 sorted position of every tile of rows) makes no host synchronisation.
 
+Meta tensors (the dry run) give each kernel's output shape and charge
+its work (``kernels/meta.py``: every id's row read, as if none
+repeated).
+
 ``segment_sum(msgs, ids, n)`` is ``jax.ops.segment_sum`` as an
 ``autograd.Function``: the forward is that same backward kernel, which
 sums the rows of each segment in position order, rounding each add to
@@ -37,6 +41,7 @@ import math
 import torch
 
 from repro_torch.kernels import cuda_lib
+from repro_torch.kernels import meta as meta_lib
 from repro_torch.kernels.cuda_lib import I, L, P
 from repro_torch.kernels.embedding_bag.ref import (
     embedding_bag_backward_ref, embedding_bag_ref, sorted_rows)
@@ -87,7 +92,7 @@ def _check(table, ids, weights, combiner) -> None:
                                        and not weights.is_contiguous()):
             raise ValueError("embedding_bag: ids and weights must be "
                              "contiguous")
-    elif table.device.type != "cpu":
+    elif table.device.type not in ("cpu", "meta"):
         raise ValueError(f"embedding_bag: unsupported device {table.device}")
 
 
@@ -124,6 +129,16 @@ def embedding_bag(table, ids, weights=None, *, combiner: str = "sum"):
         if weights is None:
             weights = torch.ones(ids.shape, dtype=torch.float32)
         return embedding_bag_ref(table, ids, weights, combiner=combiner)
+    if table.is_meta:
+        out = meta_lib.empty((ids.shape[0], table.shape[1]), table.dtype,
+                             table)
+        # each distinct looked-up row read once (at most one an id, and
+        # at most every row of the table), each bag written once, the
+        # ids and weights read once
+        meta_lib.charge(KERNEL.name, 0, min(ids.numel(), table.shape[0])
+                        * table.shape[1] * table.element_size()
+                        + meta_lib.nbytes(out, ids, weights), table.dtype)
+        return out
     out = torch.empty((ids.shape[0], table.shape[1]), dtype=table.dtype,
                       device=table.device)
     if out.numel():
@@ -151,6 +166,18 @@ def embedding_bag_backward(grad, ids, rows: int):
                          "one device")
     if grad.device.type == "cpu":
         return embedding_bag_backward_ref(grad, ids, rows)
+    if grad.is_meta:
+        out = meta_lib.empty((rows, grad.shape[1]), grad.dtype, grad)
+        if out.numel():
+            # the plumbing's sort and searchsorted run as on the card
+            el = grad.element_size()
+            row_offsets(ids, rows, tile_rows(
+                grad.shape[1] * el // vec_bytes(el, grad.shape[1] * el),
+                ids.numel(), rows))
+        # the grad rows and ids read once, the dense gradient written once
+        meta_lib.charge(BACKWARD.name, 0, meta_lib.nbytes(grad, ids, out),
+                        grad.dtype)
+        return out
     if grad.device.type != "cuda":
         raise ValueError(f"embedding_bag_backward: unsupported device "
                          f"{grad.device}")

@@ -12,7 +12,9 @@ kernel's (n, width) matrix built lazily, its width a power of two
 (``ref.py``); for CUDA tensors it launches the kernel or raises, at the
 block size ``autotune.ensure_tuned`` gives for the packed shape (the
 default, 256 threads, unless a tuning store is configured; with one, a
-miss sweeps the candidates on the card first).
+miss sweeps the candidates on the card first); for meta tensors (the
+dry run) it gives the kernel's output shapes and charges its work
+(``kernels/meta.py``).
 ``routing_features`` moves a ``PackedBatch`` to a device and calls it.
 """
 from __future__ import annotations
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import cuda_lib
+from repro_torch.kernels import meta as meta_lib
 from repro_torch.kernels.cuda_lib import I, P
 from repro_torch.kernels.fast_features import autotune
 from repro_torch.kernels.fast_features.ref import (N_FAST_FEATURES,
@@ -155,9 +158,21 @@ def fast_features(tok, n_tok, first_len, n_pages, n_empty, *,
     _check(tok, scalars, max_len, vocab_size)
     if tok.device.type == "cpu":
         return fast_features_ref(tok, *scalars, **kw)
+    n = tok.shape[0]
+    if tok.is_meta:
+        fast = meta_lib.empty((n, N_FAST_FEATURES), torch.float32, tok)
+        toks = mask = None
+        if max_len:
+            toks = meta_lib.empty((n, max_len), torch.int32, tok)
+            mask = meta_lib.empty((n, max_len), torch.float32, tok)
+        # every token of the matrix read (a meta call has no lengths),
+        # the four scalars read, the outputs written once
+        meta_lib.charge(KERNEL.name, 0, meta_lib.nbytes(tok, *scalars, fast,
+                                                        toks, mask),
+                        tok.dtype)
+        return fast, toks, mask
     if tok.device.type != "cuda":
         raise ValueError(f"fast_features: unsupported device {tok.device}")
-    n = tok.shape[0]
     dev = tok.device
     fast = torch.empty((n, N_FAST_FEATURES), dtype=torch.float32,
                        device=dev)

@@ -6,17 +6,21 @@ k, v (B, Skv, Hk, D) in the JAX package's layout, float32 or bfloat16,
 and returns q's shape and dtype: the CUDA kernel
 (``csrc/flash_attention.cu``: bfloat16 on the tensor cores with p kept
 at float32 precision, float32 on the CUDA cores) for CUDA tensors, the plain version
-(``ref.py``) for CPU tensors. The kernel reads q, k and v through their
-strides (the head dim must be contiguous) and writes a new contiguous
-output; the wrapper makes no padded copies.
+(``ref.py``) for CPU tensors; meta tensors (the dry run) give q's shape
+and charge the kernel's work (``kernels/meta.py``), with no score matrix.
+The kernel reads q, k and v through their strides (the head dim must be
+contiguous) and writes a new contiguous output; the wrapper makes no
+padded copies.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import cuda_lib
+from repro_torch.kernels import meta as meta_lib
 from repro_torch.kernels.cuda_lib import F, I, L, P
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -68,8 +72,27 @@ def _check(q, k, v, window) -> None:
         if any(t.stride(-1) != 1 for t in (q, k, v)):
             raise ValueError("flash_attention: the head dim of q, k and v "
                              "must be contiguous")
-    elif q.device.type != "cpu":
+    elif q.device.type not in ("cpu", "meta"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+
+def visible_pairs(sq: int, skv: int, causal: bool,
+                  window: int | None) -> int:
+    """(query, key) pairs the mask keeps, queries and keys numbered from
+    0: ``k <= q`` when causal, ``q - k < window`` with a window."""
+    q = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(q, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(q - window + 1, 0) if window is not None else 0
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def cost(q, k, v, *, causal: bool, window: int | None) -> tuple[int, int]:
+    """(FLOPs, bytes) of one call, as the kernel's bound counts them: 4 D
+    operations (the QK and PV multiply-adds) a visible pair and query
+    head; q, k and v read once, the output written once."""
+    b, sq, h, d = q.shape
+    flops = 4 * d * visible_pairs(sq, k.shape[1], causal, window) * b * h
+    return flops, 2 * meta_lib.nbytes(q) + meta_lib.nbytes(k, v)
 
 
 def _launch(q, k, v, out, *, causal: bool, window: int | None) -> None:
@@ -91,6 +114,10 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
+    if q.is_meta:
+        meta_lib.charge(KERNEL.name, *cost(q, k, v, causal=causal,
+                                           window=window), q.dtype)
+        return meta_lib.empty(q.shape, q.dtype, q)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel():
         _launch(q, k, v, out, causal=causal, window=window)

@@ -7,13 +7,15 @@ document by default; a warp scans 32 starts at once for four
 hypothesis starts) for CUDA tensors, at the block size the autotune
 store holds for the shape (``autotune.tuned_threads``; dispatch reads a
 winner, it never sweeps), the plain float64 version (``ref.py``) for CPU
-tensors.
+tensors. Meta tensors (the dry run) give the (B,) float32 output and
+charge the kernel's work (``kernels/meta.py``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import cuda_lib
+from repro_torch.kernels import meta as meta_lib
 from repro_torch.kernels.cuda_lib import I, P
 from repro_torch.kernels.ngram_score.autotune import (DEFAULT_THREADS,
                                                       tuned_threads)
@@ -48,7 +50,7 @@ def _check(ref, hyp, ref_len, hyp_len, max_n: int) -> None:
         if ref.shape[1] > MAX_LEN:
             raise ValueError(f"ngram_bleu: max_len {ref.shape[1]} > "
                              f"{MAX_LEN} (shared memory)")
-    elif ref.device.type != "cpu":
+    elif ref.device.type not in ("cpu", "meta"):
         raise ValueError(f"ngram_bleu: unsupported device {ref.device}")
 
 
@@ -78,6 +80,15 @@ def ngram_bleu(ref, hyp, ref_len, hyp_len, *, max_n: int = 4,
     if ref.device.type == "cpu":
         return ngram_bleu_ref(ref, hyp, ref_len, hyp_len, max_n=max_n)
     b = ref.shape[0]
+    if ref.is_meta:
+        out = meta_lib.empty((b,), torch.float32, ref)
+        # the bound's operations: every hypothesis start against every
+        # reference start and every later hypothesis start, at full
+        # length; two int32 rows and the lengths read, the scores written
+        n = ref.shape[1]
+        meta_lib.charge(KERNEL.name, b * (n * n + n * (n - 1) // 2),
+                        2 * 4 * b * n + 8 * b + 4 * b, ref.dtype)
+        return out
     out = torch.empty((b,), dtype=torch.float32, device=ref.device)
     if b:
         if threads is None:

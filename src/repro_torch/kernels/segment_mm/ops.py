@@ -11,13 +11,16 @@ sums each node's rows of ``x[src]`` in edge order, then multiplies the
 sums by W with float32 FMAs; no atomics) for CUDA tensors, the plain version (``ref.py``) for CPU
 tensors. Both drop edges whose ``dst`` lies outside ``[0, n_nodes)``
 (the TPU kernel clamps them onto the last node; its oracle drops them).
-The wrapper refuses a ``dst`` that is not sorted ascending.
+The wrapper refuses a ``dst`` that is not sorted ascending. Meta tensors
+(the dry run) give the output's shape and charge the kernel's work
+(``kernels/meta.py``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import cuda_lib
+from repro_torch.kernels import meta as meta_lib
 from repro_torch.kernels.cuda_lib import I, L, P
 from repro_torch.kernels.segment_mm.ref import segment_matmul_ref
 from repro_torch.models.layers import embed_lookup
@@ -80,9 +83,10 @@ def _check(xg, w, dst, n_nodes) -> None:
             raise ValueError("segment_matmul: x, w and dst must be "
                              "contiguous")
         block_plan(w.shape[0], w.shape[1])
-    elif xg.device.type != "cpu":
+    elif xg.device.type not in ("cpu", "meta"):
         raise ValueError(f"segment_matmul: unsupported device {xg.device}")
-    if dst.shape[0] > 1 and not bool((dst[1:] >= dst[:-1]).all()):
+    if dst.shape[0] > 1 and not dst.is_meta \
+            and not bool((dst[1:] >= dst[:-1]).all()):
         raise ValueError("segment_matmul: dst must be sorted ascending")
 
 
@@ -103,6 +107,17 @@ def segment_matmul_kernel(x_gathered, w, dst_sorted, *, n_nodes: int):
     _check(x_gathered, w, dst_sorted, n_nodes)
     if x_gathered.device.type == "cpu":
         return segment_matmul_ref(x_gathered, w, dst_sorted, n_nodes=n_nodes)
+    if x_gathered.is_meta:
+        e, d_in = x_gathered.shape
+        d_out = w.shape[1]
+        out = meta_lib.empty((n_nodes, d_out), torch.float32, x_gathered)
+        # E * D_in adds and one GEMV a destination (at most min(E, n)
+        # of them); x, W and dst read once, the output written once
+        n_dst = min(e, n_nodes)
+        meta_lib.charge(KERNEL.name, e * d_in + 2 * n_dst * d_in * d_out,
+                        meta_lib.nbytes(x_gathered, w, out)
+                        + 8 * e, x_gathered.dtype)
+        return out
     out = torch.empty((n_nodes, w.shape[1]), dtype=torch.float32,
                       device=x_gathered.device)
     if out.numel():

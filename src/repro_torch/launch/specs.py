@@ -13,9 +13,15 @@ takes ``jax.eval_shape`` of it);
 the reference's batches bit for bit (both draw them from numpy
 ``RandomState(seed)``) and params from a generator seeded with ``seed``
 (JAX's PRNG is not reproduced: tests carry the reference's params
-across with the ``*_from_jax_params`` functions). Shardings wait for the
-mesh layer (ROADMAP.md item 13e-4): ``in_shardings`` is always None and
-``rules`` must be None.
+across with the ``*_from_jax_params`` functions). Given ``rules`` (a
+``distributed/meshrules.AxisRules``), a cell carries the reference's
+``in_shardings``: a tree of ``meshrules.NamedSharding`` matching its
+arguments (params from the inits' logical axes, the optimizer state
+from ``_opt_state_shardings``, the batch from ``_batch_shardings``, the
+step and position replicated); the step itself runs as without rules
+(the models do not run on DTensors yet). A meta argument stands for a
+value its step reads on the host (a decode position, the step number)
+by the concrete cell's value (``_host_int``).
 
 Params are dict trees (a recsys MLP is a list of layer dicts; the
 router's ``Encoder`` module is carried as the JAX package's raw dict,
@@ -36,14 +42,19 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.common import (Param, default_generator, is_param,
+                                tree_map, unwrap)
+from repro_torch.common import tree_leaves as _tree_leaves
 from repro_torch.configs.base import (ArchConfig, EncoderConfig, GNNConfig,
                                       LMConfig, RecsysConfig, ShapeConfig,
                                       VitParserConfig, get_config, round_up)
 from repro_torch.core.dpo import dpo_loss
 from repro_torch.core.router import make_route_step
+from repro_torch.distributed.meshrules import AxisRules
 from repro_torch.models import vit_parser as vp_lib
 from repro_torch.models.attention import KVCache
 from repro_torch.models.encoder import Encoder, _named_params, init_encoder
+from repro_torch.models.encoder import param_axes as encoder_param_axes
 from repro_torch.models.gnn import sampler as sampler_lib
 from repro_torch.models.gnn.equiformer import equiformer_loss, init_equiformer
 from repro_torch.models.gnn.so3 import n_coeff_full
@@ -89,19 +100,6 @@ def _reduce_shape(family: str, shape: ShapeConfig) -> ShapeConfig:
     return ShapeConfig(shape.name, shape.kind, d, shape.note)
 
 
-def _tree_leaves(tree, is_leaf=lambda x: False):
-    """``jax.tree_util.tree_leaves``' order: dict keys sorted, lists and
-    tuples in index order."""
-    if is_leaf(tree):
-        return [tree]
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _tree_leaves(tree[k],
-                                                             is_leaf)]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _tree_leaves(v, is_leaf)]
-    return [tree]
-
-
 def lm_param_leaves(params: dict) -> list[torch.Tensor]:
     """The LM's leaves in ``jax.tree_util.tree_leaves`` order."""
     return _tree_leaves(params)
@@ -144,14 +142,20 @@ def router_param_tree(enc: Encoder) -> dict:
 
 def init_router_params(cfg: EncoderConfig,
                        generator: torch.Generator | None = None,
-                       device=None) -> dict:
+                       device=None, keep_axes: bool = False) -> dict:
     """``init_encoder``'s params as ``router_param_tree``: its weights are
     drawn on the CPU from a generator seeded with ``generator``'s seed
-    (0 by default), then put on ``device`` (cuda unless "cpu")."""
+    (0 by default), then put on ``device`` (cuda unless "cpu"). With
+    ``keep_axes`` the ``Param`` tree of their logical axes
+    (``encoder.param_axes``)."""
     seed = 0 if generator is None else generator.initial_seed()
-    return router_param_tree(init_encoder(
+    tree = router_param_tree(init_encoder(
         cfg, torch.Generator().manual_seed(seed),
         device_lib.resolve(device)))
+    if not keep_axes:
+        return tree
+    return tree_map(lambda t, axes: Param(t, axes), tree,
+                    encoder_param_axes(cfg))
 
 
 def router_param_leaves(params: dict) -> list[torch.Tensor]:
@@ -253,10 +257,19 @@ def _router_batch(cfg: EncoderConfig, shape: ShapeConfig, seed: int = 0,
                                   dtype=torch.float32, device=dev)}
 
 
+def _host_int(t: torch.Tensor, meta_value: int) -> int:
+    """A 0-d tensor's value on the host; a meta tensor has none and
+    stands for ``meta_value`` (the concrete cell's), which changes no
+    shape of the step."""
+    if isinstance(t, torch.Tensor) and t.is_meta:
+        return meta_value
+    return int(t)
+
+
 def _update(opt, leaves, grads, opt_state, step):
     """One update of ``opt`` applied to ``leaves`` in place."""
     updates, opt_state = opt.update(list(grads), opt_state, leaves,
-                                    int(step))
+                                    _host_int(step, 0))
     apply_updates(leaves, updates)
     return opt_state
 
@@ -528,7 +541,8 @@ def gnn_refusal(cfg: GNNConfig, shape: ShapeConfig,
             f"{b['node_state'] / 1e9:.1f} GB ({b['checkpoints'] / 1e9:.0f} "
             f"GB for the {cfg.n_layers} remat checkpoints), beyond one "
             f"{card_bytes / 1e9:.0f} GB card; the reference shards it over "
-            f"a mesh, which waits for ROADMAP.md item 13e's distributed/*")
+            f"a mesh; launch/dryrun.py reckons what it needs a device, and "
+            f"running it on one waits for ROADMAP.md item 13e-4b")
 
 
 def _gnn_batch(shape: ShapeConfig, seed: int = 0, device=None) -> dict:
@@ -577,28 +591,59 @@ class Cell:
     kind: str                         # train | prefill | decode | serve
     fn: Callable
     args: tuple                       # on meta (abstract) or concrete
-    in_shardings: Any = None          # None until the mesh layer
+    in_shardings: Any = None          # NamedSharding tree, given rules
     donate_argnums: tuple = ()        # the args the step may overwrite
     note: str = ""
 
 
-def _no_rules(rules) -> None:
-    if rules is not None:
-        raise NotImplementedError(
-            "launch.specs: sharding rules wait for the mesh layer "
-            "(ROADMAP.md item 13e-4); on one card pass rules=None")
+def _opt_state_shardings(rules, params, kind: str):
+    """The optimizer state's shardings, in the port's state layout (a
+    list a param in ``tree_leaves`` order): AdamW's moments take the
+    param's ZeRO spec (its spec plus ``data`` on the first free divisible
+    dim); Adafactor's factored rows and columns take the spec of the
+    param's axes without the last or the second last dim, an unfactored
+    leaf the ZeRO spec. ``params`` is the Param tree."""
+    if rules is None:
+        return None
+    leaves = _tree_leaves(params, is_param)
+    if kind == "adamw":
+        t = [rules.zero_sharding_for(p.axes, p.shape) for p in leaves]
+        return {"m": t, "v": list(t)}
+
+    def leaf(p):
+        shp = p.shape
+        if len(shp) >= 2 and shp[-1] >= 128 and shp[-2] >= 128:
+            return {"vr": rules.sharding_for(p.axes[:-1], shp[:-1]),
+                    "vc": rules.sharding_for(p.axes[:-2] + p.axes[-1:],
+                                             shp[:-2] + shp[-1:])}
+        return {"v": rules.zero_sharding_for(p.axes, shp)}
+
+    return {"v": [leaf(p) for p in leaves]}
+
+
+def _batch_shardings(rules, axes_map: dict, batch: dict):
+    """Each batch leaf's sharding by its logical axes in ``axes_map``."""
+    if rules is None:
+        return None
+    return {k: rules.sharding_for(axes_map[k], tuple(v.shape))
+            for k, v in batch.items()}
+
+
+def _train_shardings(rules, params, kind: str, axes_map: dict, batch: dict,
+                     frozen: bool = False):
+    """A train step's ``in_shardings``: (params, [frozen params,]
+    optimizer state, step, batch)."""
+    if rules is None:
+        return None
+    p_sh = rules.param_shardings(params)
+    return ((p_sh,) + ((p_sh,) if frozen else ())
+            + (_opt_state_shardings(rules, params, kind),
+               rules.sharding_for((), ()),
+               _batch_shardings(rules, axes_map, batch)))
 
 
 def _cell_device(abstract: bool, device) -> torch.device:
     return torch.device("meta") if abstract else device_lib.resolve(device)
-
-
-def _generator(seed: int, dev: torch.device) -> torch.Generator:
-    """A generator seeded with ``seed`` where the inits draw: on the
-    card for card params, on the CPU for cpu ones and for meta ones
-    (which draw nothing)."""
-    return torch.Generator(device=dev if dev.type == "cuda" else "cpu"
-                           ).manual_seed(seed)
 
 
 def _sds(shape, dtype) -> torch.Tensor:
@@ -638,27 +683,30 @@ def _train_batch(arch: ArchConfig, shape: ShapeConfig, seed: int,
 
 def _lm_train_cell(arch: ArchConfig, shape: ShapeConfig, rules, abstract,
                    seed=0, device=None) -> Cell:
-    _no_rules(rules)
     cfg: LMConfig = arch.model
     dev = _cell_device(abstract, device)
-    opt, _ = _optimizer_for(arch)
-    params = init_lm(cfg, _generator(seed, dev), dev)
+    opt, kind = _optimizer_for(arch)
+    tree = init_lm(cfg, default_generator(dev, seed), dev, keep_axes=True)
+    params = unwrap(tree)
     opt_state = opt.init(lm_param_leaves(params))
     b, s = shape["global_batch"], shape["seq_len"]
     batch = (_meta_batch({"tokens": ((b, s), torch.int32),
                           "labels": ((b, s), torch.int32)}) if abstract
              else _train_batch(arch, shape, seed, dev))
+    in_sh = _train_shardings(rules, tree, kind,
+                             {"tokens": ("batch", "seq"),
+                              "labels": ("batch", "seq")}, batch)
     return Cell(arch.arch_id, shape.name, "train", lm_train_step(cfg, opt),
-                (params, opt_state, _step0(dev), batch),
+                (params, opt_state, _step0(dev), batch), in_sh,
                 donate_argnums=(0, 1))
 
 
 def _lm_prefill_cell(arch, shape, rules, abstract, seed=0,
                      device=None) -> Cell:
-    _no_rules(rules)
     cfg: LMConfig = arch.model
     dev = _cell_device(abstract, device)
-    params = init_lm(cfg, _generator(seed, dev), dev)
+    tree = init_lm(cfg, default_generator(dev, seed), dev, keep_axes=True)
+    params = unwrap(tree)
     b, s = shape["global_batch"], shape["seq_len"]
 
     @torch.no_grad()
@@ -668,8 +716,12 @@ def _lm_prefill_cell(arch, shape, rules, abstract, seed=0,
     tokens = (_sds((b, s), torch.int32) if abstract else
               torch.from_numpy(np.random.RandomState(seed).randint(
                   0, cfg.vocab_size, size=(b, s)).astype(np.int32)).to(dev))
+    in_sh = None
+    if rules is not None:
+        in_sh = (rules.param_shardings(tree),
+                 rules.sharding_for(("batch", "seq"), (b, s)))
     return Cell(arch.arch_id, shape.name, "prefill", prefill_step,
-                (params, tokens))
+                (params, tokens), in_sh)
 
 
 def _lm_decode_cell(arch, shape, rules, abstract, seed=0,
@@ -677,16 +729,17 @@ def _lm_decode_cell(arch, shape, rules, abstract, seed=0,
     """One decode step at ``pos = seq_len - 1`` over a zero cache of
     ``seq_len`` positions; the step writes its keys and values into the
     cache in place (``attention.cache_update``)."""
-    _no_rules(rules)
     cfg: LMConfig = arch.model
     dev = _cell_device(abstract, device)
-    params = init_lm(cfg, _generator(seed, dev), dev)
+    tree = init_lm(cfg, default_generator(dev, seed), dev, keep_axes=True)
+    params = unwrap(tree)
     b, s = shape["global_batch"], shape["seq_len"]
     dims = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim,
             torch_dtype(cfg.compute_dtype))
 
     def serve_step(params, tokens, cache, pos):
-        return decode_step(params, cfg, tokens, cache, int(pos))
+        return decode_step(params, cfg, tokens, cache,
+                           _host_int(pos, s - 1))
 
     if abstract:
         tokens, cache = _sds((b, 1), torch.int32), KVCache.abstract(*dims)
@@ -695,18 +748,26 @@ def _lm_decode_cell(arch, shape, rules, abstract, seed=0,
         tokens = torch.zeros((b, 1), dtype=torch.int32, device=dev)
         cache = KVCache.zeros(*dims, device=dev)
         pos = torch.tensor(s - 1, dtype=torch.int32, device=dev)
+    in_sh = None
+    if rules is not None:
+        cache_sh = rules.sharding_for(
+            ("layers", "batch", "kv_seq", "kv_heads", "d_head"), dims[:5])
+        in_sh = (rules.param_shardings(tree),
+                 rules.sharding_for(("batch", None), (b, 1)),
+                 KVCache(cache_sh, cache_sh), rules.sharding_for((), ()))
     return Cell(arch.arch_id, shape.name, "decode", serve_step,
-                (params, tokens, cache, pos), donate_argnums=(2,))
+                (params, tokens, cache, pos), in_sh, donate_argnums=(2,))
 
 
 def _gnn_train_cell(arch, shape, rules, abstract, seed=0,
                     device=None) -> Cell:
-    _no_rules(rules)
     d_in, n_out, is_cls = GNN_DATASETS[shape.name]
     cfg = gnn_cell_config(arch, shape)
     dev = _cell_device(abstract, device)
-    opt, _ = _optimizer_for(arch)
-    params = init_equiformer(cfg, _generator(seed, dev), dev)
+    opt, kind = _optimizer_for(arch)
+    tree = init_equiformer(cfg, default_generator(dev, seed), dev,
+                           keep_axes=True)
+    params = unwrap(tree)
     opt_state = opt.init(gnn_param_leaves(params))
     n, e = _gnn_dims(shape)
     mol = shape.name == "molecule"
@@ -728,9 +789,21 @@ def _gnn_train_cell(arch, shape, rules, abstract, seed=0,
         batch = _meta_batch(spec)
     else:
         batch = _train_batch(arch, shape, seed, dev)
+    in_sh = _train_shardings(rules, tree, kind, {
+        "pos": ("nodes", None), "src": ("edges",), "dst": ("edges",),
+        "node_feat": ("nodes", "d_feat"),
+        "labels": ("graphs", None) if mol else ("nodes",),
+        "graph_ids": ("nodes",)}, batch)
     return Cell(arch.arch_id, shape.name, "train", train_step,
-                (params, opt_state, _step0(dev), batch),
+                (params, opt_state, _step0(dev), batch), in_sh,
                 donate_argnums=(0, 1), note=f"N={n} E={e}")
+
+
+_RS_AXES = {"sparse": ("batch", "fields"), "labels": ("batch",),
+            "dense": ("batch", None), "hist": ("batch", None),
+            "hist_cat": ("batch", None), "hist_mask": ("batch", None),
+            "target": ("batch",), "target_cat": ("batch",),
+            "user_query": ("batch", "embed_dim")}
 
 
 def _recsys_meta_batch(cfg: RecsysConfig, b: int) -> dict:
@@ -750,10 +823,16 @@ def _recsys_meta_batch(cfg: RecsysConfig, b: int) -> dict:
 
 def _recsys_cell(arch, shape, rules, abstract, seed=0,
                  device=None) -> Cell:
-    _no_rules(rules)
     cfg: RecsysConfig = arch.model
     dev = _cell_device(abstract, device)
-    params = init_recsys(cfg, _generator(seed, dev), dev)
+    tree = init_recsys(cfg, default_generator(dev, seed), dev, keep_axes=True)
+    params = unwrap(tree)
+
+    def serve_shardings(batch):
+        if rules is None:
+            return None
+        return (rules.param_shardings(tree),
+                _batch_shardings(rules, _RS_AXES, batch))
 
     if shape.name == "retrieval_cand":
         step, n_cand = recsys_retrieval_step(cfg, shape)
@@ -761,17 +840,19 @@ def _recsys_cell(arch, shape, rules, abstract, seed=0,
         batch = ({"user_query": _sds((b, cfg.embed_dim), torch.float32)}
                  if abstract else _retrieval_query(cfg, b, seed, dev))
         return Cell(arch.arch_id, shape.name, "serve", step,
-                    (params, batch), note=f"n_cand={n_cand}")
+                    (params, batch), serve_shardings(batch),
+                    note=f"n_cand={n_cand}")
 
     b = shape["batch"]
     batch = (_recsys_meta_batch(cfg, b) if abstract
              else _recsys_batch(cfg, b, seed, dev))
     if shape.kind == "train":
-        opt, _ = _optimizer_for(arch)
+        opt, kind = _optimizer_for(arch)
         opt_state = opt.init(recsys_param_leaves(params))
         return Cell(arch.arch_id, shape.name, "train",
                     recsys_train_step(cfg, opt),
                     (params, opt_state, _step0(dev), batch),
+                    _train_shardings(rules, tree, kind, _RS_AXES, batch),
                     donate_argnums=(0, 1))
 
     @torch.no_grad()
@@ -780,7 +861,7 @@ def _recsys_cell(arch, shape, rules, abstract, seed=0,
 
     serve_batch = {k: v for k, v in batch.items() if k != "labels"}
     return Cell(arch.arch_id, shape.name, "serve", serve_step,
-                (params, serve_batch))
+                (params, serve_batch), serve_shardings(serve_batch))
 
 
 ROUTE_ALPHA = 0.05      # the route_* cell's budget, as the reference's
@@ -788,10 +869,11 @@ ROUTE_ALPHA = 0.05      # the route_* cell's budget, as the reference's
 
 def _router_cell(arch, shape, rules, abstract, seed=0,
                  device=None) -> Cell:
-    _no_rules(rules)
     cfg: EncoderConfig = arch.model
     dev = _cell_device(abstract, device)
-    params = init_router_params(cfg, _generator(seed, dev), dev)
+    tree = init_router_params(cfg, default_generator(dev, seed), dev,
+                              keep_axes=True)
+    params = unwrap(tree)
     b = shape["global_batch"]
     s = min(shape["seq_len"], cfg.max_len)
 
@@ -803,7 +885,7 @@ def _router_cell(arch, shape, rules, abstract, seed=0,
                 torch.ones((b, s), dtype=torch.float32, device=dev))
 
     if shape.name.startswith(("sft", "dpo")):
-        opt, _ = _optimizer_for(arch)
+        opt, kind = _optimizer_for(arch)
         opt_state = opt.init(router_param_leaves(params))
         if shape.name.startswith("sft"):
             batch = (_meta_batch({"tokens": ((b, s), torch.int32),
@@ -811,9 +893,12 @@ def _router_cell(arch, shape, rules, abstract, seed=0,
                                   "targets": ((b, cfg.n_outputs),
                                               torch.float32)})
                      if abstract else _train_batch(arch, shape, seed, dev))
+            in_sh = _train_shardings(rules, tree, kind, {
+                "tokens": ("batch", "seq"), "mask": ("batch", "seq"),
+                "targets": ("batch", None)}, batch)
             return Cell(arch.arch_id, shape.name, "train",
                         router_train_step(cfg, opt),
-                        (params, opt_state, _step0(dev), batch),
+                        (params, opt_state, _step0(dev), batch), in_sh,
                         donate_argnums=(0, 1))
         # the reference draws both sides from one seed: pos == neg
         tp, mp = mk_tok()
@@ -823,25 +908,36 @@ def _router_cell(arch, shape, rules, abstract, seed=0,
         # the frozen reference is a copy: the step updates params in place
         ref = {k: ({n: t.clone() for n, t in v.items()} if k == "layers"
                    else v.clone()) for k, v in params.items()}
+        in_sh = _train_shardings(rules, tree, kind,
+                                 {k: ("batch", "seq") for k in batch},
+                                 batch, frozen=True)
         return Cell(arch.arch_id, shape.name, "train",
                     router_dpo_step(cfg, opt),
-                    (params, ref, opt_state, _step0(dev), batch),
+                    (params, ref, opt_state, _step0(dev), batch), in_sh,
                     donate_argnums=(0, 2))
 
     toks, mask = mk_tok()
     valid = (_sds((b,), torch.float32) if abstract
              else torch.ones((b,), dtype=torch.float32, device=dev))
+    in_sh = None
+    if rules is not None:
+        in_sh = (rules.param_shardings(tree),
+                 rules.sharding_for(("batch", "seq"), (b, s)),
+                 rules.sharding_for(("batch", "seq"), (b, s)),
+                 rules.sharding_for(("batch",), (b,)))
     return Cell(arch.arch_id, shape.name, "serve",
                 router_route_step(cfg, ROUTE_ALPHA),
-                (params, toks, mask, valid), note=f"alpha={ROUTE_ALPHA}")
+                (params, toks, mask, valid), in_sh,
+                note=f"alpha={ROUTE_ALPHA}")
 
 
 def _nougat_cell(arch, shape, rules, abstract, seed=0,
                  device=None) -> Cell:
-    _no_rules(rules)
     cfg: VitParserConfig = arch.model
     dev = _cell_device(abstract, device)
-    params = init_vit_parser(cfg, _generator(seed, dev), dev)
+    tree = init_vit_parser(cfg, default_generator(dev, seed), dev,
+                           keep_axes=True)
+    params = unwrap(tree)
     b = shape["global_batch"]
     patch_dim = cfg.patch * cfg.patch * 3
     n_p = cfg.n_patches
@@ -854,7 +950,7 @@ def _nougat_cell(arch, shape, rules, abstract, seed=0,
 
     if shape.kind == "train":
         t = min(shape["dec_len"], cfg.max_dec_len)
-        opt, _ = _optimizer_for(arch)
+        opt, kind = _optimizer_for(arch)
         opt_state = opt.init(vit_parser_param_leaves(params))
         if abstract:
             toks = _sds((b, t), torch.int32)
@@ -862,9 +958,12 @@ def _nougat_cell(arch, shape, rules, abstract, seed=0,
                      "labels": toks}
         else:
             batch = _train_batch(arch, shape, seed, dev)
+        in_sh = _train_shardings(rules, tree, kind, {
+            "patches": ("pages", "patches", None),
+            "tokens": ("pages", "seq"), "labels": ("pages", "seq")}, batch)
         return Cell(arch.arch_id, shape.name, "train",
                     vit_parser_train_step(cfg, opt),
-                    (params, opt_state, _step0(dev), batch),
+                    (params, opt_state, _step0(dev), batch), in_sh,
                     donate_argnums=(0, 1))
 
     if shape.name == "parse_encode":
@@ -875,8 +974,13 @@ def _nougat_cell(arch, shape, rules, abstract, seed=0,
             memory = vp_lib.encode_pages(params, cfg, patches)
             return vp_lib.cross_kv(params, cfg, memory)
 
+        in_sh = None
+        if rules is not None:
+            in_sh = (rules.param_shardings(tree),
+                     rules.sharding_for(("pages", "patches", None),
+                                        (b, n_p, patch_dim)))
         return Cell(arch.arch_id, shape.name, "serve", encode_step,
-                    (params, mk_patches()))
+                    (params, mk_patches()), in_sh)
 
     # parse_decode: one token for the in-flight page batch
     t = min(shape["dec_len"], cfg.max_dec_len)
@@ -884,7 +988,8 @@ def _nougat_cell(arch, shape, rules, abstract, seed=0,
 
     def dec_step(params, tok, cache_k, cache_v, xk, xv, pos):
         state = vp_lib.DecState(KVCache(cache_k, cache_v), xk, xv)
-        logits, state = vp_lib.dec_step(params, cfg, tok, state, int(pos))
+        logits, state = vp_lib.dec_step(params, cfg, tok, state,
+                                        _host_int(pos, t - 1))
         return logits, state.cache.k, state.cache.v
 
     cshape = (cfg.dec_layers, b, t, cfg.dec_heads, dh)
@@ -898,8 +1003,18 @@ def _nougat_cell(arch, shape, rules, abstract, seed=0,
         ck, cv, xk, xv = (torch.zeros(sh, dtype=cdt, device=dev)
                           for sh in (cshape, cshape, xshape, xshape))
         pos = torch.tensor(t - 1, dtype=torch.int32, device=dev)
+    in_sh = None
+    if rules is not None:
+        c_sh = rules.sharding_for(("layers", "pages", "kv_seq", "heads",
+                                   "d_head"), cshape)
+        x_sh = rules.sharding_for(("layers", "pages", "patches", "heads",
+                                   "d_head"), xshape)
+        in_sh = (rules.param_shardings(tree),
+                 rules.sharding_for(("pages", None), (b, 1)), c_sh, c_sh,
+                 x_sh, x_sh, rules.sharding_for((), ()))
     return Cell(arch.arch_id, shape.name, "decode", dec_step,
-                (params, tok, ck, cv, xk, xv, pos), donate_argnums=(2, 3))
+                (params, tok, ck, cv, xk, xv, pos), in_sh,
+                donate_argnums=(2, 3))
 
 
 _BUILDERS = {"gnn": _gnn_train_cell, "recsys": _recsys_cell,
@@ -930,10 +1045,25 @@ def build_cell(arch_id: str, shape_name: str, rules=None,
                abstract: bool = True, reduced: bool = False, seed: int = 0,
                model_override=None, device=None) -> Cell:
     """The (arch, shape) cell: its step and arguments on meta
-    (``abstract``) or on ``device`` (cuda unless "cpu"). ``rules`` must
-    be None (the mesh layer is ROADMAP.md item 13e-4)."""
-    _no_rules(rules)
+    (``abstract``) or on ``device`` (cuda unless "cpu"), with the
+    ``in_shardings`` of ``rules`` (an ``AxisRules``) when given."""
     arch, shape = cell_shape(arch_id, shape_name, reduced, model_override)
+    return build_cell_for(arch, shape, rules, abstract, seed, device)
+
+
+def _check_rules(rules) -> None:
+    if rules is not None and not isinstance(rules, AxisRules):
+        raise TypeError(f"launch.specs: rules must be a "
+                        f"distributed.meshrules.AxisRules or None (got "
+                        f"{type(rules).__name__})")
+
+
+def build_cell_for(arch: ArchConfig, shape: ShapeConfig, rules=None,
+                   abstract: bool = True, seed: int = 0,
+                   device=None) -> Cell:
+    """``build_cell`` of a given arch and shape (a cut of a registered
+    one, as ``chip_smoke.py`` runs at full width on one card)."""
+    _check_rules(rules)
     if arch.family == "lm":
         build = {"train": _lm_train_cell,
                  "prefill": _lm_prefill_cell}.get(shape.kind,

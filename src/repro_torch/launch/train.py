@@ -86,7 +86,8 @@ def _check_mesh(spec: str) -> None:
     if any(d != 1 for d in dims):
         raise ValueError(f"--mesh {spec}: the port trains on one card, "
                          f"which has no mesh; only 1x1 is accepted "
-                         f"(meshes wait for ROADMAP.md item 13e)")
+                         f"(training on a mesh waits for ROADMAP.md item "
+                         f"13e-4b)")
 
 
 def main(argv=None):

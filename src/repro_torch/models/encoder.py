@@ -39,47 +39,59 @@ from repro_torch.models.layers import (embed_lookup, from_numpy, gelu,
 
 
 def _layer_shapes(cfg: EncoderConfig) -> dict:
-    """name -> (shape, init std or "zeros"/"ones"), in the JAX package's
-    initialisation order."""
+    """name -> (shape, init std or "zeros"/"ones", logical axes), in the
+    JAX package's initialisation order."""
     d, h, f = cfg.d_model, cfg.n_heads, cfg.d_ff
     dh = d // h
+    w_in, w_out = ("d_model", "heads", "d_head"), ("heads", "d_head",
+                                                    "d_model")
     return {
-        "wq": ((d, h, dh), d ** -0.5),
-        "wk": ((d, h, dh), d ** -0.5),
-        "wv": ((d, h, dh), d ** -0.5),
-        "wo": ((h, dh, d), d ** -0.5),
-        "ln1_s": ((d,), "ones"),
-        "ln1_b": ((d,), "zeros"),
-        "w_in": ((d, f), d ** -0.5),
-        "b_in": ((f,), "zeros"),
-        "w_out": ((f, d), f ** -0.5),
-        "b_out": ((d,), "zeros"),
-        "ln2_s": ((d,), "ones"),
-        "ln2_b": ((d,), "zeros"),
+        "wq": ((d, h, dh), d ** -0.5, w_in),
+        "wk": ((d, h, dh), d ** -0.5, w_in),
+        "wv": ((d, h, dh), d ** -0.5, w_in),
+        "wo": ((h, dh, d), d ** -0.5, w_out),
+        "ln1_s": ((d,), "ones", ("d_model",)),
+        "ln1_b": ((d,), "zeros", ("d_model",)),
+        "w_in": ((d, f), d ** -0.5, ("d_model", "d_ff")),
+        "b_in": ((f,), "zeros", ("d_ff",)),
+        "w_out": ((f, d), f ** -0.5, ("d_ff", "d_model")),
+        "b_out": ((d,), "zeros", ("d_model",)),
+        "ln2_s": ((d,), "ones", ("d_model",)),
+        "ln2_b": ((d,), "zeros", ("d_model",)),
     }
 
 
 def _top_shapes(cfg: EncoderConfig) -> dict:
     d = cfg.d_model
     return {
-        "tok_embed": ((cfg.vocab_size, d), 0.02),
-        "pos_embed": ((cfg.max_len, d), 0.02),
-        "ln_embed_s": ((d,), "ones"),
-        "ln_embed_b": ((d,), "zeros"),
-        "pool_w": ((d, d), d ** -0.5),
-        "pool_b": ((d,), "zeros"),
-        "head_w": ((d, cfg.n_outputs), d ** -0.5),
-        "head_b": ((cfg.n_outputs,), "zeros"),
-        "pref_w": ((d, 1), d ** -0.5),
-        "pref_b": ((1,), "zeros"),
+        "tok_embed": ((cfg.vocab_size, d), 0.02, ("vocab", "d_model")),
+        "pos_embed": ((cfg.max_len, d), 0.02, ("pos", "d_model")),
+        "ln_embed_s": ((d,), "ones", ("d_model",)),
+        "ln_embed_b": ((d,), "zeros", ("d_model",)),
+        "pool_w": ((d, d), d ** -0.5, ("d_model", None)),
+        "pool_b": ((d,), "zeros", (None,)),
+        "head_w": ((d, cfg.n_outputs), d ** -0.5, ("d_model", None)),
+        "head_b": ((cfg.n_outputs,), "zeros", (None,)),
+        "pref_w": ((d, 1), d ** -0.5, ("d_model", None)),
+        "pref_b": ((1,), "zeros", (None,)),
     }
+
+
+def param_axes(cfg: EncoderConfig) -> dict:
+    """The logical axes of the JAX package's raw param dict
+    (``launch/specs.router_param_tree``): each top-level leaf's, and
+    under ``"layers"`` each stacked leaf's with ``"layers"`` first."""
+    axes = {k: spec[2] for k, spec in _top_shapes(cfg).items()}
+    axes["layers"] = {k: ("layers",) + spec[2]
+                      for k, spec in _layer_shapes(cfg).items()}
+    return axes
 
 
 def _params(shapes: dict, dtype, device) -> nn.ParameterDict:
     return nn.ParameterDict({
         k: nn.Parameter(torch.zeros(s, dtype=dtype, device=device),
                         requires_grad=False)
-        for k, (s, _) in shapes.items()})
+        for k, (s, *_) in shapes.items()})
 
 
 class EncoderLayer(nn.Module):
@@ -201,7 +213,7 @@ def init_encoder(cfg: EncoderConfig, generator: torch.Generator | None = None,
     for name, _, prm in _named_params(enc):
         if prm.is_meta:
             continue
-        shape, init = shapes[name]
+        shape, init, _ = shapes[name]
         if init == "ones":
             prm.fill_(1.0)
         elif init == "zeros":

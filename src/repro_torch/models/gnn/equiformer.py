@@ -61,6 +61,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_lib
+from repro_torch.common import default_generator, normal_init, param, unwrap, zeros_init
 from repro_torch.configs.base import GNNConfig
 from repro_torch.kernels.embedding_bag import ops as bag_ops
 from repro_torch.models.gnn import segment, so3
@@ -102,35 +103,41 @@ def _top_shapes(cfg: GNNConfig) -> dict:
             "out_w2": ((C, cfg.n_out), C ** -0.5)}
 
 
+#: logical axes of the leaves that name one; every other leaf is
+#: replicated (all ``None``; the stacked ones ``"layers"`` first)
+_AXES = {"embed_w": ("d_feat", None)}
+
+
 @torch.no_grad()
 def init_equiformer(cfg: GNNConfig, generator: torch.Generator | None = None,
-                    device=None) -> dict:
+                    device=None, keep_axes: bool = False) -> dict:
     """Random params in ``cfg.param_dtype`` on ``device`` (cuda unless
     "cpu"): normal(std) draws in float32 from ``generator``, which must
     live on that device (default: seed 0 there), with the reference's
     stds; ``norm_scale`` is zero (the norm scales by ``1 + scale``). On
-    ``meta`` (any generator) nothing is drawn."""
+    ``meta`` (any generator) nothing is drawn. With ``keep_axes`` the
+    ``Param`` tree of their logical axes."""
     dev = device_lib.resolve(device)
     g = generator if generator is not None else \
-        torch.Generator(device=dev).manual_seed(0)
+        default_generator(dev)
     if dev.type != "meta" and torch.device(g.device).type != dev.type:
         raise ValueError(f"init_equiformer: generator on {g.device}, "
                          f"params on {dev}; draw on the params' device")
     dtype = torch_dtype(cfg.param_dtype)
 
-    def draw(shape, std):
-        if std == 0.0:
-            return torch.zeros(shape, dtype=dtype, device=dev)
-        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+    def draw(name, shape, std, lead=()):
+        axes = lead + _AXES.get(name, (None,) * (len(shape) - len(lead)))
+        init = zeros_init if std == 0.0 else normal_init(std)
+        return param(g, shape, axes, init, dtype, device=dev)
 
     L = cfg.n_layers
     top = _top_shapes(cfg)
-    params = {"embed_w": draw(*top["embed_w"])}
-    params["layers"] = {k: draw((L,) + s, std)
+    params = {"embed_w": draw("embed_w", *top["embed_w"])}
+    params["layers"] = {k: draw(k, (L,) + s, std, ("layers",))
                         for k, (s, std) in _layer_shapes(cfg).items()}
-    params["out_w1"] = draw(*top["out_w1"])
-    params["out_w2"] = draw(*top["out_w2"])
-    return params
+    params["out_w1"] = draw("out_w1", *top["out_w1"])
+    params["out_w2"] = draw("out_w2", *top["out_w2"])
+    return params if keep_axes else unwrap(params)
 
 
 @torch.no_grad()

@@ -5,12 +5,13 @@ the embedding init and lookup and the LM's cross-entropy loss; plus the
 dtype-name map and the numpy-to-tensor copy that carry the JAX package's
 params across.
 
-The inits return plain tensors (the reference's ``Param`` wraps each
-with its logical axes, which wait for the mesh layer, ROADMAP.md item
-13e-4): random ones are drawn in float32 from an explicit
-``torch.Generator`` on ``device`` and cast to ``dtype``; ``abstract=True``
-gives the same shapes and dtypes on ``torch.device("meta")`` and draws
-nothing."""
+The inits draw random tensors in float32 from an explicit
+``torch.Generator`` on ``device`` and cast them to ``dtype``;
+``abstract=True`` gives the same shapes and dtypes on
+``torch.device("meta")`` and draws nothing. They return plain tensors,
+or with ``keep_axes=True`` the reference's ``Param`` tree: each tensor
+with its logical axes (``repro_torch.common``), which the mesh rules
+(``distributed/meshrules.py``) map onto a mesh."""
 from __future__ import annotations
 
 import math
@@ -21,6 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import device as device_lib
+from repro_torch.common import (Param, normal_init, ones_init, param, unwrap,
+                                zeros_init)
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -64,33 +67,38 @@ def _init_device(abstract: bool, device):
     return torch.device("meta") if abstract else device_lib.resolve(device)
 
 
-def _normal(generator, shape, std: float, dtype, abstract: bool, device):
-    """normal(0, std) drawn in float32 and cast to ``dtype``; on meta
-    (``abstract``) nothing is drawn."""
-    dev = _init_device(abstract, device)
-    if abstract:
-        return torch.empty(shape, dtype=dtype, device=dev)
-    return (torch.randn(shape, generator=generator, device=dev)
-            * std).to(dtype)
+def _param(generator, shape, axes, init, dtype, abstract: bool,
+           device) -> Param:
+    return param(generator, shape, axes, init, dtype, abstract,
+                 None if abstract else device_lib.resolve(device))
+
+
+def _out(tree, keep_axes: bool):
+    return tree if keep_axes else unwrap(tree)
 
 
 def init_rms_norm(d: int, dtype, abstract: bool = False,
-                  layers: int | None = None, device=None) -> torch.Tensor:
+                  layers: int | None = None, device=None,
+                  keep_axes: bool = False):
     """The RMS norm's scale, zeros of (d,) or (layers, d) (the norm
     scales by ``1 + scale``)."""
     shape = (d,) if layers is None else (layers, d)
-    return torch.zeros(shape, dtype=dtype,
-                       device=_init_device(abstract, device))
+    axes = ("d_model",) if layers is None else ("layers", "d_model")
+    return _out(_param(None, shape, axes, zeros_init, dtype, abstract,
+                       device), keep_axes)
 
 
 def init_layer_norm(d: int, dtype, abstract: bool = False,
-                    layers: int | None = None, device=None) -> dict:
+                    layers: int | None = None, device=None,
+                    keep_axes: bool = False) -> dict:
     """The layer norm's ``scale`` (ones) and ``bias`` (zeros), (d,) or
     (layers, d)."""
     shape = (d,) if layers is None else (layers, d)
-    dev = _init_device(abstract, device)
-    return {"scale": torch.ones(shape, dtype=dtype, device=dev),
-            "bias": torch.zeros(shape, dtype=dtype, device=dev)}
+    axes = ("d_model",) if layers is None else ("layers", "d_model")
+    return _out({"scale": _param(None, shape, axes, ones_init, dtype,
+                                 abstract, device),
+                 "bias": _param(None, shape, axes, zeros_init, dtype,
+                                abstract, device)}, keep_axes)
 
 
 def rope_frequencies(d_head: int, theta: float,
@@ -117,21 +125,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def init_dense(generator: torch.Generator | None, d_in: int, d_out: int,
                axes: Sequence[str | None], dtype, abstract: bool = False,
                bias: bool = False, layers: int | None = None,
-               stddev: float | None = None, device=None) -> dict:
+               stddev: float | None = None, device=None,
+               keep_axes: bool = False) -> dict:
     """A dense layer ``{"w": (d_in, d_out)}`` (``(layers, d_in, d_out)``
     with ``layers``), plus a zero ``"b"`` of (d_out,) or (layers, d_out)
     with ``bias``. ``w`` is normal(stddev), or LeCun-normal on d_in
     (std ``d_in ** -0.5``) without one. ``axes`` names w's logical axes
-    for the mesh layer and is not used on one card."""
-    del axes
-    shape = (d_in, d_out) if layers is None else (layers, d_in, d_out)
+    (a leading ``"layers"`` is added with ``layers``); the bias takes
+    the last."""
+    shape = (d_in, d_out)
+    axes = tuple(axes)
+    if layers is not None:
+        shape, axes = (layers,) + shape, ("layers",) + axes
     std = stddev if stddev is not None else 1.0 / math.sqrt(max(d_in, 1))
-    p = {"w": _normal(generator, shape, std, dtype, abstract, device)}
+    p = {"w": _param(generator, shape, axes, normal_init(std), dtype,
+                     abstract, device)}
     if bias:
         bshape = (d_out,) if layers is None else (layers, d_out)
-        p["b"] = torch.zeros(bshape, dtype=dtype,
-                             device=_init_device(abstract, device))
-    return p
+        baxes = (axes[-1],) if layers is None else ("layers", axes[-1])
+        p["b"] = _param(None, bshape, baxes, zeros_init, dtype, abstract,
+                        device)
+    return _out(p, keep_axes)
 
 
 def dense(x: torch.Tensor, p: dict,
@@ -150,17 +164,18 @@ def dense(x: torch.Tensor, p: dict,
 def mlp_stack(generator: torch.Generator | None, dims: Sequence[int], dtype,
               abstract: bool = False, in_axis: str | None = None,
               hidden_axis: str | None = "d_ff", bias: bool = True,
-              device=None) -> list[dict]:
+              device=None, keep_axes: bool = False) -> list[dict]:
     """A plain MLP as a list of ``init_dense`` layers dims[i] ->
-    dims[i + 1], drawn from ``generator`` in order. ``in_axis`` and
-    ``hidden_axis`` name the logical axes for the mesh layer."""
+    dims[i + 1], drawn from ``generator`` in order; hidden dims on
+    ``hidden_axis``, the input on ``in_axis``, the output replicated."""
     layers = []
     for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
         last = i == len(dims) - 2
         axes = (in_axis if i == 0 else hidden_axis,
                 None if last else hidden_axis)
         layers.append(init_dense(generator, a, b, axes, dtype, abstract,
-                                 bias=bias, device=device))
+                                 bias=bias, device=device,
+                                 keep_axes=keep_axes))
     return layers
 
 
@@ -209,11 +224,10 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 def init_embedding(generator: torch.Generator | None, vocab: int, d: int,
                    dtype, abstract: bool = False, axes=("vocab", "d_model"),
-                   device=None) -> torch.Tensor:
-    """A (vocab, d) table drawn from normal(0.02). ``axes`` names its
-    logical axes for the mesh layer."""
-    del axes
-    return _normal(generator, (vocab, d), 0.02, dtype, abstract, device)
+                   device=None, keep_axes: bool = False):
+    """A (vocab, d) table drawn from normal(0.02), on logical ``axes``."""
+    return _out(_param(generator, (vocab, d), axes, normal_init(0.02),
+                       dtype, abstract, device), keep_axes)
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor, *,
@@ -241,7 +255,9 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor, *,
     flat = torch.where(flat < 0, flat + r, flat)
     rows = F.embedding(flat.clamp(0, max(r - 1, 0)), table.reshape(r, -1))
     rows = rows.view((-1,) + tuple(table.shape[1:]))
-    if mode == "fill":
+    # a meta lookup (the dry run) has no ids to test: its shape is the
+    # same whether any row is filled or not
+    if mode == "fill" and not flat.is_meta:
         oob = (flat < 0) | (flat >= r)
         if bool(oob.any()):
             fill = (float("nan") if table.is_floating_point()

@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from repro_torch.common import normal_init, param, unwrap
 from repro_torch.configs.base import MoEConfig
 from repro_torch.kernels.order import total_order_key
 from repro_torch.models.layers import swiglu, torch_dtype
@@ -64,30 +65,37 @@ def routing_trace():
 
 
 def moe_shapes(d_model: int, cfg: MoEConfig) -> dict:
-    """name -> (per-layer shape, init std) of one layer's experts, in
-    the reference's order."""
+    """name -> (per-layer shape, init std, logical axes) of one layer's
+    experts, in the reference's order."""
     E, Fe = cfg.n_experts, cfg.d_ff_expert
     return {
-        "router": ((d_model, E), 1.0 / math.sqrt(d_model)),
-        "w_gate": ((E, d_model, Fe), 1.0 / math.sqrt(d_model)),
-        "w_up": ((E, d_model, Fe), 1.0 / math.sqrt(d_model)),
-        "w_down": ((E, Fe, d_model), 1.0 / math.sqrt(Fe)),
+        "router": ((d_model, E), 1.0 / math.sqrt(d_model),
+                   ("d_model", "experts")),
+        "w_gate": ((E, d_model, Fe), 1.0 / math.sqrt(d_model),
+                   ("experts", "d_model", "expert_ff")),
+        "w_up": ((E, d_model, Fe), 1.0 / math.sqrt(d_model),
+                 ("experts", "d_model", "expert_ff")),
+        "w_down": ((E, Fe, d_model), 1.0 / math.sqrt(Fe),
+                   ("experts", "expert_ff", "d_model")),
     }
 
 
 @torch.no_grad()
 def init_moe(generator: torch.Generator, d_model: int, cfg: MoEConfig,
              dtype: torch.dtype, layers: int | None = None,
-             device=None) -> dict:
+             device=None, keep_axes: bool = False) -> dict:
     """Random expert params in ``dtype``, drawn in float32 from
     ``generator`` on ``device`` (the generator's own by default;
     ``init_lm`` passes the params', which may be ``meta``), with a
-    leading ``layers`` axis when given."""
+    leading ``layers`` axis when given; with ``keep_axes`` the ``Param``
+    tree of their logical axes."""
     lead = () if layers is None else (layers,)
+    lax_ = () if layers is None else ("layers",)
     dev = generator.device if device is None else device
-    return {k: (torch.randn(lead + s, generator=generator, device=dev)
-                * std).to(dtype)
-            for k, (s, std) in moe_shapes(d_model, cfg).items()}
+    tree = {k: param(generator, lead + s, lax_ + axes, normal_init(std),
+                     dtype, device=dev)
+            for k, (s, std, axes) in moe_shapes(d_model, cfg).items()}
+    return tree if keep_axes else unwrap(tree)
 
 
 def _expert_ffn(buf: torch.Tensor, p: dict) -> torch.Tensor:
@@ -144,7 +152,13 @@ def topk_dispatch(probs: torch.Tensor, cfg: MoEConfig) -> dict:
     order = torch.argsort(flat_e, stable=True)
     se = flat_e[order]
     st = torch.div(order, k, rounding_mode="floor")
-    counts = torch.bincount(flat_e, minlength=E)
+    if flat_e.is_meta:
+        # bincount's length depends on the ids; a meta run (the dry run)
+        # counts them with a scatter of ones into E slots, the same shape
+        counts = torch.zeros(E, dtype=torch.int64, device=flat_e.device
+                             ).scatter_add_(0, flat_e, torch.ones_like(flat_e))
+    else:
+        counts = torch.bincount(flat_e, minlength=E)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(t * k, device=probs.device) - starts[se]
     keep = pos < cap

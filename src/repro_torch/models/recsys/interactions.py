@@ -113,13 +113,14 @@ def draw(shape, std: float | None, dtype: torch.dtype,
 
 
 def gru_shapes(d_in: int, d_hidden: int) -> dict:
-    """Each GRU leaf's (shape, std): weights normal(0, fan_in^-0.5),
-    biases zero (std None)."""
+    """Each GRU leaf's (shape, std, logical axes): weights normal(0,
+    fan_in^-0.5), biases zero (std None), every dim replicated."""
     p = {}
     for g in ("z", "r", "n"):
-        p[f"wx_{g}"] = ((d_in, d_hidden), d_in ** -0.5)
-        p[f"wh_{g}"] = ((d_hidden, d_hidden), d_hidden ** -0.5)
-        p[f"b_{g}"] = ((d_hidden,), None)
+        p[f"wx_{g}"] = ((d_in, d_hidden), d_in ** -0.5, (None, None))
+        p[f"wh_{g}"] = ((d_hidden, d_hidden), d_hidden ** -0.5,
+                        (None, None))
+        p[f"b_{g}"] = ((d_hidden,), None, (None,))
     return p
 
 
@@ -127,7 +128,7 @@ def init_gru(generator: torch.Generator, d_in: int, d_hidden: int,
              dtype: torch.dtype) -> dict:
     """GRU params drawn from ``generator`` on its device (``draw``)."""
     return {k: draw(shape, std, dtype, generator)
-            for k, (shape, std) in gru_shapes(d_in, d_hidden).items()}
+            for k, (shape, std, _) in gru_shapes(d_in, d_hidden).items()}
 
 
 def attention_scores(hist: torch.Tensor, target: torch.Tensor,

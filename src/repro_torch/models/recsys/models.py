@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import device as device_lib
+from repro_torch.common import Param, default_generator, unwrap
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.models.layers import from_numpy, mlp_apply, torch_dtype
 from repro_torch.models.recsys import embedding as emb
@@ -37,35 +38,49 @@ from repro_torch.models.recsys import interactions as inter
 _TABLES = ("table", "lin_table")
 
 
-def _mlp_shapes(dims) -> list[dict]:
-    return [{"w": ((a, b), a ** -0.5), "b": ((b,), None)}
-            for a, b in zip(dims[:-1], dims[1:])]
+def _mlp_shapes(dims, hidden_axis: str = "mlp_hidden") -> list[dict]:
+    """An MLP's layers, each leaf (shape, std, logical axes): hidden
+    dims on ``hidden_axis``, the input and the output replicated."""
+    out = []
+    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+        last = i == len(dims) - 2
+        o = None if last else hidden_axis
+        out.append({"w": ((a, b), a ** -0.5,
+                          (hidden_axis if i > 0 else None, o)),
+                    "b": ((b,), None, (o,))})
+    return out
+
+
+def _none(shape, std) -> tuple:
+    return (shape, std, (None,) * len(shape))
 
 
 def _shapes(cfg: RecsysConfig) -> dict:
-    """The params tree of ``cfg.kind`` with each leaf's (shape, std):
-    weights normal(0, std), std None for a zero bias. The JAX
-    ``init_recsys``'s leaves, shapes and scales."""
+    """The params tree of ``cfg.kind`` with each leaf's (shape, std,
+    logical axes): weights normal(0, std), std None for a zero bias. The
+    JAX ``init_recsys``'s leaves, shapes, scales and axes."""
     d = cfg.embed_dim
     rows = emb.table_offsets(cfg.vocab_sizes, 512)[1]
-    p: dict = {"table": ((rows, d), d ** -0.5)}
+    table_axes = ("table_rows", "embed_dim")
+    p: dict = {"table": ((rows, d), d ** -0.5, table_axes)}
     if cfg.kind == "dlrm":
         f = cfg.n_sparse + 1
         d_int = f * (f - 1) // 2 + cfg.bot_mlp[-1]
         p["bot"] = _mlp_shapes((cfg.n_dense,) + cfg.bot_mlp)
         p["top"] = _mlp_shapes((d_int,) + cfg.top_mlp)
     elif cfg.kind == "deepfm":
-        p["lin_table"] = ((rows, 1), 1.0)
-        p["bias"] = ((1,), None)
+        p["lin_table"] = ((rows, 1), 1.0, table_axes)
+        p["bias"] = _none((1,), None)
         p["deep"] = _mlp_shapes((cfg.n_sparse * d,) + cfg.mlp + (1,))
     elif cfg.kind == "autoint":
         dh = cfg.d_attn // cfg.n_attn_heads
         p["attn"] = []
         d_in = d
         for _ in range(cfg.n_attn_layers):
-            w = ((d_in, cfg.n_attn_heads, dh), d_in ** -0.5)
+            w = _none((d_in, cfg.n_attn_heads, dh), d_in ** -0.5)
             p["attn"].append({"wq": w, "wk": w, "wv": w,
-                              "w_res": ((d_in, cfg.d_attn), d_in ** -0.5)})
+                              "w_res": _none((d_in, cfg.d_attn),
+                                             d_in ** -0.5)})
             d_in = cfg.d_attn
         p["out"] = _mlp_shapes((cfg.n_sparse * cfg.d_attn, 1))
     elif cfg.kind == "dien":
@@ -73,9 +88,11 @@ def _shapes(cfg: RecsysConfig) -> dict:
         g = cfg.gru_dim
         p["gru"] = inter.gru_shapes(d_item, g)
         p["augru"] = inter.gru_shapes(g, g)
-        p["att"] = {"w1": ((4 * g, 64), (4 * g) ** -0.5), "b1": ((64,), None),
-                    "w2": ((64, 1), 64 ** -0.5), "b2": ((1,), None)}
-        p["hist_proj"] = ((d_item, g), d_item ** -0.5)
+        p["att"] = {"w1": _none((4 * g, 64), (4 * g) ** -0.5),
+                    "b1": _none((64,), None),
+                    "w2": _none((64, 1), 64 ** -0.5),
+                    "b2": _none((1,), None)}
+        p["hist_proj"] = _none((d_item, g), d_item ** -0.5)
         p["mlp"] = _mlp_shapes((g + d_item,) + cfg.mlp + (1,))
     else:
         raise ValueError(f"{cfg.name}: unknown recsys kind {cfg.kind!r}")
@@ -89,14 +106,15 @@ def _shapes(cfg: RecsysConfig) -> dict:
 
 @torch.no_grad()
 def init_recsys(cfg: RecsysConfig, generator: torch.Generator | None = None,
-                device=None) -> dict:
+                device=None, keep_axes: bool = False) -> dict:
     """Random params in ``cfg.param_dtype`` on ``device`` (cuda unless
     "cpu"), drawn from ``generator``, which must live there (default:
     seed 0 there). The tables are drawn in place (``init_table``). On
-    ``meta`` (any generator) nothing is drawn."""
+    ``meta`` (any generator) nothing is drawn. With ``keep_axes`` the
+    ``Param`` tree of their logical axes."""
     dev = device_lib.resolve(device)
     g = generator if generator is not None else \
-        torch.Generator(device=dev).manual_seed(0)
+        default_generator(dev)
     dtype = torch_dtype(cfg.param_dtype)
 
     def build(spec, name):
@@ -104,13 +122,14 @@ def init_recsys(cfg: RecsysConfig, generator: torch.Generator | None = None,
             return {k: build(v, k) for k, v in spec.items()}
         if isinstance(spec, list):
             return [build(v, name) for v in spec]
-        shape, std = spec
+        shape, std, axes = spec
         if name in _TABLES:
-            return emb.init_table(cfg.vocab_sizes, shape[1], dtype, g,
-                                  dev)[0]
-        return inter.draw(shape, std, dtype, g, dev)
+            return Param(emb.init_table(cfg.vocab_sizes, shape[1], dtype, g,
+                                        dev)[0], axes)
+        return Param(inter.draw(shape, std, dtype, g, dev), axes)
 
-    return build(_shapes(cfg), None)
+    tree = build(_shapes(cfg), None)
+    return tree if keep_axes else unwrap(tree)
 
 
 @torch.no_grad()

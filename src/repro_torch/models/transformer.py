@@ -33,6 +33,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_lib
+from repro_torch.common import default_generator, normal_init, param, unwrap, zeros_init
 from repro_torch.configs.base import LMConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.attention import KVCache
@@ -43,34 +44,37 @@ from repro_torch.models.moe import init_moe, moe_ffn, moe_shapes
 
 
 def _layer_shapes(cfg: LMConfig) -> dict:
-    """name -> (per-layer shape, init std), in the JAX package's order;
-    ``"moe"`` maps to the experts' own such dict."""
+    """name -> (per-layer shape, init std, logical axes), in the JAX
+    package's order; ``"moe"`` maps to the experts' own such dict."""
     d, h, hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     shapes = {
-        "ln_attn": ((d,), 0.0),
-        "ln_ffn": ((d,), 0.0),
-        "wq": ((d, h, dh), d ** -0.5),
-        "wk": ((d, hk, dh), d ** -0.5),
-        "wv": ((d, hk, dh), d ** -0.5),
-        "wo": ((h, dh, d), (h * dh) ** -0.5),
+        "ln_attn": ((d,), 0.0, ("d_model",)),
+        "ln_ffn": ((d,), 0.0, ("d_model",)),
+        "wq": ((d, h, dh), d ** -0.5, ("d_model", "heads", "d_head")),
+        "wk": ((d, hk, dh), d ** -0.5, ("d_model", "kv_heads", "d_head")),
+        "wv": ((d, hk, dh), d ** -0.5, ("d_model", "kv_heads", "d_head")),
+        "wo": ((h, dh, d), (h * dh) ** -0.5, ("heads", "d_head", "d_model")),
     }
     if cfg.qk_norm:
-        shapes["q_norm"] = ((dh,), 0.0)
-        shapes["k_norm"] = ((dh,), 0.0)
+        shapes["q_norm"] = ((dh,), 0.0, ("d_head",))
+        shapes["k_norm"] = ((dh,), 0.0, ("d_head",))
     if cfg.moe is not None:
         shapes["moe"] = moe_shapes(d, cfg.moe)
     else:
-        shapes["w_gate"] = ((d, cfg.d_ff), d ** -0.5)
-        shapes["w_up"] = ((d, cfg.d_ff), d ** -0.5)
-        shapes["w_down"] = ((cfg.d_ff, d), cfg.d_ff ** -0.5)
+        shapes["w_gate"] = ((d, cfg.d_ff), d ** -0.5, ("d_model", "d_ff"))
+        shapes["w_up"] = ((d, cfg.d_ff), d ** -0.5, ("d_model", "d_ff"))
+        shapes["w_down"] = ((cfg.d_ff, d), cfg.d_ff ** -0.5,
+                            ("d_ff", "d_model"))
     return shapes
 
 
 def _top_shapes(cfg: LMConfig) -> dict:
     d = cfg.d_model
-    shapes = {"embed": ((cfg.vocab_size, d), 0.02), "ln_final": ((d,), 0.0)}
+    shapes = {"embed": ((cfg.vocab_size, d), 0.02, ("vocab", "d_model")),
+              "ln_final": ((d,), 0.0, ("d_model",))}
     if not cfg.tie_embeddings:
-        shapes["lm_head"] = ((d, cfg.vocab_size), d ** -0.5)
+        shapes["lm_head"] = ((d, cfg.vocab_size), d ** -0.5,
+                             ("d_model", "vocab"))
     return shapes
 
 
@@ -81,33 +85,35 @@ def _top_shapes(cfg: LMConfig) -> dict:
 
 @torch.no_grad()
 def init_lm(cfg: LMConfig, generator: torch.Generator | None = None,
-            device=None) -> dict:
+            device=None, keep_axes: bool = False) -> dict:
     """Random params in ``cfg.param_dtype`` on ``device`` (cuda unless
     "cpu"): normal(std) draws in float32 from ``generator``, which must
     live on that device (default: seed 0 there), so the full width is
     drawn on the card; the norm scales are zero (the norms scale by
-    ``1 + scale``). On ``meta`` (any generator) nothing is drawn."""
+    ``1 + scale``). On ``meta`` (any generator) nothing is drawn. With
+    ``keep_axes`` the ``Param`` tree (each leaf with the reference's
+    logical axes, ``"layers"`` first on the stacked leaves)."""
     dev = device_lib.resolve(device)
     g = generator if generator is not None else \
-        torch.Generator(device=dev).manual_seed(0)
+        default_generator(dev)
     if dev.type != "meta" and torch.device(g.device).type != dev.type:
         raise ValueError(f"init_lm: generator on {g.device}, params on "
                          f"{dev}; draw on the params' device")
     dtype = torch_dtype(cfg.param_dtype)
 
-    def draw(shape, std):
-        if std == 0.0:
-            return torch.zeros(shape, dtype=dtype, device=dev)
-        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+    def draw(shape, std, axes):
+        init = zeros_init if std == 0.0 else normal_init(std)
+        return param(g, shape, axes, init, dtype, device=dev)
 
     L = cfg.n_layers
-    params = {k: draw(s, std) for k, (s, std) in _top_shapes(cfg).items()}
+    params = {k: draw(*spec) for k, spec in _top_shapes(cfg).items()}
     params["layers"] = {
         k: (init_moe(g, cfg.d_model, cfg.moe, dtype, layers=L,
-                     device=dev)
-            if k == "moe" else draw((L,) + spec[0], spec[1]))
+                     device=dev, keep_axes=True)
+            if k == "moe" else draw((L,) + spec[0], spec[1],
+                                    ("layers",) + spec[2]))
         for k, spec in _layer_shapes(cfg).items()}
-    return params
+    return params if keep_axes else unwrap(params)
 
 
 @torch.no_grad()

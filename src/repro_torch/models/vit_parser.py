@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_lib
+from repro_torch.common import default_generator, normal_init, param, unwrap, zeros_init
 from repro_torch.configs.base import VitParserConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.attention import KVCache
@@ -55,19 +56,24 @@ from repro_torch.models.layers import (apply_rope, cross_entropy_loss,
 ROPE_THETA = 1e4            # the reference's decoder hard-codes it
 
 
+_W_IN = ("d_model", "heads", "d_head")
+_W_OUT = ("heads", "d_head", "d_model")
+_D = ("d_model",)
+
+
 def _enc_layer_shapes(cfg: VitParserConfig) -> dict:
-    """name -> (per-layer shape, init std)."""
+    """name -> (per-layer shape, init std, logical axes)."""
     de, he, fe = cfg.enc_d_model, cfg.enc_heads, cfg.enc_d_ff
     dhe = de // he
     return {
-        "ln1": ((de,), 0.0),
-        "ln2": ((de,), 0.0),
-        "wq": ((de, he, dhe), de ** -0.5),
-        "wk": ((de, he, dhe), de ** -0.5),
-        "wv": ((de, he, dhe), de ** -0.5),
-        "wo": ((he, dhe, de), de ** -0.5),
-        "w_in": ((de, fe), de ** -0.5),
-        "w_out": ((fe, de), fe ** -0.5),
+        "ln1": ((de,), 0.0, _D),
+        "ln2": ((de,), 0.0, _D),
+        "wq": ((de, he, dhe), de ** -0.5, _W_IN),
+        "wk": ((de, he, dhe), de ** -0.5, _W_IN),
+        "wv": ((de, he, dhe), de ** -0.5, _W_IN),
+        "wo": ((he, dhe, de), de ** -0.5, _W_OUT),
+        "w_in": ((de, fe), de ** -0.5, ("d_model", "d_ff")),
+        "w_out": ((fe, de), fe ** -0.5, ("d_ff", "d_model")),
     }
 
 
@@ -76,37 +82,38 @@ def _dec_layer_shapes(cfg: VitParserConfig) -> dict:
                       cfg.enc_d_model)
     dhd = dd // hd
     return {
-        "ln1": ((dd,), 0.0),
-        "ln_x": ((dd,), 0.0),
-        "ln2": ((dd,), 0.0),
-        "wq": ((dd, hd, dhd), dd ** -0.5),
-        "wk": ((dd, hd, dhd), dd ** -0.5),
-        "wv": ((dd, hd, dhd), dd ** -0.5),
-        "wo": ((hd, dhd, dd), dd ** -0.5),
-        "xq": ((dd, hd, dhd), dd ** -0.5),
-        "xk": ((de, hd, dhd), de ** -0.5),
-        "xv": ((de, hd, dhd), de ** -0.5),
-        "xo": ((hd, dhd, dd), dd ** -0.5),
-        "w_gate": ((dd, fd), dd ** -0.5),
-        "w_up": ((dd, fd), dd ** -0.5),
-        "w_down": ((fd, dd), fd ** -0.5),
+        "ln1": ((dd,), 0.0, _D),
+        "ln_x": ((dd,), 0.0, _D),
+        "ln2": ((dd,), 0.0, _D),
+        "wq": ((dd, hd, dhd), dd ** -0.5, _W_IN),
+        "wk": ((dd, hd, dhd), dd ** -0.5, _W_IN),
+        "wv": ((dd, hd, dhd), dd ** -0.5, _W_IN),
+        "wo": ((hd, dhd, dd), dd ** -0.5, _W_OUT),
+        "xq": ((dd, hd, dhd), dd ** -0.5, _W_IN),
+        "xk": ((de, hd, dhd), de ** -0.5, _W_IN),
+        "xv": ((de, hd, dhd), de ** -0.5, _W_IN),
+        "xo": ((hd, dhd, dd), dd ** -0.5, _W_OUT),
+        "w_gate": ((dd, fd), dd ** -0.5, ("d_model", "d_ff")),
+        "w_up": ((dd, fd), dd ** -0.5, ("d_model", "d_ff")),
+        "w_down": ((fd, dd), fd ** -0.5, ("d_ff", "d_model")),
     }
 
 
 def _shapes(cfg: VitParserConfig) -> dict:
-    """The whole tree: name -> (shape, std), or a layer stack's
-    (layer count, per-layer shapes)."""
+    """The whole tree: name -> (shape, std, logical axes), or a layer
+    stack's (layer count, per-layer shapes)."""
     patch_dim = cfg.patch * cfg.patch * 3
     de, dd = cfg.enc_d_model, cfg.dec_d_model
     return {
-        "patch_proj": ((patch_dim, de), patch_dim ** -0.5),
-        "patch_pos": ((cfg.n_patches, de), 0.02),
+        "patch_proj": ((patch_dim, de), patch_dim ** -0.5,
+                       (None, "d_model")),
+        "patch_pos": ((cfg.n_patches, de), 0.02, ("patches", "d_model")),
         "enc_layers": (cfg.enc_layers, _enc_layer_shapes(cfg)),
-        "enc_ln": ((de,), 0.0),
-        "tok_embed": ((cfg.vocab_size, dd), 0.02),
+        "enc_ln": ((de,), 0.0, _D),
+        "tok_embed": ((cfg.vocab_size, dd), 0.02, ("vocab", "d_model")),
         "dec_layers": (cfg.dec_layers, _dec_layer_shapes(cfg)),
-        "dec_ln": ((dd,), 0.0),
-        "lm_head": ((dd, cfg.vocab_size), dd ** -0.5),
+        "dec_ln": ((dd,), 0.0, _D),
+        "lm_head": ((dd, cfg.vocab_size), dd ** -0.5, ("d_model", "vocab")),
     }
 
 
@@ -116,7 +123,8 @@ def vit_parser_param_count(cfg: VitParserConfig) -> int:
     total = 0
     for spec in _shapes(cfg).values():
         if isinstance(spec[1], dict):
-            total += spec[0] * sum(math.prod(s) for s, _ in spec[1].values())
+            total += spec[0] * sum(math.prod(s[0])
+                                   for s in spec[1].values())
         else:
             total += math.prod(spec[0])
     return total
@@ -130,33 +138,33 @@ def vit_parser_param_count(cfg: VitParserConfig) -> int:
 @torch.no_grad()
 def init_vit_parser(cfg: VitParserConfig,
                     generator: torch.Generator | None = None,
-                    device=None) -> dict:
+                    device=None, keep_axes: bool = False) -> dict:
     """Random params in ``cfg.param_dtype`` on ``device`` (cuda unless
     "cpu"): normal(std) draws in float32 from ``generator``, which must
     live on that device (default: seed 0 there); the norm scales are
     zero (the norms scale by ``1 + scale``). On ``meta`` (any
-    generator) nothing is drawn."""
+    generator) nothing is drawn. With ``keep_axes`` the ``Param`` tree of
+    their logical axes."""
     dev = device_lib.resolve(device)
     g = generator if generator is not None else \
-        torch.Generator(device=dev).manual_seed(0)
+        default_generator(dev)
     if dev.type != "meta" and torch.device(g.device).type != dev.type:
         raise ValueError(f"init_vit_parser: generator on {g.device}, "
                          f"params on {dev}; draw on the params' device")
     dtype = torch_dtype(cfg.param_dtype)
 
-    def draw(shape, std):
-        if std == 0.0:
-            return torch.zeros(shape, dtype=dtype, device=dev)
-        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+    def draw(shape, std, axes):
+        init = zeros_init if std == 0.0 else normal_init(std)
+        return param(g, shape, axes, init, dtype, device=dev)
 
     params = {}
     for name, spec in _shapes(cfg).items():
         if isinstance(spec[1], dict):
-            params[name] = {k: draw((spec[0],) + s, std)
-                            for k, (s, std) in spec[1].items()}
+            params[name] = {k: draw((spec[0],) + s, std, ("layers",) + ax)
+                            for k, (s, std, ax) in spec[1].items()}
         else:
             params[name] = draw(*spec)
-    return params
+    return params if keep_axes else unwrap(params)
 
 
 @torch.no_grad()
@@ -189,7 +197,7 @@ def vit_parser_from_jax_params(raw: dict, cfg: VitParserConfig,
             keys_match(raw[name], spec[1], f"[{name!r}]")
             out[name] = {k: take(raw[name][k], (spec[0],) + s,
                                  f"[{name!r}][{k!r}]")
-                         for k, (s, _) in spec[1].items()}
+                         for k, (s, *_) in spec[1].items()}
         else:
             out[name] = take(raw[name], spec[0], f"[{name!r}]")
     return out

@@ -15,6 +15,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch.common import global_norm
+
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
@@ -30,13 +32,6 @@ def apply_updates(params, updates):
     for p, u in zip(params, updates):
         p.add_(u.to(p.dtype))
     return params
-
-
-def global_norm(tree) -> torch.Tensor:
-    """float32 root of the sum of squares over every leaf (``None`` adds
-    nothing, as a zero leaf does)."""
-    return torch.sqrt(sum(x.float().square().sum() for x in tree
-                          if x is not None))
 
 
 def clip_by_global_norm(grads, max_norm: float):

@@ -41,7 +41,11 @@ sft_4k cell within 2e-5 (losses) and 1e-4 (params); both cells' train
 CLI restarts bit-equal; one reduced ``launch.specs.build_cell`` cell of
 each family (qwen3 prefill, DeepFM retrieval, the EquiformerV2 molecule
 train step, route_64k, parse_decode) on cuda against cpu within 2e-5
-(the train step's params within 1e-4), integer outputs equal.
+(the train step's params within 1e-4), integer outputs equal; the
+reduced qwen3 prefill and DLRM serve cells built with the ``AxisRules``
+of a NCCL world of one, every argument laid out whole by its sharding;
+the kernel wrappers' meta branches giving the kernels' output shapes
+and dtypes, launching nothing.
 """
 import dataclasses
 
@@ -2042,3 +2046,103 @@ def test_reduced_cell_cuda_matches_cpu(dev, arch, shape):
             torch.testing.assert_close(a, b, atol=tol, rtol=tol)
         else:
             assert torch.equal(a, b)
+
+
+@pytest.fixture
+def world_of_one(dev):
+    """A NCCL process group of one rank on the card, and AxisRules on its
+    1x1 (data, model) mesh; destroyed after the test."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.meshrules import AxisRules
+    from repro_torch.launch.mesh import make_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        yield AxisRules(make_mesh((1, 1), ("data", "model"), "cuda"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch, shape", [("qwen3-1.7b", "prefill_32k"),
+                                         ("dlrm-mlperf", "serve_p99")])
+def test_cell_shardings_lay_out_every_argument_on_a_world_of_one(
+        dev, world_of_one, arch, shape):
+    """A reduced cell built on the card with the rules of a NCCL world
+    of one has a sharding for every argument, and ``distribute_tensor``
+    with its placements on the card's 1x1 mesh keeps each argument
+    whole on its one rank; ``shard_hint`` on a plain tensor under those
+    rules gives it back."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.common import tree_leaves
+    from repro_torch.distributed.meshrules import (NamedSharding,
+                                                   shard_hint, use_rules)
+    from repro_torch.launch import specs as S
+
+    cell = S.build_cell(arch, shape, rules=world_of_one, reduced=True,
+                        abstract=False, device="cuda")
+    args = tree_leaves(cell.args)
+    shs = tree_leaves(cell.in_shardings,
+                      lambda x: isinstance(x, NamedSharding))
+    assert len(shs) == len(args) > 0
+    for t, sh in zip(args, shs):
+        assert sh.shard_shape(t.shape) == tuple(t.shape)
+        d = distribute_tensor(t, world_of_one.mesh, sh.placements)
+        assert torch.equal(d.to_local(), t)
+    with use_rules(world_of_one):
+        assert shard_hint(args[0], "batch") is args[0]
+
+
+def test_kernel_meta_branches_give_the_kernels_shapes(dev):
+    """Each wrapper's meta call returns the shapes and dtypes the kernel
+    writes on the card, and launches nothing."""
+    from repro_torch.kernels import cuda_lib
+
+    def meta(x):
+        return (torch.empty(x.shape, dtype=x.dtype, device="meta")
+                if isinstance(x, torch.Tensor) else x)
+
+    bf, i32 = torch.bfloat16, torch.int32
+    g = torch.Generator(device=dev).manual_seed(0)
+    r = lambda *s, dt=torch.float32: torch.randn(  # noqa: E731
+        s, generator=g, device=dev).to(dt)
+    ids = lambda hi, *s: torch.randint(  # noqa: E731
+        0, hi, s, generator=g, device=dev, dtype=i32)
+    ffkw = dict(max_len=64, ws=2, scramble=3, mangled=4, latex_lo=800,
+                ident_lo=850, vocab_size=1000)
+    calls = [
+        (lambda *a: ff.fast_features(*a, **ffkw),
+         (ids(1000, 4, 128), *[torch.full((4,), 3, dtype=i32,
+                                          device=dev)] * 4)),
+        (lambda s, t: br.budget_route(s, t, 0.25), (r(64), r(64, 16))),
+        (ng.ngram_bleu, (ids(9, 4, 16), ids(9, 4, 16),
+                         torch.full((4,), 16, dtype=i32, device=dev),
+                         torch.full((4,), 12, dtype=i32, device=dev))),
+        (fa.flash_attention, (r(2, 64, 4, 32, dt=bf), r(2, 64, 2, 32, dt=bf),
+                              r(2, 64, 2, 32, dt=bf))),
+        (eb.embedding_bag, (r(100, 16, dt=bf), ids(100, 8, 3))),
+        (lambda gr, i: eb.embedding_bag_backward(gr, i, 100),
+         (r(20, 16), ids(100, 20).long())),
+        (lambda x, s, d, w: sm.segment_matmul(x, s, d, w, n_nodes=10),
+         (r(10, 8), ids(10, 30), ids(10, 30), r(8, 4))),
+    ]
+    for fn, args in calls:
+        want = fn(*args)
+        before = cuda_lib.launch_counts()
+        got = fn(*[meta(a) for a in args])
+        assert cuda_lib.launch_counts() == before
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        for a, b in zip(got, want):
+            assert (a is None) == (b is None)
+            if b is not None:
+                assert a.is_meta and a.shape == b.shape \
+                    and a.dtype == b.dtype

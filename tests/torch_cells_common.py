@@ -157,7 +157,9 @@ def close(got, want, tol: float = 2e-5) -> None:
 
 def assert_refusals(family: str) -> None:
     """A skipped shape raises ValueError as the reference does, unless
-    reduced; ``rules`` that is not None raises and names 13e-4."""
+    reduced; ``rules`` that is not an ``AxisRules`` (nor None) raises
+    TypeError, and an ``AxisRules`` gives a sharding for every
+    argument."""
     for arch in sorted({a for a, _ in family_cells(family)}):
         for shape in get_config(arch).skips:
             with pytest.raises(ValueError, match="skipped") as got:
@@ -168,5 +170,15 @@ def assert_refusals(family: str) -> None:
             assert TS.build_cell(arch, shape, reduced=True).shape_name \
                 == shape
     arch, shape = family_cells(family)[0]
-    with pytest.raises(NotImplementedError, match="13e-4"):
+    with pytest.raises(TypeError, match="AxisRules"):
         TS.build_cell(arch, shape, rules=object())
+    from repro_torch.common import tree_leaves
+    from repro_torch.distributed.meshrules import AxisRules, NamedSharding
+
+    class _OneByOne:
+        mesh_dim_names, shape = ("data", "model"), (1, 1)
+
+    cell = TS.build_cell(arch, shape, rules=AxisRules(_OneByOne()))
+    shs = tree_leaves(cell.in_shardings,
+                      lambda x: isinstance(x, NamedSharding))
+    assert len(shs) == len(tree_leaves(cell.args))
