@@ -377,8 +377,14 @@ the card):
    route_64k at batch 1,024 (each cut and its reckoning in
    ``reduced``), each built with the ``AxisRules`` of a NCCL world of
    one (a 1x1 ``DeviceMesh`` on the card, ``launch/mesh.make_mesh``),
-   a sharding for every argument, and its step profiled;
-   flash_attention (28), budget_route and embedding_bag must launch.
+   a sharding for every argument, its arguments placed as DTensors
+   (``specs.place_args``) and its step run under the rules: outputs
+   bit-equal to the same step with ``rules=None``, no collective
+   (``CommDebugMode``), the DTensor step's time beside the plain one's,
+   and the plain step profiled; flash_attention (28, through
+   ``local_map``), budget_route (replicated) and embedding_bag (by row
+   range) must launch through their DTensor branches
+   (``dtensor_launches`` in the kernels line).
 24. mesh: the mesh layer's one-card half. Beside each of those 17 runs
    with rules, the dry run of the same cell on a 1x1 mesh
    (``launch/dryrun.run_cell``, made in a cpu child, ``mesh_dry_runs``,
@@ -5912,8 +5918,9 @@ def phase_cells(recsys_cuts: dict, rules) -> tuple:
           "tolerance": CELL_TOL,
           "full_width": [{k: r[k] for k in FULL_WIDTH_KEYS} for r in full],
           "full_width_launches": full_counts, "launches": counts,
+          "collectives": sum(r["collectives"] for r in full),
           "reduced": reduced, "phase_s": time.perf_counter() - t_phase})
-    return counts, full
+    return counts, full, full_counts
 
 
 # -------------------------------------------------------------- mesh
@@ -5954,20 +5961,39 @@ def free_tcp_port() -> int:
 #: the keys of a full-width row that phase cells prints (phase mesh
 #: prints every key)
 FULL_WIDTH_KEYS = ("cell", "kind", "dims", "note", "build_s", "step_ms",
-                   "peak_gb", "held_before_gb", "launches")
+                   "plain_step_ms", "mesh_step_ms",
+                   "bit_equal_to_rules_none", "collectives", "peak_gb",
+                   "held_before_gb", "launches")
+
+
+def pieces(t, n: int = 1 << 28) -> tuple:
+    """``t`` flattened, in pieces of ``n`` elements: a check of each
+    piece allocates the piece's temporaries, not the whole tensor's (a
+    full-width decode's cache beside its copy leaves no room for a
+    bool of its size)."""
+    return t.reshape(-1).split(n)
 
 
 def full_width_row(label, build, arch, shape, rules) -> tuple:
     """One full-width cell built on the card with ``rules`` (a world of
-    one) and its step run once under them: every argument with a
-    sharding, finite outputs, the card's peak above the memory held
-    before the build (read before the finite check allocates
-    temporaries of the outputs' size); then the step's device time from
-    the profiler. Returns (the row, the first step's launches)."""
+    one), its arguments placed as DTensors on the world's 1x1 mesh
+    (``specs.place_args``, views of the same tensors) and its step run
+    once under the rules: every argument with a sharding, finite
+    outputs, the card's peak above the memory held before the build
+    (read before the finite check allocates temporaries of the outputs'
+    size), no collective (``CommDebugMode``); then the step on the plain
+    arguments with ``rules=None`` (its own copy of those the step
+    overwrites) must give the same bits, and a second DTensor step is
+    timed beside it; then the plain step's device time from the
+    profiler. Returns (the row, the DTensor step's
+    launches)."""
     import torch
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
 
-    from repro_torch.common import tree_leaves
+    from repro_torch.common import tree_leaves, tree_map
     from repro_torch.distributed.meshrules import NamedSharding, use_rules
+    from repro_torch.launch.specs import place_args
 
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -5976,23 +6002,60 @@ def full_width_row(label, build, arch, shape, rules) -> tuple:
     shs = tree_leaves(cell.in_shardings,
                       lambda x: isinstance(x, NamedSharding))
     assert len(shs) == len(tree_leaves(cell.args)), label
+    placed = place_args(cell)
+    # the plain step's own copy of what a step overwrites (a decode's
+    # cache, which the DTensor step writes through its views of
+    # ``cell.args``), so the two results compared share no storage; its
+    # bytes are taken off the step's peak (the peak is the build's or
+    # the step's, whichever is higher)
+    held, build_peak = (torch.cuda.memory_allocated(),
+                        torch.cuda.max_memory_allocated())
+    plain_args = tuple(
+        tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
+                 a) if i in cell.donate_argnums else a
+        for i, a in enumerate(cell.args))
+    copy_bytes = torch.cuda.memory_allocated() - held
+    torch.cuda.reset_peak_memory_stats()
     c0 = read_counts()
+    with use_rules(rules), CommDebugMode() as comm:
+        out, step_s = synced(lambda: cell.fn(*placed))
+    peak = max(build_peak, torch.cuda.max_memory_allocated() - copy_bytes)
+    launches = {k: v - c0[k] for k, v in read_counts().items()}
+    collectives = comm.get_total_counts()
+    assert collectives == 0, (label, comm.get_comm_counts())
+    got = [t.to_local() if isinstance(t, DTensor) else t
+           for t in tree_leaves(out)]
+    assert all(isinstance(t, DTensor) for t in tree_leaves(out)
+               if isinstance(t, torch.Tensor)), label
+    leaves = [t for t in got
+              if isinstance(t, torch.Tensor) and t.is_floating_point()]
+    assert leaves and all(bool(torch.isfinite(c).all())
+                          for t in leaves for c in pieces(t)), label
+    del out, leaves
+    want, plain_s = synced(lambda: tree_leaves(cell.fn(*plain_args)))
+    del plain_args
+    assert len(got) == len(want), label
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, label
+        if g.is_floating_point():
+            g, w = g.view(torch.uint8), w.view(torch.uint8)
+        assert all(torch.equal(a, b) for a, b in zip(pieces(g), pieces(w))
+                   ), f"{label}: rules=None differs"
+    del got, want
     with use_rules(rules):
-        out, step_s = synced(lambda: cell.fn(*cell.args))
-        peak = torch.cuda.max_memory_allocated()
-        launches = {k: v - c0[k] for k, v in read_counts().items()}
-        leaves = [t for t in tree_leaves(out)
-                  if isinstance(t, torch.Tensor) and t.is_floating_point()]
-        assert leaves and all(bool(torch.isfinite(t).all())
-                              for t in leaves), label
-        del out, leaves
+        mesh_s = synced(lambda: cell.fn(*placed))[1]
+    del placed
+    with use_rules(rules):
         t0 = time.perf_counter()
         # the device time: ``reps`` steps in one profiler session (a
         # one-step session of a small step has come back with none or
         # some of its kernels on an H100 host), again when it saw none;
         # the steps write no state a second run reads differently (a
         # decode writes the same keys and values into the same slot)
-        reps = max(1, min(PROFILE_REPS, int(PROFILE_S / max(step_s, 1e-6))))
+        # (counted from the warm plain step: the first, DTensor, step
+        # holds DTensor's sharding-propagation warm-up)
+        reps = max(1, min(PROFILE_REPS,
+                          int(PROFILE_S / max(plain_s, 1e-6))))
         for attempt in range(1, PROFILE_ATTEMPTS + 1):
             prof = device_profile(
                 lambda: [cell.fn(*cell.args) for _ in range(reps)])
@@ -6006,6 +6069,8 @@ def full_width_row(label, build, arch, shape, rules) -> tuple:
             "shardings": len(shs),
             "specs": sorted({repr(s.spec) for s in shs}),
             "build_s": build_s, "step_ms": step_s * 1e3,
+            "plain_step_ms": plain_s * 1e3, "mesh_step_ms": mesh_s * 1e3,
+            "bit_equal_to_rules_none": True, "collectives": collectives,
             "peak_gb": peak / 1e9, "held_before_gb": base / 1e9,
             "measured_peak_bytes": peak - base,
             "device_ms": prof["device_ms"] / reps,
@@ -6090,6 +6155,8 @@ def phase_mesh(mesh_rows: list, dry: dict) -> None:
                      "t_memory_ms": d["t_memory"] * 1e3,
                      "t_memory_raw_ms": d["t_memory_raw"] * 1e3,
                      "bottleneck": d["bottleneck"],
+                     "coll_bytes": d["coll_bytes"],
+                     "t_collective": d["t_collective"],
                      "bound_share": bound_s * 1e3 / r["device_ms"],
                      "fits_hbm": d["fits_hbm"],
                      "flops_by_dtype": d["flops_by_dtype"],
@@ -6305,7 +6372,8 @@ def main() -> int:
             rank=0, world_size=1,
             device_id=torch.device("cuda", torch.cuda.current_device()))
         rules = AxisRules(make_mesh((1, 1), ("data", "model"), "cuda"))
-        cell_counts, mesh_rows = phase_cells(recsys_cuts, rules)
+        cell_counts, mesh_rows, dtensor_counts = phase_cells(recsys_cuts,
+                                                             rules)
         path_counts.append(cell_counts)
         dist.destroy_process_group()
         phase_mesh(mesh_rows, finish_phase(dry_child,
@@ -6349,6 +6417,7 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/{src_dir}/csrc/{src_dir}.cu",
             "replaces": src,
             "launches": sum(c.get(name, 0) for c in path_counts),
+            "dtensor_launches": dtensor_counts.get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rows
                                if r["name"] == name),
             "ms": row["ms"], "ms_device": row["ms_device"],

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import EncoderConfig
+from repro_torch.distributed.meshrules import is_dtensor, like_local
 from repro_torch.kernels.budget_route import budget_route
 from repro_torch.models.encoder import Encoder
 
@@ -129,9 +130,10 @@ def make_route_step(alpha: float, cheap_idx: int = 0,
 
     ``selected_idx`` is (⌊α·B⌋,) int32 source rows, -1-filled past
     ``count``; ``routed_tokens`` is the compacted (⌊α·B⌋, S) gather.
+    It runs under ``no_grad`` (DTensors have no inference tensors).
     """
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def route_step(encoder: Encoder, tokens, mask, valid_logit):
         b = tokens.shape[0]
         pred = encoder.predict_accuracies(tokens, mask)               # (B, m)
@@ -140,14 +142,16 @@ def make_route_step(alpha: float, cheap_idx: int = 0,
                           torch.full_like(imp, CLS1_OVERRIDE), imp)
         routed_tokens, sel_idx, count = budget_route(
             imp.contiguous(), tokens, alpha)
-        # scatter the compacted indices back to a (B,) mask (-1 -> dropped)
+        # scatter the compacted indices back to a (B,) mask (-1 ->
+        # dropped); on a mesh every rank holds the whole plan
+        idx = sel_idx.to_local() if is_dtensor(sel_idx) else sel_idx
         sel_mask = torch.zeros((b + 1,), dtype=torch.bool,
                                device=tokens.device)
-        sel_mask[torch.where(sel_idx >= 0, sel_idx, b).long()] = True
+        sel_mask[torch.where(idx >= 0, idx, b).long()] = True
         return {
             "pred_acc": pred,
             "improvement": imp,
-            "selected_mask": sel_mask[:b],
+            "selected_mask": like_local(sel_mask[:b], sel_idx, (b,)),
             "selected_idx": sel_idx,
             "routed_tokens": routed_tokens,
             "count": count,

@@ -27,6 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.meshrules import (is_dtensor, like_local,
+                                               replicated, whole_dims)
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels import meta as meta_lib
 from repro_torch.kernels.budget_route import autotune
@@ -194,7 +196,16 @@ def budget_route(scores, tokens, alpha: float, *,
                  require_positive: bool = True):
     """scores (N,) f32, tokens (N, D), routing fraction ``alpha`` ->
     (routed (⌊αN⌋, D), idx (⌊αN⌋,) int32, count () int32). CPU tensors
-    run the plain version, CUDA tensors the kernel."""
+    run the plain version, CUDA tensors the kernel. DTensors are made
+    whole (the α-budget is global over the rows) and every rank routes
+    them alike: the outputs are replicated DTensors, every rank's plan
+    the same."""
+    if is_dtensor(scores) or is_dtensor(tokens):
+        s, t = (whole_dims(replicated(x), range(x.ndim))
+                for x in (scores, tokens))
+        outs = budget_route(s.to_local(), t.to_local(), alpha,
+                            require_positive=require_positive)
+        return tuple(like_local(o, s, o.shape) for o in outs)
     n = scores.shape[0]
     capacity = capacity_floor(alpha, n)
     if capacity == 0:

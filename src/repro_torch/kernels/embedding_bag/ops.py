@@ -40,6 +40,8 @@ import math
 
 import torch
 
+from repro_torch.distributed.meshrules import (is_dtensor, refuse_dtensor,
+                                               replicated, whole_dims)
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels import meta as meta_lib
 from repro_torch.kernels.cuda_lib import I, L, P
@@ -124,6 +126,7 @@ def vec_bytes(element_size: int, *multiples: int) -> int:
 def embedding_bag(table, ids, weights=None, *, combiner: str = "sum"):
     """table (R, D) f32/bf16; ids (B, L) int32/int64; weights (B, L) f32
     or None (ones) -> (B, D) in the table's dtype."""
+    refuse_dtensor("embedding_bag", table, ids, weights)
     _check(table, ids, weights, combiner)
     if table.device.type == "cpu":
         if weights is None:
@@ -152,6 +155,7 @@ def embedding_bag_backward(grad, ids, rows: int):
     dtype: ids wrap from the end, ids outside [-rows, rows) add nothing,
     and each row's adds are rounded to the dtype in ascending position
     order."""
+    refuse_dtensor("embedding_bag_backward", grad, ids)
     if grad.dim() != 2 or grad.dtype not in _TABLE_DTYPES:
         raise ValueError(f"embedding_bag_backward: grad must be (N, D) "
                          f"float32 or bfloat16 (got {tuple(grad.shape)} "
@@ -240,11 +244,55 @@ def lookup(table, ids):
     the table's dtype (``jnp.take``: wrapped ids, a NaN row outside
     [-R, R)), differentiable with respect to the table through
     ``embedding_bag_backward``. One forward and one backward launch on
-    the card."""
+    the card. A DTensor table or ids run ``_lookup_sharded``."""
     if ids.dim() != 1:
         raise ValueError(f"lookup: ids must be (N,) (got "
                          f"{tuple(ids.shape)})")
+    if is_dtensor(table) or is_dtensor(ids):
+        return _lookup_sharded(table, ids)
     return _Lookup.apply(table, ids)
+
+
+def _lookup_sharded(table, ids):
+    """``lookup`` of a DTensor table whose rows are cut over mesh dims
+    (``table_rows``): the ids are made whole on every rank, each rank
+    looks up through ``embedding_bag`` on its own shard only the ids in
+    its row range (the others masked to local row 0 before the launch,
+    since the kernel clamps an id past the shard onto its last row,
+    another rank's row, and zeroed after it), and the result is a
+    partial sum over those mesh dims (one owner a row; the caller's
+    ``shard_hint`` sums it). An id outside [-R, R) is a NaN row, written
+    by the first row shard alone, as ``jnp.take`` gives it. Forward
+    only: the mesh's backward is the next slice's."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    if torch.is_grad_enabled() and table.requires_grad:
+        raise NotImplementedError("lookup: no backward on a DTensor table")
+    table = whole_dims(replicated(table), (1,))
+    if is_dtensor(ids):
+        ids = ids.full_tensor()
+    if not is_dtensor(table):
+        return lookup(table, ids)
+    mesh, placements = table.device_mesh, table.placements
+    shape, offset = compute_local_shape_and_global_offset(
+        table.shape, mesh, placements)
+    r, lo, n = table.shape[0], offset[0], shape[0]
+    flat = ids.long()
+    flat = torch.where(flat < 0, flat + r, flat)
+    mine = (flat >= lo) & (flat < lo + n)
+    # the rules cut a table's rows only where they divide: n >= 1
+    rows = embedding_bag(table.to_local(), torch.where(
+        mine, flat - lo, 0).to(ids.dtype).view(-1, 1), None, combiner="sum")
+    rows = torch.where(mine[:, None], rows, 0)
+    if lo == 0 and table.is_floating_point():
+        rows = torch.where(((flat < 0) | (flat >= r))[:, None],
+                           float("nan"), rows)
+    out = [Partial("sum") if isinstance(p, Shard) else p for p in placements]
+    return DTensor.from_local(rows, mesh, out, run_check=False,
+                              shape=torch.Size((ids.shape[0], table.shape[1])),
+                              stride=(table.shape[1], 1))
 
 
 class _SegmentSum(torch.autograd.Function):
@@ -278,6 +326,7 @@ def segment_sum(msgs, ids, n: int):
     scatter-add adds; ids outside [0, n) add nothing. Differentiable with
     respect to msgs. One ``embedding_bag_backward`` launch on the card
     (its plain version on the CPU), none in the backward."""
+    refuse_dtensor("segment_sum", msgs, ids)
     if ids.dim() != 1 or msgs.dim() < 1 or ids.shape[0] != msgs.shape[0]:
         raise ValueError(f"segment_sum: ids must be (E,) with E = "
                          f"msgs.shape[0] (got ids {tuple(ids.shape)}, msgs "

@@ -25,6 +25,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.distributed.meshrules import refuse_dtensor
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels import meta as meta_lib
 from repro_torch.kernels.cuda_lib import I, P
@@ -155,6 +156,7 @@ def fast_features(tok, n_tok, first_len, n_pages, n_empty, *,
               latex_lo=latex_lo, ident_lo=ident_lo, vocab_size=vocab_size,
               bos=bos)
     scalars = (n_tok, first_len, n_pages, n_empty)
+    refuse_dtensor("fast_features", tok, *scalars)
     _check(tok, scalars, max_len, vocab_size)
     if tok.device.type == "cpu":
         return fast_features_ref(tok, *scalars, **kw)

@@ -19,6 +19,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.distributed.meshrules import is_dtensor, replicated
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels import meta as meta_lib
 from repro_torch.kernels.cuda_lib import F, I, L, P
@@ -110,7 +111,10 @@ def _launch(q, k, v, out, *, causal: bool, window: int | None) -> None:
 def flash_attention(q, k, v, *, causal=True, window=None):
     """q (B, Sq, H, D); k, v (B, Skv, Hk, D); H % Hk == 0. Query head h
     attends with KV head h // (H // Hk); causal positions start at 0 for
-    queries and keys, and the window keeps ``qpos - kpos < window``."""
+    queries and keys, and the window keeps ``qpos - kpos < window``.
+    DTensors run ``_sharded``."""
+    if any(is_dtensor(t) for t in (q, k, v)):
+        return _sharded(q, k, v, causal=causal, window=window)
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -122,3 +126,46 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     if out.numel():
         _launch(q, k, v, out, causal=causal, window=window)
     return out
+
+
+def _sharded(q, k, v, *, causal: bool, window):
+    """``flash_attention`` on DTensors through ``local_map``: each rank
+    calls the op on its local q, k and v, which the mesh may cut over the
+    batch and head dims only (a launch on a sequence or ``d_head`` shard
+    would number positions or sum dot products wrongly: refused, as is a
+    partial sum). Where q's heads are cut over a mesh dim, k and v are
+    cut over it the same way when their heads divide (a rank's q heads
+    h then read kv heads h // G of its own shard); otherwise q's heads
+    are gathered on that dim. The output has q's placements."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    q, k, v = (replicated(t) for t in (q, k, v))
+    if not all(is_dtensor(t) for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k and v must all be DTensors "
+                         "or all plain")
+    mesh = q.device_mesh
+    for t in (q, k, v):
+        if any(not isinstance(p, (Shard, Replicate)) or
+               (isinstance(p, Shard) and p.dim % 4 in (1, 3))
+               for p in t.placements):
+            raise ValueError(f"flash_attention: placements {t.placements}: "
+                             f"only the batch and head dims may be sharded")
+    qp, kp = list(q.placements), list(k.placements)
+    for i, (a, b) in enumerate(zip(qp, kp)):
+        if a == b:
+            continue
+        if a == Shard(2) and k.shape[2] % mesh.size(i) == 0:
+            kp[i] = Shard(2)
+        elif a == Shard(0) or b == Shard(0):
+            qp[i] = kp[i] = Shard(0) if q.shape[0] % mesh.size(i) == 0 \
+                else Replicate()
+        else:
+            qp[i] = kp[i] = Replicate()
+    q = q.redistribute(mesh, qp)
+    k, v = (t.redistribute(mesh, kp) for t in (k, v))
+    fn = local_map(lambda a, b, c: flash_attention(a, b, c, causal=causal,
+                                                   window=window),
+                   out_placements=qp, in_placements=(qp, kp, kp),
+                   device_mesh=mesh)
+    return fn(q, k, v)

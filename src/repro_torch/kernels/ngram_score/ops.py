@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.meshrules import refuse_dtensor
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels import meta as meta_lib
 from repro_torch.kernels.cuda_lib import I, P
@@ -76,6 +77,7 @@ def ngram_bleu(ref, hyp, ref_len, hyp_len, *, max_n: int = 4,
     from the kernel on CUDA tensors (``threads`` a block; None: the
     tuned winner for the shape, else the default), float64 from the
     plain version on CPU tensors."""
+    refuse_dtensor("ngram_bleu", ref, hyp, ref_len, hyp_len)
     _check(ref, hyp, ref_len, hyp_len, max_n)
     if ref.device.type == "cpu":
         return ngram_bleu_ref(ref, hyp, ref_len, hyp_len, max_n=max_n)

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.meshrules import refuse_dtensor
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels import meta as meta_lib
 from repro_torch.kernels.cuda_lib import I, L, P
@@ -104,6 +105,7 @@ def _launch(xg, w, dst, out, *, n_nodes: int) -> None:
 def segment_matmul_kernel(x_gathered, w, dst_sorted, *, n_nodes: int):
     """x_gathered (E, D_in) = x[src] in dst order; w (D_in, D_out);
     dst_sorted (E,) ascending -> (n_nodes, D_out) float32."""
+    refuse_dtensor("segment_matmul", x_gathered, w, dst_sorted)
     _check(x_gathered, w, dst_sorted, n_nodes)
     if x_gathered.device.type == "cpu":
         return segment_matmul_ref(x_gathered, w, dst_sorted, n_nodes=n_nodes)
@@ -128,6 +130,7 @@ def segment_matmul_kernel(x_gathered, w, dst_sorted, *, n_nodes: int):
 def segment_matmul(x, src, dst, w, *, n_nodes: int):
     """Full message-passing step: out[d] = sum_{e: dst_e = d} x[src_e] @ W.
     Sorts edges by dst (stable) before the fused kernel."""
+    refuse_dtensor("segment_matmul", x, src, dst, w)
     order = torch.argsort(dst, stable=True)
     xg = embed_lookup(x, src[order])
     return segment_matmul_kernel(xg, w, dst[order], n_nodes=n_nodes)

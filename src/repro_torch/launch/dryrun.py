@@ -24,17 +24,27 @@ between, so for each cell it
    arguments are cut into over the ``pod`` and ``data`` dims; the
    ``model`` dim is not counted). Both are reckonings, not
    measurements;
-3. records ``per_device_mem`` = argument shards + temporaries, whether
+3. for a forward cell (serve, prefill, decode, route), runs the step
+   once more on the mesh itself: its arguments as meta DTensors
+   (``specs.place_args``) under ``use_rules``, on the fake backend,
+   which sends nothing; ``roofline.CollCounter`` counts each collective
+   a rank issues by kind (``coll_costs``), and ``t_collective`` takes
+   them at ``mesh.NVLINK_BW``. A mesh of more than 8 cards crosses
+   nodes, whose links are slower, so that term is a lower bound. Train
+   and GNN cells run on the mesh in a later slice: ``coll_bytes`` None;
+4. records ``per_device_mem`` = argument shards + temporaries, whether
    it fits the card's 80 GB (``fits_hbm``; ``mem_gb`` in 1e9 bytes) and
-   the roofline terms (``coll_bytes`` and ``t_collective`` are None:
-   a meta run has no collectives).
+   the roofline terms.
 
 ``--no-costing`` skips step 2: FLOPs, bytes and temporaries are None and
 ``per_device_mem`` holds the argument shards alone. An LM's meta run is
 two runs, of one and of two layers, extrapolated to its depth
 (``costing_plan``, ``scan_corrected`` True), as the reference extrapolates
-its costing compiles. With ``--both`` each cell's meta run is made once
-and read on both meshes.
+its costing compiles; the collectives of an LM are counted the same
+way, with the reference's coarse attention chunks for a sequence of 16k
+or more (2,048 queries and 4,096 keys a block, its ``costing_plan``'s:
+the block loop sends nothing, so only its op count changes). With
+``--both`` each cell's meta run is made once and read on both meshes.
 
 The production meshes are ``DeviceMesh``es on torch's fake backend
 (``launch/mesh.fake_world``), started when ``main`` or ``run_cell``
@@ -213,6 +223,41 @@ def step_costs(arch, shape) -> dict:
     return out
 
 
+def runs_on_mesh(arch, shape) -> bool:
+    """Whether the cell's step runs on DTensors in this slice: every
+    forward cell; train cells and the GNN's (all train) wait for the
+    mesh's backward."""
+    return shape.kind != "train" and arch.family != "gnn"
+
+
+def coll_costs(arch, shape, rules: AxisRules) -> dict | None:
+    """Per-device collective bytes by kind of one step of the cell on
+    ``rules``' mesh (``roofline.CollCounter`` over the step on meta
+    DTensors), through ``costing_plan`` as ``step_costs``; None for a
+    cell that does not run on the mesh yet (``runs_on_mesh``)."""
+    from repro_torch.distributed.meshrules import use_rules
+    from repro_torch.launch import specs
+
+    if not runs_on_mesh(arch, shape):
+        return None
+    plan = costing_plan(arch)
+    if plan is None:
+        plan = [(arch.model, 1.0)]
+    elif shape.dims.get("seq_len", 0) >= 16384 and shape.kind == "prefill":
+        plan = [(dataclasses.replace(m, q_chunk=2048, kv_chunk=4096), c)
+                for m, c in plan]
+    out = {k: 0.0 for k in rl.COLL_KINDS}
+    for model, coef in plan:
+        cell = specs.build_cell_for(dataclasses.replace(arch, model=model),
+                                    shape, rules, True)
+        counter = rl.CollCounter()
+        with use_rules(rules), counter:
+            cell.fn(*specs.place_args(cell))
+        for k, v in counter.bytes.items():
+            out[k] += coef * v
+    return {k: max(v, 0.0) for k, v in out.items()}
+
+
 def run_cell(arch_id: str, shape_name: str, multi_pod: bool = False,
              costing: bool = True, verbose: bool = True, mesh=None,
              arch=None, shape=None, cache: dict | None = None) -> dict:
@@ -244,6 +289,7 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool = False,
             costs = step_costs(arch, shape)
             if cache is not None:
                 cache[key] = costs
+    coll = coll_costs(arch, shape, rules) if costing else None
     shards = batch_shards(cell, rules)
     temp = None if costs is None else -(-costs["temp_bytes"] // shards)
     per_dev = arg_bytes + (temp or 0)
@@ -257,7 +303,7 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool = False,
     rec = rl.Roofline(
         arch=arch_id, shape=shape_name, mesh=mesh_name, chips=chips,
         flops=per_chip("flops"), hbm_bytes=per_chip("hbm_bytes"),
-        coll_bytes=None, per_device_mem=int(per_dev),
+        coll_bytes=coll, per_device_mem=int(per_dev),
         model_flops=rl.model_flops_for(arch_id, shape_name, arch, shape),
         hbm_bytes_fused=per_chip("hbm_bytes_fused"),
         flops_by_dtype=by_dtype).to_dict()

@@ -95,6 +95,10 @@ def fake_world(world_size: int):
 
 def fake_production_mesh(*, multi_pod: bool = False):
     """A production mesh on the fake backend: starts a fake world of 512
-    (both meshes fit in it) unless a group is running."""
+    (both meshes fit in it) unless a group is running. The mesh is typed
+    as the cards' (``cuda``), so DTensor lowers a reshard to the
+    collective NCCL would run (an all-to-all, where a ``cpu`` mesh falls
+    back to an all-gather); its tensors are meta, and nothing touches a
+    device."""
     init_fake_world(512)
-    return make_production_mesh(multi_pod=multi_pod)
+    return make_production_mesh(multi_pod=multi_pod, device_type="cuda")

@@ -28,9 +28,15 @@ every aten op of one step run on ``meta`` tensors and records
   an op made, from its making until the last tensor on it dies
   (arguments excluded); with ``trace``, the live bytes after every op.
 
-A meta run has no collectives, so ``coll_bytes`` and ``t_collective``
-are None (never 0) and ``bottleneck`` picks between compute and memory;
-they are counted once the models run on DTensors.
+``CollCounter`` (another dispatch mode) counts the collectives of one
+step run on meta DTensors on the mesh (the dry run's forward cells):
+the output bytes of every functional collective a rank issues, by the
+reference's kinds (``all-gather``, ``all-reduce``, ``reduce-scatter``,
+``all-to-all``, ``collective-permute``), as the reference sums the
+output shapes of the HLO's collectives. ``t_collective`` takes them at
+the NVLink rate; a cell with no count (a train or GNN cell, whose mesh
+run is a later slice's) has ``coll_bytes`` None (never 0), and
+``bottleneck`` then picks between compute and memory.
 """
 from __future__ import annotations
 
@@ -84,6 +90,51 @@ def _tensors(x) -> list[torch.Tensor]:
 
 def _bytes(ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+#: the reference's collective kinds, by the functional collectives' names
+COLL_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+              "collective-permute")
+_COLL_OPS = {"all_gather_into_tensor": "all-gather",
+             "all_gather_into_tensor_coalesced": "all-gather",
+             "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+             "reduce_scatter_tensor": "reduce-scatter",
+             "reduce_scatter_tensor_coalesced": "reduce-scatter",
+             "all_to_all_single": "all-to-all",
+             "shard_dim_alltoall": "all-to-all"}
+_COLL_NAMESPACES = ("_c10d_functional", "c10d_functional", "_dtensor")
+
+
+class CollCounter(TorchDispatchMode):
+    """The bytes of every collective the ops inside it issue, by kind
+    (``COLL_KINDS``): each functional collective's output bytes on this
+    rank. A DTensor op is let through first (``NotImplemented``), so the
+    collectives it lowers to are seen on the local tensors."""
+
+    def __init__(self):
+        super().__init__()
+        from torch.distributed.tensor import DTensor
+
+        self._dtensor = DTensor
+        self.bytes = {k: 0 for k in COLL_KINDS}
+        self.calls = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if isinstance(func, torch._ops.HigherOrderOperator):
+            return func(*args, **(kwargs or {}))
+        if any(issubclass(t, self._dtensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        if func.namespace in _COLL_NAMESPACES:
+            name = func._overloadpacket.__name__
+            if name in _COLL_OPS:
+                kind = _COLL_OPS[name]
+                self.bytes[kind] += _bytes(_tensors(out))
+                self.calls += 1
+            elif name not in ("wait_tensor", "_wrap_tensor_autograd"):
+                raise NotImplementedError(f"CollCounter: unknown "
+                                          f"collective {func}")
+        return out
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -191,7 +242,7 @@ class Roofline:
     chips: int
     flops: float | None           # per-device FLOPs (the ideal partition)
     hbm_bytes: float | None       # per-device bytes, every op unfused
-    coll_bytes: dict | None       # None: a meta run has no collectives
+    coll_bytes: dict | None       # per-device bytes by kind; None: not run
     per_device_mem: int           # argument shards + reckoned temporaries
     model_flops: float = 0.0      # 6*N*D (or family analogue)
     hbm_bytes_fused: float | None = None  # heavy ops' bytes only

@@ -18,10 +18,12 @@ across with the ``*_from_jax_params`` functions). Given ``rules`` (a
 ``in_shardings``: a tree of ``meshrules.NamedSharding`` matching its
 arguments (params from the inits' logical axes, the optimizer state
 from ``_opt_state_shardings``, the batch from ``_batch_shardings``, the
-step and position replicated); the step itself runs as without rules
-(the models do not run on DTensors yet). A meta argument stands for a
-value its step reads on the host (a decode position, the step number)
-by the concrete cell's value (``_host_int``).
+step and position replicated), and ``place_args`` lays its arguments
+out on the mesh as DTensors, on which a forward cell's step runs under
+``meshrules.use_rules`` (a train cell's waits for the mesh's backward).
+A meta argument stands for a value its step reads on the host (a
+decode position, the step number) by the concrete cell's value
+(``_host_int``).
 
 Params are dict trees (a recsys MLP is a list of layer dicts; the
 router's ``Encoder`` module is carried as the JAX package's raw dict,
@@ -50,7 +52,8 @@ from repro_torch.configs.base import (ArchConfig, EncoderConfig, GNNConfig,
                                       VitParserConfig, get_config, round_up)
 from repro_torch.core.dpo import dpo_loss
 from repro_torch.core.router import make_route_step
-from repro_torch.distributed.meshrules import AxisRules
+from repro_torch.distributed.meshrules import (AxisRules, NamedSharding,
+                                               from_local, is_dtensor)
 from repro_torch.models import vit_parser as vp_lib
 from repro_torch.models.attention import KVCache
 from repro_torch.models.encoder import Encoder, _named_params, init_encoder
@@ -314,7 +317,16 @@ def _encoder_of(encoders: dict, cfg: EncoderConfig, params: dict,
                 slot: int = 0) -> Encoder:
     """An ``Encoder`` on the tree's device (one kept per device and
     ``slot`` in ``encoders``) holding a copy of ``router_param_tree``
-    params."""
+    params; DTensor params are bound as its parameters, not copied
+    (a plain parameter cannot hold a DTensor's value)."""
+    if is_dtensor(params["tok_embed"]):
+        enc = Encoder(cfg, "meta")
+        for name, i, _ in list(_named_params(enc)):
+            owner = enc if i is None else enc.layers[i]
+            owner.p[name] = torch.nn.Parameter(
+                params[name] if i is None else params["layers"][name][i],
+                requires_grad=False)
+        return enc
     dev = params["tok_embed"].device
     if (dev, slot) not in encoders:
         encoders[dev, slot] = Encoder(cfg, dev)
@@ -1073,6 +1085,40 @@ def build_cell_for(arch: ArchConfig, shape: ShapeConfig, rules=None,
     else:
         raise ValueError(arch.family)
     return build(arch, shape, rules, abstract, seed, device)
+
+
+def place_tensor(t: torch.Tensor, sharding: NamedSharding):
+    """``t`` (the whole value, the same on every rank) as a DTensor laid
+    out by ``sharding``: each rank keeps a view of its own shard, cut as
+    DTensor cuts it, and nothing is sent (every rank built the same
+    cell). A meta ``t`` gives a meta DTensor whose local tensor has the
+    shard's shape (the dry run's collectives)."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    mesh, placements = sharding.mesh, sharding.placements
+    shape, offset = compute_local_shape_and_global_offset(
+        t.shape, mesh, placements)
+    if t.is_meta:
+        local = torch.empty(shape, dtype=t.dtype, device="meta")
+    else:
+        local = t[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+        local = local.contiguous()
+    return from_local(local, mesh, placements, t.shape)
+
+
+def place_args(cell: Cell) -> tuple:
+    """The cell's arguments as DTensors on its rules' mesh, each leaf
+    laid out by its ``in_shardings`` (``place_tensor``): the counterpart
+    of ``jax.jit(fn, in_shardings=...)``'s placement. Run the step on
+    them under ``meshrules.use_rules(rules)``. Non-tensor leaves are
+    kept; ``donate_argnums`` are the cell's."""
+    if cell.in_shardings is None:
+        raise ValueError(f"{cell.arch_id}/{cell.shape_name}: the cell was "
+                         f"built without rules")
+    return tuple(tree_map(
+        lambda t, s: place_tensor(t, s) if isinstance(t, torch.Tensor)
+        else t, arg, sh) for arg, sh in zip(cell.args, cell.in_shardings))
 
 
 def all_cells() -> list[tuple[str, str]]:

@@ -28,14 +28,23 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.distributed.meshrules import (einsum, from_local,
+                                               is_dtensor, local_op,
+                                               replicated, shard_hint,
+                                               whole_dims)
 from repro_torch.kernels.flash_attention import ops as fa_ops
 
 NEG_INF = -1e30
 
 
 def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
-    """(B, S, H, D) -> (B, S, Hk, G, D)."""
+    """(B, S, H, D) -> (B, S, Hk, G, D). A DTensor whose heads are cut
+    over more shards than Hk divides into gathers its heads first."""
     b, s, h, d = q.shape
+    if is_dtensor(q) and any(
+            getattr(p, "dim", None) == 2 and n_kv % q.device_mesh.size(i)
+            for i, p in enumerate(q.placements)):
+        q = whole_dims(q, (2,))
     return q.reshape(b, s, n_kv, h // n_kv, d)
 
 
@@ -54,7 +63,7 @@ def _mask_bias(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
 def _pv(p: torch.Tensor, v: torch.Tensor, spec: str) -> torch.Tensor:
     """The PV product of ``p`` rounded to v's dtype, accumulated in
     float32 (the rounded operands are exact in float32)."""
-    return torch.einsum(spec, p.to(v.dtype).float(), v.float())
+    return einsum(spec, p.to(v.dtype).float(), v.float())
 
 
 # ---------------------------------------------------------------------------
@@ -68,7 +77,7 @@ def attention_naive(q, k, v, *, causal=True, window=None,
     _, skv, hk, _ = k.shape
     qg = _group(q, hk)
     scale = 1.0 / math.sqrt(d)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+    s = einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
     qpos = q_offset + torch.arange(sq, device=q.device)
     kpos = torch.arange(skv, device=q.device)
     s = s + _mask_bias(qpos, kpos, causal, window)
@@ -109,29 +118,45 @@ def attention_xla_flash(q, k, v, *, causal=True, window=None,
     g = h // hk
     cq, ck = min(q_chunk, sq), min(kv_chunk, skv)
     pq, pk = (-sq) % cq, (-skv) % ck      # padded keys are masked below
-    q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pq))
-    k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pk))
-    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pk))
+
+    def pad(t, n):
+        return local_op(lambda u: torch.nn.functional.pad(
+            u, (0, 0, 0, 0, 0, n)), t, (1,),
+            (t.shape[0], t.shape[1] + n) + tuple(t.shape[2:]))
+
+    q, k, v = pad(q, pq), pad(k, pk), pad(v, pk)
     n_q, n_k = (sq + pq) // cq, (skv + pk) // ck
     if g > 1:
         k = k.repeat_interleave(g, dim=2)
         v = v.repeat_interleave(g, dim=2)
-    # (n, B, H, C, D)
-    qb = q.reshape(b, n_q, cq, h, d).permute(1, 0, 3, 2, 4)
-    kb = k.reshape(b, n_k, ck, h, d).permute(1, 0, 3, 2, 4)
-    vb = v.reshape(b, n_k, ck, h, d).permute(1, 0, 3, 2, 4)
+    # (n, B, H, C, D): on a mesh the batch and head dims are sharded and
+    # the block and in-block dims whole, so a pair's blocks are local
+    blk = (None, "batch", "heads", None, None)
+    qb = shard_hint(q.reshape(b, n_q, cq, h, d).permute(1, 0, 3, 2, 4), *blk)
+    kb = shard_hint(k.reshape(b, n_k, ck, h, d).permute(1, 0, 3, 2, 4), *blk)
+    vb = shard_hint(v.reshape(b, n_k, ck, h, d).permute(1, 0, 3, 2, 4), *blk)
     scale = 1.0 / math.sqrt(d)
     dev = q.device
     # each query block's running (o, m, l), rebound on every visible pair
     # and stacked once at the end: no in-place write, so autograd can
     # differentiate through the loop
-    acc_o = [torch.zeros((b, h, cq, d), dtype=torch.float32, device=dev)] * n_q
-    acc_m = [torch.full((b, h, cq), NEG_INF, dtype=torch.float32,
-                        device=dev)] * n_q
-    acc_l = [torch.zeros((b, h, cq), dtype=torch.float32, device=dev)] * n_q
+    acc_o = [shard_hint(replicated(torch.zeros(
+        (b, h, cq, d), dtype=torch.float32, device=dev)), *blk[1:])] * n_q
+    acc_m = [shard_hint(replicated(torch.full(
+        (b, h, cq), NEG_INF, dtype=torch.float32, device=dev)),
+        *blk[1:4])] * n_q
+    acc_l = [shard_hint(replicated(torch.zeros(
+        (b, h, cq), dtype=torch.float32, device=dev)), *blk[1:4])] * n_q
+    sharded = qb if is_dtensor(qb) else None
+    if sharded is not None:
+        # each rank runs the pair loop on its own batch and head shard
+        qb, kb, vb, acc_o, acc_m, acc_l = (
+            t.to_local() if is_dtensor(t) else t
+            for t in (qb, kb, vb, acc_o[0], acc_m[0], acc_l[0]))
+        acc_o, acc_m, acc_l = [acc_o] * n_q, [acc_m] * n_q, [acc_l] * n_q
     for i, j in _visible_pairs(n_q, n_k, cq, ck, causal, window,
                                q_offset).tolist():
-        s = torch.einsum("bhqd,bhkd->bhqk", qb[i].float(),
+        s = einsum("bhqd,bhkd->bhqk", qb[i].float(),
                          kb[j].float()) * scale
         qpos = q_offset + i * cq + torch.arange(cq, device=dev)
         kpos = j * ck + torch.arange(ck, device=dev)
@@ -151,8 +176,16 @@ def attention_xla_flash(q, k, v, *, causal=True, window=None,
         acc_m[i] = m_new
     acc_o, acc_l = torch.stack(acc_o), torch.stack(acc_l)
     out = acc_o / torch.clamp(acc_l[..., None], min=1e-30)
-    out = out.permute(1, 0, 3, 2, 4).reshape(b, n_q * cq, h, d)
-    return out[:, :sq].to(q.dtype)
+    out = out.permute(1, 0, 3, 2, 4)
+    out = out.reshape(out.shape[0], n_q * cq, out.shape[3], d)[:, :sq]
+    out = out.to(q.dtype)
+    if sharded is None:
+        return out
+    # the blocks' (n, B, H, C, D) placements on the output's (B, S, H, D)
+    from torch.distributed.tensor import Shard
+    place = [Shard({1: 0, 2: 2}[p.dim]) if isinstance(p, Shard) else p
+             for p in sharded.placements]
+    return from_local(out, sharded.device_mesh, place, (b, sq, h, d))
 
 
 # ---------------------------------------------------------------------------
@@ -215,9 +248,36 @@ def cache_update(cache_k, cache_v, new_k, new_v, pos: int):
     ``cache_k``/``cache_v`` in place (a decode step would otherwise copy
     the whole cache) and returns them."""
     start = min(max(int(pos), 0), cache_k.shape[1] - new_k.shape[1])
-    cache_k[:, start:start + new_k.shape[1]] = new_k.to(cache_k.dtype)
-    cache_v[:, start:start + new_v.shape[1]] = new_v.to(cache_v.dtype)
+    for cache, new in ((cache_k, new_k), (cache_v, new_v)):
+        if is_dtensor(cache):
+            _write_rows_local(cache, new.to(cache.dtype), start)
+        else:
+            cache[:, start:start + new.shape[1]] = new.to(cache.dtype)
     return cache_k, cache_v
+
+
+def _write_rows_local(cache, new, start: int) -> None:
+    """``cache[:, start:start + T] = new`` on a DTensor cache, in place on
+    each rank's shard: ``new`` is laid out as the cache is but whole along
+    the sequence dim, and each rank writes the rows its shard holds (the
+    cache's own layout is kept; no rank writes another's rows)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    want = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+            for p in cache.placements]
+    if not is_dtensor(new):
+        new = replicated(new)
+    if is_dtensor(new):
+        new = new.redistribute(cache.device_mesh, want).to_local()
+    local = cache.to_local()
+    shape, offset = compute_local_shape_and_global_offset(
+        cache.shape, cache.device_mesh, cache.placements)
+    lo, hi = max(start, offset[1]), min(start + new.shape[1],
+                                         offset[1] + shape[1])
+    if lo < hi:
+        local[:, lo - offset[1]:hi - offset[1]] = new[:, lo - start:hi - start]
 
 
 def decode_attention(q, cache_k, cache_v, pos: int,
@@ -230,6 +290,9 @@ def decode_attention(q, cache_k, cache_v, pos: int,
     b, _, h, d = q.shape
     s_max = cache_k.shape[1]
     pos = int(pos)
+    # on a mesh the one query's heads are gathered (a few bytes), so the
+    # products' merged batch dims are cut over one mesh dim at most
+    q = whole_dims(q, (2,))
     if window is not None and window < s_max:
         w = window
         start = min(max(pos - (w - 1), 0), s_max - w)
@@ -242,7 +305,7 @@ def decode_attention(q, cache_k, cache_v, pos: int,
     hk = k_slc.shape[2]
     qg = _group(q, hk)
     scale = 1.0 / math.sqrt(d)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k_slc.float()) * scale
+    s = einsum("bqhgd,bkhd->bhgqk", qg.float(), k_slc.float()) * scale
     ok = kpos <= pos
     if window is not None:
         ok &= kpos > pos - window

@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_lib
 from repro_torch.configs.base import EncoderConfig
+from repro_torch.distributed.meshrules import einsum, gathered, shard_hint
 from repro_torch.models.attention import NEG_INF
 from repro_torch.models.layers import (embed_lookup, from_numpy, gelu,
                                       layer_norm, torch_dtype as _dtype)
@@ -101,26 +102,35 @@ class EncoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor,
                 cfg: EncoderConfig) -> torch.Tensor:
-        p = self.p
+        p = gathered(dict(self.p))
         cdt = _dtype(cfg.compute_dtype)
-        q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cdt))
-        k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(cdt))
-        v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(cdt))
+        # the seq-cut stream whole over seq for the products (a layout
+        # of the port's own: DTensor cuts them best from a whole seq)
+        x = shard_hint(x, "batch", None, "d_model")
+        q = einsum("bsd,dhk->bshk", x, p["wq"].to(cdt))
+        k = einsum("bsd,dhk->bshk", x, p["wk"].to(cdt))
+        v = einsum("bsd,dhk->bshk", x, p["wv"].to(cdt))
         dh = q.shape[-1]
         # compute-dtype operands are exact in float32, so this is the
         # float32-accumulated product preferred_element_type=f32 gives
-        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        s = einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
             * dh ** -0.5
+        # heads (12) do not divide model=16: the score tensor shards its
+        # query dim instead
+        s = shard_hint(s, "batch", None, "seq", None)
         s = s + bias[:, None, None, :]
         prob = torch.softmax(s, dim=-1).to(cdt)
-        o = torch.einsum("bhqk,bkhd->bqhd", prob, v)
-        o = torch.einsum("bqhd,hdm->bqm", o, p["wo"].to(cdt))
-        x = layer_norm(x + o, p["ln1_s"], p["ln1_b"], cfg.norm_eps)
-        h = gelu(torch.einsum("bsd,df->bsf", x, p["w_in"].to(cdt))
+        o = einsum("bhqk,bkhd->bqhd", prob, v)
+        o = einsum("bqhd,hdm->bqm", o, p["wo"].to(cdt))
+        x = shard_hint(layer_norm(x + o, p["ln1_s"], p["ln1_b"],
+                                  cfg.norm_eps), "batch", None, "d_model")
+        h = gelu(einsum("bsd,df->bsf", x, p["w_in"].to(cdt))
                  + p["b_in"].to(cdt))
-        h = torch.einsum("bsf,fd->bsd", h, p["w_out"].to(cdt)) \
+        h = shard_hint(h, "batch", None, "d_ff")
+        h = einsum("bsf,fd->bsd", h, p["w_out"].to(cdt)) \
             + p["b_out"].to(cdt)
-        return layer_norm(x + h, p["ln2_s"], p["ln2_b"], cfg.norm_eps)
+        return shard_hint(layer_norm(x + h, p["ln2_s"], p["ln2_b"],
+                                     cfg.norm_eps), "batch", "seq", "d_model")
 
 
 class Encoder(nn.Module):
@@ -143,7 +153,7 @@ class Encoder(nn.Module):
     def encode(self, tokens: torch.Tensor,
                mask: torch.Tensor | None = None) -> torch.Tensor:
         """tokens (B, S) -> pooled CLS representation (B, D)."""
-        cfg, p = self.cfg, self.p
+        cfg, p = self.cfg, gathered(dict(self.p))
         cdt = _dtype(cfg.compute_dtype)
         b, s = tokens.shape
         if mask is None:
@@ -152,6 +162,7 @@ class Encoder(nn.Module):
         x = embed_lookup(p["tok_embed"].to(cdt), tokens)
         x = x + p["pos_embed"][:s].to(cdt)[None]
         x = layer_norm(x, p["ln_embed_s"], p["ln_embed_b"], cfg.norm_eps)
+        x = shard_hint(x, "batch", "seq", "d_model")
         bias = torch.where(mask > 0, 0.0, NEG_INF).float()
         remat = cfg.remat and torch.is_grad_enabled()
         for layer in self.layers:
@@ -162,8 +173,9 @@ class Encoder(nn.Module):
     def predict_accuracies(self, tokens, mask=None) -> torch.Tensor:
         """(B, S) tokens -> (B, m) predicted per-parser accuracy in [0, 1]."""
         pooled = self.encode(tokens, mask)
-        out = pooled @ self.p["head_w"].to(pooled.dtype) \
-            + self.p["head_b"].to(pooled.dtype)
+        p = gathered(dict(self.p))
+        out = pooled @ p["head_w"].to(pooled.dtype) \
+            + p["head_b"].to(pooled.dtype)
         return torch.sigmoid(out.float())
 
     forward = predict_accuracies
@@ -171,8 +183,9 @@ class Encoder(nn.Module):
     def preference_score(self, tokens, mask=None) -> torch.Tensor:
         """g_phi(x): positive scalar preference density (B,) for DPO."""
         pooled = self.encode(tokens, mask)
-        z = pooled @ self.p["pref_w"].to(pooled.dtype) \
-            + self.p["pref_b"].to(pooled.dtype)
+        p = gathered(dict(self.p))
+        z = pooled @ p["pref_w"].to(pooled.dtype) \
+            + p["pref_b"].to(pooled.dtype)
         return torch.nn.functional.softplus(z.float())[:, 0] + 1e-6
 
     def regression_loss(self, batch: dict) -> torch.Tensor:

@@ -24,6 +24,8 @@ import torch.nn.functional as F
 from repro_torch import device as device_lib
 from repro_torch.common import (Param, normal_init, ones_init, param, unwrap,
                                 zeros_init)
+from repro_torch.distributed.meshrules import (is_dtensor, shard_hint,
+                                               whole_dims)
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -152,12 +154,12 @@ def dense(x: torch.Tensor, p: dict,
           out_hint: tuple[str | None, ...] | None = None) -> torch.Tensor:
     """``x @ w`` (w cast to x's dtype), plus ``b`` in the product's
     dtype when the layer has one. ``out_hint`` names the output's logical
-    axes for the mesh layer; on one card it does nothing, as the
-    reference's ``shard_hint`` does with no rules in force."""
-    del out_hint
+    axes (``meshrules.shard_hint``; nothing with no rules in force)."""
     y = x @ p["w"].to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
+    if out_hint is not None:
+        y = shard_hint(y, *out_hint)
     return y
 
 
@@ -250,10 +252,17 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor, *,
     if mode not in ("fill", "clip"):
         raise ValueError(f"embed_lookup: mode must be fill or clip "
                          f"(got {mode!r})")
+    if is_dtensor(ids):
+        # the ids whole on every rank, so the range check below gives
+        # every rank the same answer and the gather sees a plain index
+        ids = ids.full_tensor()
     r = table.shape[0]
     flat = ids.reshape(-1).long()
     flat = torch.where(flat < 0, flat + r, flat)
     rows = F.embedding(flat.clamp(0, max(r - 1, 0)), table.reshape(r, -1))
+    # a row-sharded table gives masked partial sums tied to this shape:
+    # sum them before any view
+    rows = whole_dims(rows, ())
     rows = rows.view((-1,) + tuple(table.shape[1:]))
     # a meta lookup (the dry run) has no ids to test: its shape is the
     # same whether any row is filled or not
@@ -262,6 +271,11 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor, *,
         if bool(oob.any()):
             fill = (float("nan") if table.is_floating_point()
                     else torch.iinfo(table.dtype).min)
-            rows.masked_fill_(oob.view((-1,) + (1,) * (table.dim() - 1)),
-                              fill)
+            mask = oob.view((-1,) + (1,) * (table.dim() - 1))
+            if is_dtensor(rows):
+                # a row-sharded table's rows are partial sums: no write
+                # in place
+                rows = torch.where(mask, fill, rows)
+            else:
+                rows.masked_fill_(mask, fill)
     return rows.view(tuple(ids.shape) + tuple(table.shape[1:]))

@@ -28,9 +28,17 @@ combine run inside ``record_function`` ranges named ``moe.dispatch``,
 ``moe.experts`` and ``moe.combine``, so a profiler can split a
 forward's device time by them.
 
-The reference's mesh branch (``_moe_shardmap``: tokens on their data
-shard, expert weights tensor-parallel over "model") is not ported: the
-port's ``moe_ffn`` runs on one device and has no mesh branch.
+Under mesh rules (``distributed/meshrules``) on a mesh of more than one
+device, or with DTensor activations, ``moe_ffn`` runs ``_moe_shardmap``,
+the reference's ``shard_map``: tokens on their data shard, expert
+weights tensor-parallel on their ``d_ff`` over "model" ("expert
+slicing"), ``_moe_local`` on each rank's local tensors, then one sum of
+``y`` over "model" and the mean of ``aux`` over the data dims, as
+functional collectives. The capacity is each data shard's own, as in
+the reference, so a mesh with more than one data shard routes
+differently from one device. The budget router on a mesh with a
+"model" dim raises, as the reference's ``shard_map`` does (its partial
+sums are never summed over "model"; ROADMAP §3).
 """
 from __future__ import annotations
 
@@ -43,6 +51,8 @@ from torch.profiler import record_function
 
 from repro_torch.common import normal_init, param, unwrap
 from repro_torch.configs.base import MoEConfig
+from repro_torch.distributed.meshrules import (current_rules, is_dtensor,
+                                               replicated)
 from repro_torch.kernels.order import total_order_key
 from repro_torch.models.layers import swiglu, torch_dtype
 
@@ -108,9 +118,75 @@ def _expert_ffn(buf: torch.Tensor, p: dict) -> torch.Tensor:
 
 def moe_ffn(x: torch.Tensor, p: dict, cfg: MoEConfig):
     """x (B, S, D) -> (y (B, S, D) in x's dtype, aux float32 scalar).
-    One device: the reference's mesh branch is not ported."""
+    Under rules of a mesh of more than one device, or on DTensors, the
+    mesh branch (``_moe_shardmap``)."""
+    rules = current_rules()
+    if rules is not None and (rules.size > 1 or is_dtensor(x)):
+        return _moe_shardmap(x, p, cfg, rules)
     b, s, d = x.shape
     y, aux = _moe_local(x.reshape(b * s, d), p, cfg)
+    return y.reshape(b, s, d), aux
+
+
+def _moe_shardmap(x: torch.Tensor, p: dict, cfg: MoEConfig, rules):
+    """The reference's ``_moe_shardmap`` on DTensors: the tokens (B * S,
+    D) laid out on ``tok_spec`` (sharded over the mesh's pod and data
+    dims), ``router`` replicated and ``w_gate``/``w_up``/``w_down``
+    sharded on their ``d_ff`` over "model" (the ``w_specs``), each as
+    shard_map's ``in_specs`` lay them out; ``_moe_local`` on every
+    rank's local tensors; ``y`` summed over "model" and ``aux``
+    averaged over the data dims. Returns y as a DTensor on ``tok_spec``
+    reshaped to (B, S, D) and aux replicated. On a mesh of one device
+    there is nothing to send and this is ``_moe_local`` on the whole
+    tensors."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh, sizes = rules.mesh, rules.shape
+    names = list(sizes)
+    data_axes = [a for a in ("pod", "data") if a in sizes]
+    has_model = "model" in sizes
+    if cfg.router == "budget" and has_model and rules.size > 1:
+        raise ValueError(
+            "moe budget router on a mesh with a 'model' dim: its y is a "
+            "partial sum over 'model' that is never summed, so shard_map's "
+            "out_specs cannot be met (the reference raises the same)")
+    b, s, d = x.shape
+    t = b * s
+    n_data = math.prod(sizes[a] for a in data_axes)
+    if b % n_data:
+        # batch-major tokens: a batch shard is then the token shard
+        # shard_map's tok_spec gives (every cell's batch divides)
+        raise ValueError(f"moe: batch {b} does not divide over the data "
+                         f"dims {data_axes} ({n_data} shards)")
+
+    def spec(shard: dict) -> list:
+        return [Shard(shard[a]) if a in shard and sizes[a] > 1
+                else Replicate() for a in names]
+
+    def local(v, placements):
+        v = replicated(v)
+        return v.redistribute(mesh, placements).to_local() \
+            if is_dtensor(v) else v
+
+    tok = spec({a: 0 for a in data_axes})
+    w_specs = {"router": spec({}), "w_gate": spec({"model": 2}),
+               "w_up": spec({"model": 2}), "w_down": spec({"model": 1})}
+    xt = local(x, tok).reshape(-1, d)
+    y, aux = _moe_local(xt, {k: local(v, w_specs[k]) for k, v in p.items()},
+                        cfg)
+    if has_model and sizes["model"] > 1:
+        y = funcol.wait_tensor(funcol.all_reduce(
+            y, "sum", (mesh, names.index("model"))))
+    if n_data > 1:
+        for a in data_axes:
+            if sizes[a] > 1:
+                aux = funcol.wait_tensor(funcol.all_reduce(
+                    aux, "sum", (mesh, names.index(a))))
+        aux = aux / n_data
+    y = DTensor.from_local(y, mesh, tok, run_check=False,
+                           shape=torch.Size((t, d)), stride=(d, 1))
+    aux = DTensor.from_local(aux, mesh, spec({}), run_check=False)
     return y.reshape(b, s, d), aux
 
 

@@ -19,6 +19,9 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.distributed.meshrules import (einsum, is_dtensor,
+                                               like_local, shard_hint,
+                                               whole_dims)
 from repro_torch.kernels.embedding_bag import ops as bag_ops
 from repro_torch.kernels.order import total_order_key
 from repro_torch.models.gnn.segment import scatter_sum_plain
@@ -62,7 +65,8 @@ def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 def lookup_fields(table: torch.Tensor, offsets: torch.Tensor,
                   ids: torch.Tensor) -> torch.Tensor:
     """ids (B, F) per-field local ids -> (B, F, D) embeddings."""
-    return take_rows(table, ids + offsets[None, :].to(ids.dtype))
+    return shard_hint(take_rows(table, ids + offsets[None, :].to(ids.dtype)),
+                      "batch", "fields", "embed_dim")
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
@@ -114,7 +118,13 @@ def retrieval_topk(query: torch.Tensor, item_table: torch.Tensor,
     """Score query (B, D) against all candidates (N, D) with one batched
     dot, return the top k (scores (B, k), ids (B, k) int64) in
     ``lax.top_k``'s order: IEEE total order, exact ties by lower id."""
-    scores = torch.einsum("bd,nd->bn", query, item_table.to(query.dtype))
-    idx = torch.sort(total_order_key(scores), dim=-1, descending=True,
+    scores = einsum("bd,nd->bn", query, item_table.to(query.dtype))
+    scores = shard_hint(scores, "batch", "candidates")
+    # the selection runs on each rank's rows with the candidates whole
+    whole = whole_dims(scores, (1,))
+    local = whole.to_local() if is_dtensor(whole) else whole
+    idx = torch.sort(total_order_key(local), dim=-1, descending=True,
                      stable=True).indices[:, :k]
-    return torch.gather(scores, 1, idx), idx
+    top = torch.gather(local, 1, idx)
+    shape = (scores.shape[0], idx.shape[1])
+    return like_local(top, whole, shape), like_local(idx, whole, shape)

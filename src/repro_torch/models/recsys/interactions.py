@@ -9,12 +9,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.meshrules import einsum
+
 
 def dot_interaction(vecs: torch.Tensor,
                     keep_self: bool = False) -> torch.Tensor:
     """DLRM pairwise dots. vecs (B, F, D) -> (B, F*(F-1)/2 [+F])."""
     f = vecs.shape[1]
-    g = torch.einsum("bfd,bgd->bfg", vecs, vecs)
+    g = einsum("bfd,bgd->bfg", vecs, vecs)
     iu, ju = torch.triu_indices(f, f, offset=0 if keep_self else 1,
                                 device=vecs.device)
     return g[:, iu, ju]
@@ -35,14 +37,14 @@ def autoint_layer(x: torch.Tensor, p: dict, n_heads: int) -> torch.Tensor:
     function's ``preferred_element_type``: a product of two bf16 values
     is exact in float32), the softmax is taken in float32 and cast back.
     """
-    q = torch.einsum("bfd,dhk->bfhk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bfd,dhk->bfhk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bfd,dhk->bfhk", x, p["wv"].to(x.dtype))
-    s = torch.einsum("bfhk,bghk->bhfg", q.float(), k.float())
+    q = einsum("bfd,dhk->bfhk", x, p["wq"].to(x.dtype))
+    k = einsum("bfd,dhk->bfhk", x, p["wk"].to(x.dtype))
+    v = einsum("bfd,dhk->bfhk", x, p["wv"].to(x.dtype))
+    s = einsum("bfhk,bghk->bhfg", q.float(), k.float())
     a = torch.softmax(s * (q.shape[-1] ** -0.5), dim=-1).to(x.dtype)
-    o = torch.einsum("bhfg,bghk->bfhk", a, v)
+    o = einsum("bhfg,bghk->bfhk", a, v)
     o = o.reshape(x.shape[0], x.shape[1], -1)
-    res = torch.einsum("bfd,de->bfe", x, p["w_res"].to(x.dtype))
+    res = einsum("bfd,de->bfe", x, p["w_res"].to(x.dtype))
     return F.relu(o + res)
 
 

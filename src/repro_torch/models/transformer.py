@@ -35,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import device as device_lib
 from repro_torch.common import default_generator, normal_init, param, unwrap, zeros_init
 from repro_torch.configs.base import LMConfig
+from repro_torch.distributed.meshrules import einsum, gathered, shard_hint
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import (apply_rope, cross_entropy_loss,
@@ -157,7 +158,9 @@ def _layers(params: dict) -> list[dict]:
     """Each layer's leaves (the experts' nested too), the stacked (L,
     ...) leaves taken apart once with ``unbind``: its backward stacks
     the L grads once, where indexing ``v[i]`` per layer would allocate a
-    zero tensor of the whole stacked leaf for every layer's grad."""
+    zero tensor of the whole stacked leaf for every layer's grad. The
+    steps take each layer through ``meshrules.gathered`` as its turn
+    comes (on a mesh, its weights gathered over the data dims)."""
     def split(tree):
         names = list(tree)
         cols = [split(tree[k]) if isinstance(tree[k], dict)
@@ -170,20 +173,26 @@ def _layers(params: dict) -> list[dict]:
 def _qkv(x, lp, cfg: LMConfig, positions):
     cdt = torch_dtype(cfg.compute_dtype)
     h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
-    q = torch.einsum("bsd,dhk->bshk", h, lp["wq"].to(cdt))
-    k = torch.einsum("bsd,dhk->bshk", h, lp["wk"].to(cdt))
-    v = torch.einsum("bsd,dhk->bshk", h, lp["wv"].to(cdt))
+    q = einsum("bsd,dhk->bshk", h, lp["wq"].to(cdt))
+    k = einsum("bsd,dhk->bshk", h, lp["wk"].to(cdt))
+    v = einsum("bsd,dhk->bshk", h, lp["wv"].to(cdt))
     if cfg.qk_norm:
         q = rms_norm(q, lp["q_norm"], cfg.norm_eps)
         k = rms_norm(k, lp["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    # seq whole here: the residual stream shards seq, attention gathers
+    # it and shards heads (Megatron TP)
+    q = shard_hint(q, "batch", None, "heads", "d_head")
+    k = shard_hint(k, "batch", None, "kv_heads", "d_head")
+    v = shard_hint(v, "batch", None, "kv_heads", "d_head")
     return q, k, v
 
 
-def _attn_out(x, o, lp):
-    o = torch.einsum("bshk,hkd->bsd", o, lp["wo"].to(o.dtype))
-    return x + o.to(x.dtype)
+def _attn_out(x, o, lp, hint=None):
+    o = einsum("bshk,hkd->bsd", o, lp["wo"].to(o.dtype))
+    o = o.to(x.dtype)
+    return x + (o if hint is None else hint(o))
 
 
 def _ffn_block(x, lp, cfg: LMConfig):
@@ -193,28 +202,42 @@ def _ffn_block(x, lp, cfg: LMConfig):
     if cfg.moe is not None:
         y, aux = moe_ffn(h, lp["moe"], cfg.moe)
         return y.to(x.dtype), aux
-    g = torch.einsum("bsd,df->bsf", h, lp["w_gate"].to(h.dtype))
-    u = torch.einsum("bsd,df->bsf", h, lp["w_up"].to(h.dtype))
-    y = torch.einsum("bsf,fd->bsd", swiglu(g, u), lp["w_down"].to(h.dtype))
+    g = einsum("bsd,df->bsf", h, lp["w_gate"].to(h.dtype))
+    u = einsum("bsd,df->bsf", h, lp["w_up"].to(h.dtype))
+    z = shard_hint(swiglu(g, u), "batch", "seq", "d_ff")
+    y = einsum("bsf,fd->bsd", z, lp["w_down"].to(h.dtype))
     return y.to(x.dtype), None
 
 
-def _prefill_layer(x, lp, cfg: LMConfig, positions):
-    """-> (x, k, v, aux) of one layer."""
-    q, k, v = _qkv(x, lp, cfg, positions)
+def _prefill_layer(x, lp, cfg: LMConfig, positions, stream: bool = False):
+    """-> (x, k, v, aux) of one layer. ``stream``: the training layer's
+    hints (the reference's ``_layer_fn``): the residual stream pinned
+    seq-sharded, and each branch's output resharded at its residual add;
+    else the prefill layer's one hint, on its output. Either way the
+    stream is gathered over seq once before attention and once before
+    the FFN (the reference's training layer does so; its prefill layer
+    leaves that to GSPMD, and DTensor's products are cut best from a
+    whole seq)."""
+    def hint(t, seq="seq"):
+        return shard_hint(t, "batch", seq, "d_model")
+
+    if stream:
+        x = hint(x)
+    q, k, v = _qkv(hint(x, None), lp, cfg, positions)
     o = attn_lib.attention(q, k, v, causal=True, window=cfg.sliding_window,
                            impl=cfg.attention_impl, q_chunk=cfg.q_chunk,
                            kv_chunk=cfg.kv_chunk)
-    x = _attn_out(x, o, lp)
-    y, aux = _ffn_block(x, lp, cfg)
-    return x + y, k, v, aux
+    x = _attn_out(x, o, lp, hint if stream else None)
+    y, aux = _ffn_block(hint(x, None), lp, cfg)
+    return hint(x + (hint(y) if stream else y)), k, v, aux
 
 
 def _head(params: dict, cfg: LMConfig, x):
     cdt = torch_dtype(cfg.compute_dtype)
     x = rms_norm(x, params["ln_final"], cfg.norm_eps)
-    head = params["lm_head"] if "lm_head" in params else params["embed"].T
-    return softcap(torch.einsum("bsd,dv->bsv", x, head.to(cdt)),
+    head = gathered(params["lm_head"] if "lm_head" in params
+                    else params["embed"].T)
+    return softcap(einsum("bsd,dv->bsv", x, head.to(cdt)),
                    cfg.logits_softcap)
 
 
@@ -235,19 +258,19 @@ def lm_logits(params: dict, cfg: LMConfig, tokens: torch.Tensor):
     and is recomputed in the backward pass, its aux included (the
     recompute routes exactly as the first pass: every op of the layer is
     deterministic)."""
-    x = _embed(params, cfg, tokens)
+    x = shard_hint(_embed(params, cfg, tokens), "batch", "seq", "d_model")
     positions = torch.arange(x.shape[1], device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in _layers(params):
+    for lp in map(gathered, _layers(params)):
         if remat:
             x, _, _, aux_l = checkpoint(_prefill_layer, x, lp, cfg,
-                                        positions, use_reentrant=False)
+                                        positions, True, use_reentrant=False)
         else:
-            x, _, _, aux_l = _prefill_layer(x, lp, cfg, positions)
+            x, _, _, aux_l = _prefill_layer(x, lp, cfg, positions, True)
         if aux_l is not None:
             aux = aux + aux_l
-    return _head(params, cfg, x), aux
+    return shard_hint(_head(params, cfg, x), "batch", "seq", "vocab"), aux
 
 
 def lm_loss(params: dict, cfg: LMConfig, batch: dict):
@@ -265,15 +288,17 @@ def prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor):
 
     Returns (last-position logits (B, V), KVCache of (L, B, S, Hk, Dh));
     the MoE aux loss is dropped, as the reference drops it."""
-    x = _embed(params, cfg, tokens)
+    x = shard_hint(_embed(params, cfg, tokens), "batch", "seq", "d_model")
     positions = torch.arange(tokens.shape[1], device=x.device)
     ks, vs = [], []
-    for lp in _layers(params):
+    for lp in map(gathered, _layers(params)):
         x, k, v, _ = _prefill_layer(x, lp, cfg, positions)
         ks.append(k)
         vs.append(v)
     logits = _head(params, cfg, x[:, -1:])[:, 0]
-    return logits, KVCache(torch.stack(ks), torch.stack(vs))
+    cache_axes = ("layers", "batch", "kv_seq", "kv_heads", "d_head")
+    return logits, KVCache(shard_hint(torch.stack(ks), *cache_axes),
+                           shard_hint(torch.stack(vs), *cache_axes))
 
 
 @torch.no_grad()
@@ -286,7 +311,7 @@ def decode_step(params: dict, cfg: LMConfig, tokens: torch.Tensor,
     and drops the aux loss, as the reference does."""
     x = _embed(params, cfg, tokens)
     positions = torch.full((tokens.shape[0], 1), int(pos), device=x.device)
-    for i, lp in enumerate(_layers(params)):
+    for i, lp in enumerate(map(gathered, _layers(params))):
         q, k, v = _qkv(x, lp, cfg, positions)
         ck, cv = attn_lib.cache_update(cache.k[i], cache.v[i], k, v, pos)
         o = attn_lib.decode_attention(q, ck, cv, pos,

@@ -47,6 +47,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import device as device_lib
 from repro_torch.common import default_generator, normal_init, param, unwrap, zeros_init
 from repro_torch.configs.base import VitParserConfig
+from repro_torch.distributed.meshrules import (einsum, gathered, local_op,
+                                               shard_hint, whole_dims)
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import (apply_rope, cross_entropy_loss,
@@ -223,26 +225,37 @@ def _window_attn(x, lp, cfg: VitParserConfig, shift: int):
     b, n, d = x.shape
     w = cfg.window
     pad = (-n) % w
-    x_sh = torch.roll(x, -shift, dims=1)
-    if pad:
-        x_sh = F.pad(x_sh, (0, 0, 0, pad))
+    x_sh = local_op(lambda t: F.pad(torch.roll(t, -shift, dims=1),
+                                    (0, 0, 0, pad)), x, (1,),
+                    (b, n + pad, d))
     xw = x_sh.reshape(b * ((n + pad) // w), w, d)
-    q = torch.einsum("bsd,dhk->bshk", xw, lp["wq"].to(xw.dtype))
-    k = torch.einsum("bsd,dhk->bshk", xw, lp["wk"].to(xw.dtype))
-    v = torch.einsum("bsd,dhk->bshk", xw, lp["wv"].to(xw.dtype))
+    q = einsum("bsd,dhk->bshk", xw, lp["wq"].to(xw.dtype))
+    k = einsum("bsd,dhk->bshk", xw, lp["wk"].to(xw.dtype))
+    v = einsum("bsd,dhk->bshk", xw, lp["wv"].to(xw.dtype))
     o = attn_lib.attention_naive(q, k, v, causal=False)
-    o = torch.einsum("bshk,hkd->bsd", o, lp["wo"].to(o.dtype))
+    o = einsum("bshk,hkd->bsd", o, lp["wo"].to(o.dtype))
     o = o.reshape(b, n + pad, d)[:, :n]
-    return torch.roll(o, shift, dims=1)
+    return local_op(lambda t: torch.roll(t, shift, dims=1), o, (1,),
+                    (b, n, d))
 
 
 def _enc_layer(x, lp, cfg: VitParserConfig, shift: int):
+    """One encoder layer; on a mesh the patch-cut stream is taken whole
+    over its patches into the window attention and the FFN (a layout of
+    the port's own: DTensor cuts their products best from whole
+    patches)."""
     cdt = torch_dtype(cfg.compute_dtype)
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+
+    def whole_patches(t):
+        return shard_hint(t, "pages", None, "d_model")
+
+    h = whole_patches(rms_norm(x, lp["ln1"], cfg.norm_eps))
     x = x + _window_attn(h, lp, cfg, shift)
-    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    h = gelu(torch.einsum("bnd,df->bnf", h, lp["w_in"].to(cdt)))
-    return x + torch.einsum("bnf,fd->bnd", h, lp["w_out"].to(cdt))
+    h = whole_patches(rms_norm(x, lp["ln2"], cfg.norm_eps))
+    h = gelu(einsum("bnd,df->bnf", h, lp["w_in"].to(cdt)))
+    h = shard_hint(h, "pages", "patches", "d_ff")
+    return shard_hint(x + einsum("bnf,fd->bnd", h, lp["w_out"].to(cdt)),
+                      "pages", "patches", "d_model")
 
 
 def encode_pages(params: dict, cfg: VitParserConfig,
@@ -250,12 +263,13 @@ def encode_pages(params: dict, cfg: VitParserConfig,
     """patches: (B_pages, n_patches, patch*patch*3) -> (B_pages, N, De).
     Layer i shifts its windows by ``window // 2`` when i is odd."""
     cdt = torch_dtype(cfg.compute_dtype)
-    x = torch.einsum("bnp,pd->bnd", patches.to(cdt),
-                     params["patch_proj"].to(cdt))
+    x = einsum("bnp,pd->bnd", patches.to(cdt),
+                     gathered(params["patch_proj"]).to(cdt))
     x = x + params["patch_pos"].to(cdt)[None]
+    x = shard_hint(x, "pages", "patches", "d_model")
     half = cfg.window // 2
     remat = cfg.remat and torch.is_grad_enabled()
-    for i, lp in enumerate(_layers(params["enc_layers"])):
+    for i, lp in enumerate(map(gathered, _layers(params["enc_layers"]))):
         shift = 0 if i % 2 == 0 else half
         x = (checkpoint(_enc_layer, x, lp, cfg, shift, use_reentrant=False)
              if remat else _enc_layer(x, lp, cfg, shift))
@@ -267,20 +281,25 @@ def encode_pages(params: dict, cfg: VitParserConfig,
 # ---------------------------------------------------------------------------
 
 
-def _ffn(x, lp, cfg: VitParserConfig):
+def _ffn(x, lp, cfg: VitParserConfig, hint: bool = False):
+    """The SwiGLU FFN and its residual add; ``hint``: the teacher-forced
+    layer's hints (``dec_step`` has none, as in the reference)."""
     cdt = torch_dtype(cfg.compute_dtype)
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    z = swiglu(torch.einsum("bsd,df->bsf", h, lp["w_gate"].to(cdt)),
-               torch.einsum("bsd,df->bsf", h, lp["w_up"].to(cdt)))
-    return x + torch.einsum("bsf,fd->bsd", z, lp["w_down"].to(cdt))
+    z = swiglu(einsum("bsd,df->bsf", h, lp["w_gate"].to(cdt)),
+               einsum("bsd,df->bsf", h, lp["w_up"].to(cdt)))
+    if hint:
+        z = shard_hint(z, "pages", "seq", "d_ff")
+    x = x + einsum("bsf,fd->bsd", z, lp["w_down"].to(cdt))
+    return shard_hint(x, "pages", "seq", "d_model") if hint else x
 
 
 def _self_qkv(x, lp, cfg: VitParserConfig, positions):
     cdt = torch_dtype(cfg.compute_dtype)
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    q = torch.einsum("bsd,dhk->bshk", h, lp["wq"].to(cdt))
-    k = torch.einsum("bsd,dhk->bshk", h, lp["wk"].to(cdt))
-    v = torch.einsum("bsd,dhk->bshk", h, lp["wv"].to(cdt))
+    q = einsum("bsd,dhk->bshk", h, lp["wq"].to(cdt))
+    k = einsum("bsd,dhk->bshk", h, lp["wk"].to(cdt))
+    v = einsum("bsd,dhk->bshk", h, lp["wv"].to(cdt))
     return (apply_rope(q, positions, ROPE_THETA),
             apply_rope(k, positions, ROPE_THETA), v)
 
@@ -295,22 +314,23 @@ def _dec_layer_fn(cfg: VitParserConfig, memory, positions, causal=True):
     def layer(x, lp):
         q, k, v = _self_qkv(x, lp, cfg, positions)
         o = attn_lib.attention(q, k, v, causal=causal, impl="naive")
-        x = x + torch.einsum("bshk,hkd->bsd", o, lp["wo"].to(cdt))
+        x = x + einsum("bshk,hkd->bsd", o, lp["wo"].to(cdt))
         h = rms_norm(x, lp["ln_x"], cfg.norm_eps)
-        q = torch.einsum("bsd,dhk->bshk", h, lp["xq"].to(cdt))
-        k = torch.einsum("bnd,dhk->bnhk", memory, lp["xk"].to(cdt))
-        v = torch.einsum("bnd,dhk->bnhk", memory, lp["xv"].to(cdt))
+        q = einsum("bsd,dhk->bshk", h, lp["xq"].to(cdt))
+        k = einsum("bnd,dhk->bnhk", memory, lp["xk"].to(cdt))
+        v = einsum("bnd,dhk->bnhk", memory, lp["xv"].to(cdt))
         o = attn_lib.attention_naive(q, k, v, causal=False)
-        x = x + torch.einsum("bshk,hkd->bsd", o, lp["xo"].to(cdt))
-        return _ffn(x, lp, cfg)
+        x = x + einsum("bshk,hkd->bsd", o, lp["xo"].to(cdt))
+        return _ffn(x, lp, cfg, hint=True)
 
     return layer
 
 
 def _head(params: dict, cfg: VitParserConfig, x):
     x = rms_norm(x, params["dec_ln"], cfg.norm_eps)
-    return torch.einsum("bsd,dv->bsv", x,
-                        params["lm_head"].to(torch_dtype(cfg.compute_dtype)))
+    return einsum("bsd,dv->bsv", x,
+                        gathered(params["lm_head"]).to(
+                            torch_dtype(cfg.compute_dtype)))
 
 
 def decode_logits(params: dict, cfg: VitParserConfig, memory: torch.Tensor,
@@ -322,7 +342,7 @@ def decode_logits(params: dict, cfg: VitParserConfig, memory: torch.Tensor,
     positions = torch.arange(tokens.shape[1], device=x.device)
     layer = _dec_layer_fn(cfg, memory, positions)
     remat = cfg.remat and torch.is_grad_enabled()
-    for lp in _layers(params["dec_layers"]):
+    for lp in map(gathered, _layers(params["dec_layers"])):
         x = (checkpoint(layer, x, lp, use_reentrant=False) if remat
              else layer(x, lp))
     return _head(params, cfg, x)
@@ -353,8 +373,11 @@ def cross_kv(params: dict, cfg: VitParserConfig, memory: torch.Tensor):
     ``memory`` (B, N, De): two (L, B, N, H, Dh) tensors in the compute
     dtype (what the parse_encode step returns)."""
     cdt = torch_dtype(cfg.compute_dtype)
-    return tuple(torch.einsum("bnd,ldhk->lbnhk", memory,
-                              params["dec_layers"][name].to(cdt))
+    memory = shard_hint(memory, "pages", None, "d_model")
+    return tuple(shard_hint(einsum("bnd,ldhk->lbnhk", memory,
+                                         gathered(params["dec_layers"][name])
+                                         .to(cdt)),
+                            "layers", "pages", "patches", "heads", "d_head")
                  for name in ("xk", "xv"))
 
 
@@ -382,19 +405,20 @@ def dec_step(params: dict, cfg: VitParserConfig, tok: torch.Tensor,
     cdt = torch_dtype(cfg.compute_dtype)
     x = embed_lookup(params["tok_embed"].to(cdt), tok)
     positions = torch.full((tok.shape[0], 1), int(pos), device=x.device)
-    for i, lp in enumerate(_layers(params["dec_layers"])):
+    for i, lp in enumerate(map(gathered, _layers(params["dec_layers"]))):
         q, k, v = _self_qkv(x, lp, cfg, positions)
         ck, cv = attn_lib.cache_update(state.cache.k[i], state.cache.v[i],
                                        k, v, pos)
         o = attn_lib.decode_attention(q, ck, cv, pos)
-        x = x + torch.einsum("bshk,hkd->bsd", o, lp["wo"].to(cdt))
+        x = x + einsum("bshk,hkd->bsd", o, lp["wo"].to(cdt))
         h = rms_norm(x, lp["ln_x"], cfg.norm_eps)
-        q = torch.einsum("bsd,dhk->bshk", h, lp["xq"].to(cdt))
-        s = torch.einsum("bqhd,bnhd->bhqn", q.float(), state.xk[i].float())
+        q = whole_dims(einsum("bsd,dhk->bshk", h, lp["xq"].to(cdt)),
+                       (2,))
+        s = einsum("bqhd,bnhd->bhqn", q.float(), state.xk[i].float())
         s = s * (q.shape[-1] ** -0.5)
         p = torch.softmax(s, dim=-1).to(cdt)
-        o = torch.einsum("bhqn,bnhd->bqhd", p, state.xv[i])
-        x = x + torch.einsum("bqhd,hdm->bqm", o, lp["xo"].to(cdt))
+        o = einsum("bhqn,bnhd->bqhd", p, state.xv[i])
+        x = x + einsum("bqhd,hdm->bqm", o, lp["xo"].to(cdt))
         x = _ffn(x, lp, cfg)
     return _head(params, cfg, x[:, -1:])[:, 0], state
 

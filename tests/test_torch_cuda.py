@@ -2101,6 +2101,59 @@ def test_cell_shardings_lay_out_every_argument_on_a_world_of_one(
         assert shard_hint(args[0], "batch") is args[0]
 
 
+@pytest.mark.parametrize("cell, kernel", [
+    ("qwen3-1.7b/prefill_32k", "flash_attention"),
+    ("dlrm-mlperf/serve_p99", "embedding_bag"),
+    ("adaparse-router/route_64k", "budget_route")])
+def test_forward_cells_on_dtensors_bit_equal_on_a_world_of_one(
+        dev, world_of_one, cell, kernel):
+    """A reduced forward cell built on the card, its arguments placed as
+    DTensors on the NCCL world of one (``specs.place_args``) and run
+    under the rules, gives the bits of the same cell with
+    ``rules=None``; its hand kernel launches through its DTensor branch
+    (the prefill's flash_attention with ``attention_impl="pallas"``),
+    and no collective runs."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.common import tree_leaves
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.meshrules import use_rules
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch import specs as S
+
+    arch_id, shape_name = cell.split("/")
+    arch, shape = S.cell_shape(arch_id, shape_name, reduced=True)
+    if arch.family == "lm":
+        arch = dataclasses.replace(arch, model=dataclasses.replace(
+            arch.model, attention_impl="pallas"))
+    if shape_name == "route_64k":       # a batch whose plan selects rows
+        shape = ShapeConfig(shape.name, shape.kind,
+                            {**shape.dims, "global_batch": 64})
+
+    def build(rules):
+        return S.build_cell_for(arch, shape, rules, abstract=False,
+                                device="cuda")
+
+    plain = build(None)
+    want = tree_leaves(plain.fn(*plain.args))
+    c = build(world_of_one)
+    before = cuda_lib.launch_counts().get(kernel, 0)
+    with use_rules(world_of_one), CommDebugMode() as comm:
+        got = tree_leaves(c.fn(*S.place_args(c)))
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts()[kernel] > before
+    assert comm.get_total_counts() == 0
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert isinstance(g, DTensor)
+        g = g.to_local()
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if g.is_floating_point():
+            g, w = g.view(torch.uint8), w.view(torch.uint8)
+        assert torch.equal(g, w)
+
+
 def test_kernel_meta_branches_give_the_kernels_shapes(dev):
     """Each wrapper's meta call returns the shapes and dtypes the kernel
     writes on the card, and launches nothing."""

@@ -206,13 +206,23 @@ def test_dryrun_both_meshes(tmp_path, capsys, arch, shape):
     assert rc == 0 and "FAIL" not in out and "0 failures" in out
     assert sorted(recs) == [f"{arch}__{shape}__pod1.json",
                             f"{arch}__{shape}__pod2.json"]
+    forward = shape not in ("train_4k", "molecule", "dpo_2k")
     for name, rec in recs.items():
         assert REFERENCE_KEYS <= set(rec)
-        assert rec["coll_bytes"] is None and rec["t_collective"] is None
+        # a forward cell's collectives on the mesh; a train or GNN cell
+        # has none counted yet: None, never 0
+        if forward:
+            assert set(rec["coll_bytes"]) == set(rl.COLL_KINDS)
+            assert sum(rec["coll_bytes"].values()) > 0
+            assert rec["t_collective"] == pytest.approx(
+                sum(rec["coll_bytes"].values()) / 450e9)
+        else:
+            assert rec["coll_bytes"] is None and rec["t_collective"] is None
         assert rec["chips"] == (512 if "pod2" in name else 256)
         assert rec["flops"] > 0 and rec["t_compute"] > 0
         assert rec["t_memory"] > 0 and rec["temp_bytes"] > 0
-        assert rec["bottleneck"] in ("compute", "memory")
+        assert rec["bottleneck"] in (("compute", "memory", "collective")
+                                     if forward else ("compute", "memory"))
         assert rec["per_device_mem"] == rec["arg_bytes"] + rec["temp_bytes"]
         assert rec["fits_hbm"] == (rec["per_device_mem"] <= 80e9)
         assert rec["scan_corrected"] == (arch == "qwen3-1.7b")
@@ -269,7 +279,82 @@ def test_run_cell_on_a_1x1_mesh(arch, shape):
     from repro_torch.common import tree_bytes
     assert rec["arg_bytes"] == tree_bytes(build_cell(arch, shape).args)
     assert rec["per_device_mem"] == rec["arg_bytes"] + rec["temp_bytes"]
-    assert rec["coll_bytes"] is None and rec["t_collective"] is None
+    # one device sends nothing: a forward cell counts zero bytes
+    if shape in ("train_4k", "molecule", "dpo_2k"):
+        assert rec["coll_bytes"] is None and rec["t_collective"] is None
+    else:
+        assert rec["coll_bytes"] == {k: 0.0 for k in rl.COLL_KINDS}
+        assert rec["t_collective"] == 0.0
+
+
+# one forward cell of each family that FAMILY_CELLS leaves out
+FORWARD_CELLS = [("qwen3-1.7b", "decode_32k"),
+                 ("adaparse-router", "route_64k")]
+
+
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["pod1", "pod2"])
+@pytest.mark.parametrize("arch, shape", FORWARD_CELLS)
+def test_forward_cells_count_their_collectives(fake_world_512, arch, shape,
+                                               multi_pod):  # noqa: F811
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_production_mesh
+
+    rec = dryrun.run_cell(arch, shape, multi_pod, costing=False,
+                          mesh=fake_production_mesh(multi_pod=multi_pod),
+                          verbose=False)
+    assert rec["coll_bytes"] is None          # no costing, no mesh run
+    from repro_torch.distributed.meshrules import AxisRules
+    from repro_torch.launch.specs import cell_shape
+
+    a, s = cell_shape(arch, shape)
+    coll = dryrun.coll_costs(a, s, AxisRules(
+        fake_production_mesh(multi_pod=multi_pod)))
+    assert set(coll) == set(rl.COLL_KINDS) and sum(coll.values()) > 0
+    assert coll["all-gather"] > 0
+
+
+@pytest.mark.parametrize("arch, shape", [
+    ("qwen3-1.7b", "train_4k"), ("equiformer-v2", "molecule"),
+    ("dlrm-mlperf", "train_batch"), ("nougat-base", "train_pages"),
+    ("adaparse-router", "sft_4k")])
+def test_train_and_gnn_cells_count_no_collectives_yet(fake_world_512, arch,
+                                                      shape):  # noqa: F811
+    from repro_torch.distributed.meshrules import AxisRules
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_production_mesh
+    from repro_torch.launch.specs import cell_shape
+
+    a, s = cell_shape(arch, shape)
+    assert not dryrun.runs_on_mesh(a, s)
+    assert dryrun.coll_costs(a, s, AxisRules(fake_production_mesh())) \
+        is None
+
+
+def test_collectives_extrapolate_from_one_and_two_layers(fake_world_512):
+    """An LM's collective bytes from its one- and two-layer runs equal a
+    three-layer model's own run, kind by kind (the layers are alike, as
+    ``extrapolated_peak`` takes them)."""
+    import dataclasses
+
+    from repro_torch.distributed.meshrules import AxisRules, use_rules
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_production_mesh
+    from repro_torch.launch.specs import build_cell_for, cell_shape, \
+        place_args
+
+    rules = AxisRules(fake_production_mesh())
+    a, s = cell_shape("qwen3-1.7b", "decode_32k")
+    a3 = dataclasses.replace(a, model=dataclasses.replace(a.model,
+                                                          n_layers=3))
+    ex = dryrun.coll_costs(a3, s, rules)
+    cell = build_cell_for(a3, s, rules, True)
+    whole = rl.CollCounter()
+    with use_rules(rules), whole:
+        cell.fn(*place_args(cell))
+    assert sum(whole.bytes.values()) > 0
+    for k in rl.COLL_KINDS:
+        assert ex[k] == pytest.approx(whole.bytes.get(k, 0.0), rel=1e-9,
+                                      abs=1e-3)
 
 
 def test_dryrun_import_starts_no_process_group():

@@ -59,20 +59,61 @@ for mp in (False, True):
 """
 
 
-def run_jax_child(body: str, timeout: float = 300.0):
-    """Run ``body`` (which fills ``out``) in a child interpreter with 512
-    host devices; returns ``out`` read back from JSON."""
+def _jax_env(devices: int) -> dict:
+    return dict(os.environ,
+                XLA_FLAGS=f"--xla_force_host_platform_device_count={devices}",
+                JAX_PLATFORMS="cpu",
+                PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+
+
+def run_jax_child(body: str, timeout: float = 300.0, devices: int = 512):
+    """Run ``body`` (which fills ``out``) in a child interpreter with
+    ``devices`` host devices; returns ``out`` read back from JSON."""
     script = ("import json, sys\nimport numpy as np\n"
               + textwrap.dedent(body)
               + "\njson.dump(out, sys.stdout)\n")
-    env = dict(os.environ,
-               XLA_FLAGS="--xla_force_host_platform_device_count=512",
-               JAX_PLATFORMS="cpu",
-               PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    proc = subprocess.run([sys.executable, "-c", script], env=env,
-                          capture_output=True, text=True, timeout=timeout)
+    proc = subprocess.run([sys.executable, "-c", script],
+                          env=_jax_env(devices), capture_output=True,
+                          text=True, timeout=timeout)
     assert proc.returncode == 0, proc.stderr[-3000:]
     return json.loads(proc.stdout)
+
+
+def start_jax_child(body: str, devices: int = 4, inputs=None):
+    """Start ``body`` (which reads ``INPUTS`` and fills ``out`` with
+    numpy leaves) in a child interpreter with ``devices`` host devices;
+    ``finish_jax_child`` of the handle returns ``out``. Both cross as
+    pickles; the child runs beside whatever the caller does next."""
+    import pickle
+    import tempfile
+
+    path = tempfile.mkstemp(suffix=".pkl")[1]
+    with open(path, "wb") as f:
+        pickle.dump(inputs, f)
+    script = ("import pickle, sys\nimport numpy as np\n"
+              + f"INPUTS = pickle.load(open({path!r}, 'rb'))\n"
+              + textwrap.dedent(body)
+              + f"\npickle.dump(out, open({path!r}, 'wb'))\n")
+    proc = subprocess.Popen([sys.executable, "-c", script],
+                            env=_jax_env(devices), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, path
+
+
+def finish_jax_child(handle, timeout: float = 300.0):
+    import pickle
+
+    proc, path = handle
+    try:
+        _, err = proc.communicate(timeout=timeout)
+        assert proc.returncode == 0, err[-3000:]
+        with open(path, "rb") as f:
+            return pickle.load(f)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        os.unlink(path)
 
 
 @pytest.fixture(scope="module")
